@@ -1,0 +1,139 @@
+"""The compression tap: an identity that fake-quantizes the feature map on
+the way forward (tag ``forward_autograd``) and the gradient map on the way
+backward (tag ``backward_autograd``).
+
+Counterpart of ``smart_quantization_tpu/inject/tap.py``, as a
+``torch.autograd.Function``: the gradient is straight-through, d(tap)/dx ==
+the quantized incoming gradient.  The two directions get separate seeds,
+drawn from the step's host generator when the forward runs, so the backward
+draws do not depend on the order autograd visits the taps in.
+
+Sizes go to the step's :class:`SizeTotals` as device tensors; no tap reads a
+value back to the host, so PyTorch needs none of the JAX package's
+telemetry-token plumbing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from smart_quantization_tpu_torch.compress.base import CompressorBase, SizeStats, SizeTotals
+from smart_quantization_tpu_torch.inject.policy import DEFAULT_POLICY, LayerKind, TapPolicy
+
+
+@dataclasses.dataclass
+class TapContext:
+    """What one forward pass of a tapped model needs: the host generator the
+    taps draw their seeds from, and where sizes go (None: not recorded)."""
+
+    gen: torch.Generator
+    sizes: SizeTotals | None = None
+
+
+def _generator(seed: int) -> torch.Generator:
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return gen
+
+
+class _CompressionTap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, compressor, compress_forward, compress_backward,
+                seed_fwd, seed_bwd, sizes):
+        ctx.compressor = compressor
+        ctx.compress_backward = compress_backward
+        ctx.seed_bwd = seed_bwd
+        ctx.sizes = sizes
+        if compress_forward:
+            y, s = compressor(x, _generator(seed_fwd))
+        else:
+            y, s = x, SizeStats.of(x.numel(), 32, 32, x.device)
+        if y is x:  # a passthrough still has to be a new autograd output
+            y = x.view_as(x)
+        ctx.mark_non_differentiable(s.orig_bits, s.new_bits)
+        return y, s.orig_bits, s.new_bits
+
+    @staticmethod
+    def backward(ctx, g, _g_orig, _g_new):
+        if ctx.compress_backward:
+            g, s = ctx.compressor(g.contiguous(), _generator(ctx.seed_bwd))
+            if ctx.sizes is not None:
+                ctx.sizes.add("backward_autograd", s)
+        return g, None, None, None, None, None, None
+
+
+def compression_tap(
+    x: torch.Tensor,
+    gen: torch.Generator,
+    compressor: CompressorBase,
+    *,
+    compress_forward: bool = True,
+    compress_backward: bool = True,
+    sizes: SizeTotals | None = None,
+) -> tuple[torch.Tensor, SizeStats]:
+    """Apply the tap; returns ``(y, forward SizeStats)``.  The backward
+    sizes are added to ``sizes`` under ``backward_autograd``."""
+    seed_fwd, seed_bwd = torch.randint(0, 2**62, (2,), generator=gen).tolist()
+    y, orig_bits, new_bits = _CompressionTap.apply(
+        x, compressor, compress_forward, compress_backward, seed_fwd, seed_bwd, sizes
+    )
+    return y, SizeStats(orig_bits, new_bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class TapConfig:
+    """Everything a model needs to place compression taps: the compressor,
+    the per-direction toggles, the layer policy and the forward tag."""
+
+    compressor: CompressorBase | None = None
+    compress_forward: bool = True
+    compress_backward: bool = True
+    policy: TapPolicy = DEFAULT_POLICY
+    use_batch_norm: bool = False
+    # the global-hook mode is this config with compress_backward=False and
+    # tag="forward_hook"
+    tag: str = "forward_autograd"
+
+    def __post_init__(self):
+        if self.use_batch_norm:
+            raise NotImplementedError(
+                "BN-folded taps (--use_batch_norm) are not yet ported "
+                "(ROADMAP Queue 1 item 10)"
+            )
+
+    def as_global_hook(self) -> "TapConfig":
+        """Forward-output-only compression (the reference's global_hook)."""
+        return dataclasses.replace(self, compress_backward=False, tag="forward_hook")
+
+    @property
+    def active(self) -> bool:
+        return self.compressor is not None and (
+            self.compress_forward or self.compress_backward
+        )
+
+
+def module_tap(
+    x: torch.Tensor,
+    kind: LayerKind,
+    cfg: TapConfig | None,
+    tap_ctx: TapContext | None,
+) -> torch.Tensor:
+    """Tap ``x`` if ``cfg``'s policy covers ``kind``; forward sizes go to
+    ``tap_ctx.sizes`` under ``cfg.tag``."""
+    if cfg is None or not cfg.active or not cfg.policy.should_tap(kind):
+        return x
+    if tap_ctx is None:
+        raise ValueError("an active tap needs a TapContext (generator + sizes)")
+    y, stats = compression_tap(
+        x,
+        tap_ctx.gen,
+        cfg.compressor,
+        compress_forward=cfg.compress_forward,
+        compress_backward=cfg.compress_backward,
+        sizes=tap_ctx.sizes,
+    )
+    if tap_ctx.sizes is not None:
+        tap_ctx.sizes.add(cfg.tag, stats)
+    return y

@@ -1,0 +1,141 @@
+"""SmaQ z-score quantize->dequantize, plain PyTorch.
+
+The counterpart of ``smart_quantization_tpu/ops/smaq.py`` (its jnp path),
+with the same math:
+
+1. tensors with fewer than ``min_size`` elements pass through untouched;
+2. per-tensor mean/std: full (unbiased, ddof=1, two-pass), sampled (one
+   stratified strided slice at a generator-drawn offset, biased std), or the
+   Range-BN estimator ``(max - min) / sqrt(2 ln N)``;
+3. ``z = (x - mean) / clamp(std)``; elements with ``|z| > t_main`` are
+   outliers, shifted toward zero by ``t_main`` and scaled by
+   ``range_outlier``; the rest are scaled by ``range_main``;
+4. stochastic rounding (or truncation) to the integer grid;
+5. exact inversion back through scale, shift, std and mean;
+6. optional ``all_positive`` clamp at zero (Adam's second moment);
+7. data-dependent size: ``outliers * b_out + rest * b_main`` bits.
+
+This is the path every CPU tensor takes.  CUDA tensors go to the kernels in
+``ops/cuda/smaq_kernel.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from smart_quantization_tpu_torch.ops.rounding import round_to_grid
+
+
+@dataclasses.dataclass(frozen=True)
+class SmaQParams:
+    """Static configuration of the SmaQ quantizer."""
+
+    num_bits_main: int = 6
+    num_bits_outlier: int = 8
+    main_std_dev_threshold: float = 1.0
+    outlier_std_dev_threshold: float = 2.5
+    min_size: int = 8
+    num_samples: int = 16
+    use_sample_stats: bool = False
+    use_range_std_dev: bool = False
+    stochastic_rounding: bool = True
+    # std clamp range: fp16 runs clamp to (1e-4, 1e4), fp32 to (1e-38, 1e38)
+    std_clamp_lo: float = 1e-38
+    std_clamp_hi: float = 1e38
+
+    @property
+    def range_main(self) -> float:
+        return ((2 ** (self.num_bits_main - 2)) - 1) / self.main_std_dev_threshold
+
+    @property
+    def range_outlier(self) -> float:
+        return ((2 ** (self.num_bits_outlier - 2)) - 1) / (
+            self.outlier_std_dev_threshold - self.main_std_dev_threshold
+        )
+
+
+def _range_std(flat: torch.Tensor) -> torch.Tensor:
+    """Range-BN std estimator: (max - min) / sqrt(2 ln N)."""
+    rng = flat.max() - flat.min()
+    return rng / math.sqrt(2.0 * math.log(float(flat.numel())))
+
+
+def compute_stats(
+    x: torch.Tensor, params: SmaQParams, gen: torch.Generator | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor (mean, std) as 0-d float32 tensors on ``x``'s device.
+
+    Full stats use the unbiased std; sampled stats take one element per
+    equal stratum at a shared offset drawn from ``gen`` and use the biased
+    std."""
+    flat = x.reshape(-1).float()
+    n = flat.numel()
+    if params.use_sample_stats and n > params.num_samples:
+        if gen is None:
+            raise ValueError("sampled stats require a torch.Generator")
+        k = params.num_samples
+        m = n // k
+        j = int(torch.randint(0, m, (), generator=gen))
+        sample = flat[: k * m].view(k, m)[:, j]
+        mean = sample.mean()
+        if params.use_range_std_dev:
+            std = _range_std(sample)
+        else:
+            std = sample.std(correction=0)
+    else:
+        mean = flat.mean()
+        if params.use_range_std_dev:
+            std = _range_std(flat)
+        else:
+            std = flat.std(correction=1 if n > 1 else 0)
+    return mean, std
+
+
+def smaq_quantize_dequantize(
+    x: torch.Tensor,
+    gen: torch.Generator | None,
+    params: SmaQParams = SmaQParams(),
+    *,
+    all_positive: bool = False,
+    mean: torch.Tensor | None = None,
+    std: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fake-quantize ``x`` with SmaQ; returns ``(x_hat, new_size_bits)``.
+
+    ``new_size_bits`` is a 0-d float32 tensor on ``x``'s device (the
+    original size is the static ``x.numel() * 32``).  Given ``mean``/``std``
+    skip the stats pass."""
+    n = x.numel()
+    if n < params.min_size:
+        return x, torch.full((), float(n * 32), device=x.device)
+
+    xf = x.float()
+    if mean is None or std is None:
+        mean, std = compute_stats(xf, params, gen)
+
+    std = torch.where(std == 0.0, torch.ones_like(std), std)
+    std = std.clamp(params.std_clamp_lo, params.std_clamp_hi)
+
+    t = params.main_std_dev_threshold
+    z = (xf - mean) / std
+    is_hi = z > t
+    is_lo = z < -t
+    is_outlier = is_hi | is_lo
+
+    shift = is_hi.float() * -t + is_lo.float() * t
+    scale = torch.where(is_outlier, params.range_outlier, params.range_main)
+
+    q = round_to_grid((z + shift) * scale, gen, params.stochastic_rounding)
+    x_hat = (q / scale - shift) * std + mean
+    if all_positive:
+        x_hat = x_hat.clamp_min(0.0)
+
+    n_outliers = is_outlier.sum().float()
+    new_size = (
+        n_outliers * params.num_bits_outlier
+        + (float(n) - n_outliers) * params.num_bits_main
+    )
+    return x_hat.to(x.dtype), new_size

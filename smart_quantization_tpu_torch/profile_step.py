@@ -1,0 +1,108 @@
+"""Where a training step's time goes on the card.
+
+    python -m smart_quantization_tpu_torch.profile_step [--no_compress]
+
+Runs 3 warm-up steps of the main path (ResNet-18, batch 128, synthetic
+CIFAR-10, SmaQ 6/8 on every structure, or ``--no_compress``), times 10
+steps on the host clock, then 10 more under ``torch.profiler``, and prints: the median step time of each, the device's
+busy time per step (the sum of its kernel times; one stream, so kernels do
+not overlap), its idle share of the unprofiled step, kernel launches per
+step, and the kernels by device time.  The last line is one JSON object
+with the same numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+
+def _device_time_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main(argv=None) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--no_compress", action="store_true")
+    args = ap.parse_args(argv)
+    steps, warmup = 10, 3
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+
+    cli = ["--device", "cuda", "--resnet_model", "resnet18", "--compress", "smart",
+           "--measure_compression_ratio", "--batch_size", "128", "--logdir", ""]
+    if args.no_compress:
+        cli.append("--no_compress")
+    torch.manual_seed(0)
+    trainer = build_trainer(parse_args(cli))
+    state = trainer.init_state()
+    batches, epoch = [], 0
+    while len(batches) < warmup + 2 * steps:
+        batches.extend(trainer.data.device_train_batches(epoch, trainer.device))
+        epoch += 1
+    batches = iter(batches)
+
+    def step():
+        images, labels = next(batches)
+        trainer.train_step(state, trainer.task.prepare_train(images, trainer.data_gen), labels)
+
+    def timed_steps():
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    for _ in range(warmup):
+        step()
+    times = timed_steps()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_times = timed_steps()
+
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and _device_time_us(e) > 0
+    ]
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    step_ms = statistics.median(times)
+    top = sorted(kernels, key=_device_time_us, reverse=True)[:15]
+    smaq_ms = sum(_device_time_us(e) for e in kernels if "smaq_" in e.key) / 1e3 / steps
+    card = torch.cuda.get_device_name(0)
+    print(f"{card}: step {step_ms:.2f} ms (median of {steps}; "
+          f"{statistics.median(profiled_times):.2f} ms profiled), device busy "
+          f"{busy_ms:.2f} ms/step, idle {1 - busy_ms / step_ms:.1%}, "
+          f"{launches:.0f} kernel launches/step, SmaQ kernels {smaq_ms:.2f} ms/step")
+    for e in top:
+        print(f"  {_device_time_us(e) / 1e3 / steps:8.3f} ms/step "
+              f"{e.count / steps:6.0f}/step  {e.key[:90]}")
+    result = {
+        "device": card, "compress": not args.no_compress, "step_ms": step_ms,
+        "step_ms_all": times, "profiled_step_ms": statistics.median(profiled_times),
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / step_ms, "launches_per_step": launches,
+        "smaq_kernel_ms": smaq_ms,
+        "top": [{"kernel": e.key, "ms_per_step": _device_time_us(e) / 1e3 / steps,
+                 "per_step": e.count / steps} for e in top],
+    }
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

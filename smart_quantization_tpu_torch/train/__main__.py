@@ -1,0 +1,77 @@
+"""Train entry point of the port (the counterpart of the repo's ``train.py``).
+
+Examples:
+  python -m smart_quantization_tpu_torch.train --model resnet \\
+      --resnet_model resnet18 --dataset cifar10 --compress smart \\
+      --measure_compression_ratio --max_epochs 5 --batch_size 128
+  python -m smart_quantization_tpu_torch.train --device cpu --compress fp32 \\
+      --limit_train_batches 10
+"""
+
+from __future__ import annotations
+
+import json
+
+
+def build_trainer(args):
+    """The trainer a parsed command line asks for."""
+    from smart_quantization_tpu_torch.data.cifar import CIFAR10Data, CIFAR100Data
+    from smart_quantization_tpu_torch.models.resnet import resnet18, resnet34, resnet50
+    from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
+    from smart_quantization_tpu_torch.train.metrics import MetricLogger
+    from smart_quantization_tpu_torch.utils.config import build_components, check_ported
+
+    check_ported(args)
+    data_cls = {"cifar10": CIFAR10Data, "cifar100": CIFAR100Data}[args.dataset]
+    data = data_cls(batch_size=args.batch_size, val_batch_size=args.val_batch_size)
+    comps = build_components(args, steps_per_epoch=data.steps_per_epoch)
+    if data.synthetic:
+        print("NOTE: CIFAR archives not found under $SMAQ_DATA_DIR; "
+              "using the synthetic stand-in dataset.")
+    model_fn = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}[
+        args.resnet_model
+    ]
+    model = model_fn(num_classes=data.num_classes, tap=comps["tap_cfg"])
+    cfg = TrainConfig(
+        epochs=args.max_epochs,
+        log_every=args.log_every,
+        terminate_on_nan=args.terminate_on_nan,
+        measure_compression_ratio=args.measure_compression_ratio,
+        limit_train_batches=args.limit_train_batches,
+        limit_val_batches=args.limit_val_batches,
+        max_time_s=args.max_time,
+        seed=args.seed,
+    )
+    return Trainer(
+        model,
+        data,
+        comps["optimizer_spec"],
+        optim_comp=comps["optim_comp"],
+        config=cfg,
+        logger=MetricLogger(args.logdir, args.name),
+        device=args.device,
+    )
+
+
+def main(argv=None) -> dict:
+    import torch
+
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    args = parse_args(argv)
+    print(f"run name: {args.name}")
+    torch.manual_seed(args.seed)  # the model's initial weights
+    trainer = build_trainer(args)
+    if trainer.device.type == "cuda":
+        print("NOTE: TF32 is off for convolutions and matmuls; the card trains "
+              "in float32.")
+    trainer.fit()
+    final = trainer.evaluate()
+    final.update(trainer.ratio_acc.summary())
+    trainer.logger.close()
+    print("final:", json.dumps(final))
+    return final
+
+
+if __name__ == "__main__":
+    main()

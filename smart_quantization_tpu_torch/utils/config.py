@@ -1,0 +1,279 @@
+"""Two-phase CLI composition + experiment wiring.
+
+Counterpart of ``smart_quantization_tpu/utils/config.py`` (``parse_args``
+and ``build_components``) for the path ported so far: ResNet on
+CIFAR-10/100 with the SmaQ or FP32 encoder.  Phase 1 parses the class
+selectors and the per-structure toggles; phase 2 re-parses with the
+selected components' own flags.  Flags of paths not yet ported are
+accepted and raise ``NotImplementedError`` naming their ROADMAP item;
+``--no_pallas`` is gone (the port has no Pallas) and ``--device`` is new.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any
+
+DATA_STRUCTURES = (
+    "forward",
+    "backward",
+    "weights",
+    "gradients",
+    "momentum_vectors",
+    "loss",
+)
+
+
+def add_compression_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--measure_compression_ratio", action="store_true")
+
+
+def add_smart_args(parser: argparse.ArgumentParser) -> None:
+    add_compression_args(parser)
+    parser.add_argument("--num_samples", type=int, default=16)
+    parser.add_argument("--use_sample_stats", action="store_true")
+    parser.add_argument(
+        "--no_stochastic_rounding", action="store_false", dest="stochastic_rounding"
+    )
+    parser.add_argument("--num_bits_main", type=int, default=6)
+    parser.add_argument("--num_bits_outlier", type=int, default=8)
+    parser.add_argument("--main_std_dev_threshold", type=float, default=1.0)
+    parser.add_argument("--outlier_std_dev_threshold", type=float, default=2.5)
+    parser.add_argument("--min_size", type=int, default=8)
+    parser.add_argument("--use_range_std_dev", action="store_true")
+    parser.add_argument("--use_batch_norm", action="store_true")
+    parser.add_argument("--bn_scalar_params", action="store_true")
+
+
+def add_resnet_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--optimizer_type", choices=("sgd", "adam", "adamw"), default="sgd")
+    parser.add_argument("--scheduler_type", choices=("multi_step", "none"), default="none")
+    parser.add_argument("--scheduler_gamma", type=float, default=0.1)
+    parser.add_argument("--scheduler_milestones", type=int, nargs="+", default=[100, 150, 200])
+    parser.add_argument("--learning_rate", type=float, default=0.1)
+    parser.add_argument("--weight_decay", type=float, default=0.0)
+    parser.add_argument("--momentum", type=float, default=0.9)
+    parser.add_argument("--beta1", type=float)
+    parser.add_argument("--beta2", type=float)
+    parser.add_argument("--epsilon", type=float)
+    parser.add_argument(
+        "--resnet_model", choices=("resnet18", "resnet34", "resnet50"), default="resnet34"
+    )
+
+
+def add_cifar_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--val_batch_size", type=int)
+
+
+def add_trainer_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--max_epochs", type=int, default=1)
+    parser.add_argument(
+        "--max_time", type=parse_max_time, default=None,
+        help="wall-clock training budget as DD:HH:MM:SS or plain seconds",
+    )
+    parser.add_argument(
+        "--limit_train_batches", type=float,
+        help="cap train batches per epoch: an int count, or a 0<f<=1 fraction",
+    )
+    parser.add_argument("--limit_val_batches", type=float)
+    parser.add_argument("--log_every", type=int, default=50)
+    parser.add_argument("--no_terminate_on_nan", action="store_false", dest="terminate_on_nan")
+    parser.add_argument("--precision", type=int, default=32, choices=(16, 32))
+    parser.add_argument("--seed", type=int, default=0)
+    # not yet ported: each raises at build time (see _NOT_YET_PORTED)
+    parser.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"))
+    parser.add_argument("--steps_per_call", type=int, default=1)
+    parser.add_argument("--profile_dir", type=str)
+    parser.add_argument("--checkpoint_dir", type=str)
+    parser.add_argument("--resume_from", type=str)
+    parser.add_argument("--dp", type=int)
+    parser.add_argument("--fsdp", type=int, default=1)
+    for flag in ("--use_weight_accumulator", "--packed_momentum", "--packed_weights",
+                 "--momentum_log_nu", "--momentum_rowwise", "--momentum_log_nu_rowwise"):
+        parser.add_argument(flag, action="store_true")
+
+
+COMPRESSORS = ("bf16", "fp16", "fp32", "fp8", "s2fp8", "smart")
+MODELS = ("bert", "inception", "resnet")
+DATASETS = ("cifar10", "cifar100", "glue", "imdb")
+
+# (is it asked for?, what, ROADMAP Queue 1 item)
+_NOT_YET_PORTED = (
+    (lambda a: a.model == "inception", "--model inception", 13),
+    (lambda a: a.model == "bert", "--model bert", 14),
+    (lambda a: a.dataset in ("glue", "imdb"), "--dataset glue/imdb", 14),
+    (lambda a: a.compress in ("fp8", "s2fp8", "fp16", "bf16"), "this --compress encoder", 9),
+    (lambda a: a.compress_loss, "--compress_loss", 12),
+    (lambda a: a.compute_dtype != "float32", "--compute_dtype bfloat16", 12),
+    (lambda a: a.steps_per_call != 1, "--steps_per_call", 12),
+    (lambda a: a.profile_dir, "--profile_dir", 12),
+    (lambda a: a.checkpoint_dir or a.resume_from, "checkpoints (--checkpoint_dir/--resume_from)", 11),
+    (lambda a: (a.dp or 1) > 1 or a.fsdp > 1, "DP/FSDP (--dp/--fsdp)", 15),
+    (lambda a: a.use_weight_accumulator or a.packed_momentum or a.packed_weights
+     or a.momentum_log_nu or a.momentum_rowwise or a.momentum_log_nu_rowwise,
+     "the optimizer extensions (accumulator, packed, row-wise, log-nu)", 11),
+)
+
+
+def default_name(args: argparse.Namespace) -> str:
+    tags = ",".join(
+        ds for ds in DATA_STRUCTURES
+        if args.compress_enabled and getattr(args, f"compress_{ds}", False)
+    )
+    return "-".join(
+        (args.compress, args.model, args.dataset, tags, args.tags or "",
+         time.strftime("%Y%m%d_%H%M%S"))
+    ).lower()
+
+
+def parse_args(argv: list[str] | str | None = None) -> argparse.Namespace:
+    if isinstance(argv, str):
+        argv = argv.split(" ")
+
+    phase1 = argparse.ArgumentParser(add_help=False)
+    phase1.add_argument("--model", choices=MODELS, default="resnet")
+    phase1.add_argument("--dataset", choices=DATASETS, default="cifar10")
+    phase1.add_argument("--no_compress", action="store_false", dest="compress_enabled")
+    phase1.add_argument("--compress", choices=COMPRESSORS, default="fp32")
+    phase1.add_argument(
+        "--compression_hook_fn", choices=("autograd", "global_hook"), default="autograd"
+    )
+    phase1.add_argument("--no_compress_forward", action="store_false", dest="compress_forward")
+    phase1.add_argument("--no_compress_backward", action="store_false", dest="compress_backward")
+    phase1.add_argument("--no_compress_weights", action="store_false", dest="compress_weights")
+    phase1.add_argument(
+        "--no_compress_gradients", action="store_false", dest="compress_gradients"
+    )
+    phase1.add_argument(
+        "--no_compress_momentum_vectors", action="store_false",
+        dest="compress_momentum_vectors",
+    )
+    phase1.add_argument("--compress_loss", action="store_true")
+    phase1.add_argument("--name", type=str)
+    phase1.add_argument("--logdir", type=str, default="lightning_logs")
+    phase1.add_argument("--tags", type=str)
+    args1, _ = phase1.parse_known_args(argv)
+
+    phase2 = argparse.ArgumentParser(parents=[phase1])
+    if args1.compress == "smart":
+        add_smart_args(phase2)
+    else:
+        add_compression_args(phase2)
+    add_resnet_args(phase2)
+    add_cifar_args(phase2)
+    add_trainer_args(phase2)
+    args = phase2.parse_args(argv)
+
+    if not args.name:
+        args.name = default_name(args)
+    elif args.tags:
+        args.name += f"-{args.tags}"
+    return args
+
+
+def parse_max_time(s: str) -> float:
+    """``DD:HH:MM:SS`` or plain seconds -> seconds."""
+    parts = s.split(":")
+    if len(parts) == 1:
+        return float(s)
+    if len(parts) != 4:
+        raise argparse.ArgumentTypeError(f"--max_time wants DD:HH:MM:SS or seconds, got {s!r}")
+    d, h, m, sec = (int(p) for p in parts)
+    return float(((d * 24 + h) * 60 + m) * 60 + sec)
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise for any selected path the port does not have yet."""
+    for asked, what, item in _NOT_YET_PORTED:
+        if asked(args):
+            raise NotImplementedError(
+                f"{what} is not yet ported to the PyTorch package "
+                f"(ROADMAP Queue 1 item {item})"
+            )
+
+
+def multistep_schedule(base_lr: float, gamma: float, milestones, steps_per_epoch: int):
+    """The epoch-indexed MultiStepLR as a function of the optimizer step:
+    ``gamma`` applies once the count reaches each ``milestone * spe``."""
+    bounds = sorted(m * steps_per_epoch for m in milestones)
+
+    def schedule(count: int) -> float:
+        return base_lr * gamma ** sum(count >= b for b in bounds)
+
+    return schedule
+
+
+def build_components(
+    args: argparse.Namespace, steps_per_epoch: int | None = None
+) -> dict[str, Any]:
+    """Instantiate compressor / tap config / optimizer from parsed args."""
+    from smart_quantization_tpu_torch.compress import build_compressor
+    from smart_quantization_tpu_torch.inject.tap import TapConfig
+    from smart_quantization_tpu_torch.optim.compressed import (
+        OptimizerCompression,
+        build_optimizer,
+    )
+
+    check_ported(args)
+    compressor = None
+    if args.compress_enabled:
+        opts: dict[str, Any] = {"precision": args.precision}
+        if args.compress == "smart":
+            opts.update(
+                num_samples=args.num_samples,
+                use_sample_stats=args.use_sample_stats,
+                stochastic_rounding=args.stochastic_rounding,
+                num_bits_main=args.num_bits_main,
+                num_bits_outlier=args.num_bits_outlier,
+                main_std_dev_threshold=args.main_std_dev_threshold,
+                outlier_std_dev_threshold=args.outlier_std_dev_threshold,
+                min_size=args.min_size,
+                use_range_std_dev=args.use_range_std_dev,
+                use_batch_norm=args.use_batch_norm,
+                bn_scalar_params=args.bn_scalar_params,
+                # skip the kernel's size accounting when the ratio is not logged
+                measure_sizes=args.measure_compression_ratio,
+            )
+        compressor = build_compressor(args.compress, **opts)
+
+    tap_cfg = None
+    if compressor is not None:
+        tap_cfg = TapConfig(
+            compressor=compressor,
+            compress_forward=args.compress_forward,
+            compress_backward=args.compress_backward,
+        )
+        if args.compression_hook_fn == "global_hook":
+            tap_cfg = tap_cfg.as_global_hook()
+
+    optim_comp = OptimizerCompression(
+        compressor=compressor,
+        compress_weights=args.compress_weights,
+        compress_gradients=args.compress_gradients,
+        compress_momentum=args.compress_momentum_vectors,
+    )
+
+    lr = args.learning_rate
+    if args.scheduler_type == "multi_step":
+        lr = multistep_schedule(
+            args.learning_rate, args.scheduler_gamma, args.scheduler_milestones,
+            steps_per_epoch or 1,
+        )
+    spec = build_optimizer(
+        args.optimizer_type,
+        lr,
+        momentum=args.momentum,
+        weight_decay=args.weight_decay,
+        beta1=args.beta1,
+        beta2=args.beta2,
+        epsilon=args.epsilon,
+    )
+    return dict(
+        compressor=compressor,
+        tap_cfg=tap_cfg,
+        optim_comp=optim_comp,
+        optimizer_spec=spec,
+    )

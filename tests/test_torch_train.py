@@ -1,0 +1,158 @@
+"""The port's training step and CLI against the JAX package.
+
+``test_trainer_step_matches_jax``: one ``Trainer.train_step`` on a prepared
+batch against the JAX composition ``model.apply`` + ``value_and_grad`` +
+``compressed_optimizer_step`` on the tiny ResNet (stage sizes (1, 1), full
+channel widths, batch 4, 8x8), SmaQ 6/8 in truncation mode on every
+structure, the same parameters.  Two cases:
+
+- ``optimizer``: taps off, SmaQ on gradients, weights and momentum.  The
+  gradients agree to float32 summation order (1e-4), so each updated leaf
+  obeys the flip rule of tests/test_smaq.py:144-152 (at most 1 % of its
+  elements apart, none by more than one main-bucket quantum plus that 1e-4
+  wiggle) and the optimizer sizes agree to 1 %;
+- ``full``: taps on as well.  Truncation is discontinuous: a last-ulp
+  difference in a convolution moves a tapped element across a grid
+  boundary, the flip changes the logits by up to 1e-2 of their scale
+  (test_torch_resnet.py) and the backward taps then re-quantize gradients
+  that differ by a fraction of a quantum, so the updated weights are not
+  comparable element by element.  Held: the loss to 1e-2 relative, every
+  tag's original size exactly and new size to 1 %, and finite updates.
+
+``test_cli_reports_every_tag``: ``python -m smart_quantization_tpu_torch.train``
+on the CPU at full ResNet-18 width reports all five
+``compression_ratio_{tag}`` keys and an overall ratio of 4.5-5.5.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smart_quantization_tpu.compress import build_compressor as jax_build_compressor
+from smart_quantization_tpu.inject.tap import TapConfig as JaxTapConfig
+from smart_quantization_tpu.models.resnet import BasicBlock as JaxBasicBlock
+from smart_quantization_tpu.models.resnet import ResNet as JaxResNet
+from smart_quantization_tpu.optim import compressed as jopt
+from smart_quantization_tpu.train.metrics import fold_sown_stats
+from smart_quantization_tpu.train.task import cross_entropy as jax_cross_entropy
+from smart_quantization_tpu_torch.compress import build_compressor
+from smart_quantization_tpu_torch.convert import params_from_jax, tree_from_jax
+from smart_quantization_tpu_torch.inject.tap import TapConfig
+from smart_quantization_tpu_torch.models.resnet import BasicBlock, ResNet
+from smart_quantization_tpu_torch.optim.compressed import OptimizerCompression, build_optimizer
+from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TAGS = ("forward_autograd", "backward_autograd", "optimizer_grad",
+        "optimizer_weight", "optimizer_momentum")
+
+
+@pytest.mark.parametrize("coverage", ["optimizer", "full"])
+def test_trainer_step_matches_jax(coverage):
+    taps = coverage == "full"
+    r = np.random.RandomState(0)
+    x = r.randn(4, 8, 8, 3).astype(np.float32)
+    labels = np.array([1, 4, 7, 9], np.int32)
+
+    jcomp = jax_build_compressor("smart", stochastic_rounding=False)
+    jmodel = JaxResNet(stage_sizes=(1, 1), block_cls=JaxBasicBlock, num_classes=10,
+                       tap=JaxTapConfig(compressor=jcomp) if taps else None)
+    variables = jax.jit(
+        lambda k: jmodel.init({"params": k, "compress": k}, jnp.asarray(x), train=True)
+    )(jax.random.key(0))
+    spec_j = jopt.build_optimizer("sgd", 0.1, momentum=0.9, weight_decay=5e-4)
+    comp_j = jopt.OptimizerCompression(compressor=jcomp)
+
+    def jax_step(params, stats, tel):
+        def loss_fn(p, t):
+            logits, mut = jmodel.apply(
+                {"params": p, "batch_stats": stats, "telemetry": t}, jnp.asarray(x),
+                train=True, rngs={"compress": jax.random.key(1)},
+                mutable=["batch_stats", "compression_stats"],
+            )
+            return jax_cross_entropy(logits, jnp.asarray(labels)), mut
+
+        (loss, mut), (grads, tel_g) = jax.value_and_grad(
+            loss_fn, argnums=(0, 1), has_aux=True
+        )(params, tel or {})
+        new_p, opt, om = jopt.compressed_optimizer_step(
+            spec_j, params, grads, spec_j.tx.init(params), jax.random.key(2), comp_j,
+            weight_exempt=jopt.norm_param_mask(params),
+        )
+        sizes = dict(fold_sown_stats(mut.get("compression_stats", {})), **om)
+        if taps:
+            sizes["backward_autograd"] = sum(jax.tree.leaves(tel_g))
+        return loss, new_p, opt[1].trace, sizes
+
+    loss_ref, p_ref, trace_ref, sizes_ref = jax.jit(jax_step)(
+        variables["params"], variables["batch_stats"], variables.get("telemetry")
+    )
+
+    comp = build_compressor("smart", stochastic_rounding=False)
+    model = ResNet((1, 1), BasicBlock, num_classes=10,
+                   tap=TapConfig(compressor=comp) if taps else None)
+    model.load_state_dict(params_from_jax(
+        jax.tree.map(np.asarray, variables["params"]),
+        jax.tree.map(np.asarray, variables["batch_stats"]),
+    ))
+    trainer = Trainer(
+        model, None, build_optimizer("sgd", 0.1, momentum=0.9, weight_decay=5e-4),
+        optim_comp=OptimizerCompression(compressor=comp),
+        config=TrainConfig(measure_compression_ratio=True), device="cpu",
+    )
+    state = trainer.init_state()
+    metrics = trainer.train_step(
+        state, torch.from_numpy(x.transpose(0, 3, 1, 2).copy()),
+        torch.from_numpy(labels),
+    )
+
+    assert state.step == 1
+    loss_tol = 1e-2 if taps else 1e-5
+    assert abs(float(metrics["train_loss"]) - float(loss_ref)) <= loss_tol * float(loss_ref)
+    got = {"params": dict(model.named_parameters()), "trace": state.opt_state["trace"]}
+    refs = {"params": tree_from_jax(jax.tree.map(np.asarray, p_ref)),
+            "trace": tree_from_jax(jax.tree.map(np.asarray, trace_ref))}
+    for what in got:
+        assert set(got[what]) == set(refs[what])
+        for name, ref in refs[what].items():
+            a = got[what][name].detach().numpy().astype(np.float64)
+            b = ref.numpy().astype(np.float64)
+            assert a.shape == b.shape and np.isfinite(a).all(), (what, name)
+            if taps:
+                continue
+            diff = np.abs(a - b)
+            quantum = np.std(b) / 15
+            wiggle = 1e-4 * np.abs(b).max() + 1e-6
+            assert (diff > wiggle).mean() <= 0.01, (what, name)
+            assert diff.max() <= quantum * (1 + 1e-4) + wiggle, (what, name)
+    for tag in TAGS if taps else TAGS[2:]:
+        a, b = metrics[f"_ratio/{tag}"].numpy(), np.asarray(sizes_ref[tag])
+        assert a[0] == b[0], tag
+        assert abs(a[1] - b[1]) <= 0.01 * b[1], tag
+
+
+def test_cli_reports_every_tag(tmp_path):
+    # a small synthetic test split: --limit_val_batches 1 means the whole
+    # split (Lightning's float semantics) at a validation batch of 1
+    env = dict(os.environ, SMAQ_SYNTH_TEST_N="8", SMAQ_DISABLE_TB="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "smart_quantization_tpu_torch.train", "--device", "cpu",
+         "--resnet_model", "resnet18", "--compress", "smart", "--measure_compression_ratio",
+         "--limit_train_batches", "2", "--limit_val_batches", "1", "--batch_size", "4",
+         "--logdir", str(tmp_path)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    final = json.loads(out.stdout.split("final:", 1)[1])
+    for tag in TAGS:
+        assert f"compression_ratio_{tag}" in final, tag
+    assert 4.5 <= final["compression_ratio"] <= 5.5
+    assert np.isfinite(final["val_loss"])
+    assert list(tmp_path.glob("*.metrics.jsonl"))
