@@ -9,15 +9,22 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build the CUDA kernels from ``smart_quantization_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (the largest ResNet-18 batch-128 activation, a ragged
-   tensor, a BatchNorm leaf, the fc bias, an ill-conditioned tensor), in
-   truncation, stochastic, ``all_positive`` and ``compute_size=False`` modes;
-4. the main path: ``python -m smart_quantization_tpu_torch.train``'s
-   ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, SmaQ 6/8
-   with every structure compressed, launch counts read around it; then
-   single steps: launches per step, no host sync between logging points,
-   and the median step time beside the uncompressed step;
+   tensor, a BatchNorm leaf, the fc bias, an ill-conditioned tensor):
+   SmaQ in truncation, stochastic, ``all_positive`` and
+   ``compute_size=False`` modes; the float formats (FP8, FP16, BF16)
+   bitwise in nearest mode with and without ``check_inf``, on their grid
+   and unbiased in stochastic mode; S2FP8's stats and its output; the
+   BatchNorm-folded SmaQ on NCHW tensors, a scalar pair and a zero gamma;
+4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
+   ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
+   every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
+   with ``--use_batch_norm`` (and ``--bn_scalar_params``), launch counts
+   read around each; then single steps of each: launches per step, no host
+   sync between logging points, and the median step time beside the
+   uncompressed step;
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
-   runs) beside the memory bound;
+   runs) beside the memory bound and, for the float formats, PyTorch's
+   cast to the same format;
 6. the kernel table as one JSON line, then the result as the last line.
 
 Needs the repository beside it and one CUDA card.
@@ -47,6 +54,22 @@ MAIN_ARGV = [
     "--dataset", "cifar10", "--compress", "smart", "--measure_compression_ratio",
     "--batch_size", "128", "--log_every", "5",
 ]
+BN_SHAPE = (128, 64, 32, 32)  # the largest BatchNorm output, NCHW
+RAGGED_BN_SHAPE = (3, 10, 7, 5)
+TPU = "smart_quantization_tpu/ops/pallas"
+CSRC = "smart_quantization_tpu_torch/csrc"
+# the other CLI paths: (label, arguments after MAIN_ARGV's, overall ratio
+# range, the loss must be finite); argparse takes the last --compress
+PATHS = [
+    ("fp8", ["--compress", "fp8"], (4.0, 4.0), True),
+    ("fp16", ["--compress", "fp16"], (2.0, 2.0), True),
+    ("bf16", ["--compress", "bf16"], (2.0, 2.0), True),
+    # S2FP8 turns the loss NaN at full coverage, on the TPU as well
+    # (experiments/results/encoder_sweep_resnet18_synthetic.json)
+    ("s2fp8", ["--compress", "s2fp8", "--no_terminate_on_nan"], (3.9, 4.0), False),
+    ("smart bn", ["--use_batch_norm"], (4.5, 5.5), True),
+    ("smart bn scalar", ["--use_batch_norm", "--bn_scalar_params"], (4.5, 5.5), True),
+]
 
 
 def fail(msg: str) -> None:
@@ -63,6 +86,24 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def kernel_modules():
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel, s2fp8_kernel, smaq_kernel
+
+    return smaq_kernel, float_kernel, s2fp8_kernel
+
+
+def reset_counts() -> None:
+    for m in kernel_modules():
+        m.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    out = {}
+    for m in kernel_modules():
+        out.update(m.LAUNCHES)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -212,16 +253,231 @@ def check_kernels(device):
         if not ok:
             fail(f"stochastic rounding off its grid or biased: {name}")
 
-    counts = dict(K.LAUNCHES)
+    counts = {k: K.LAUNCHES[k] for k in ("smaq_stats", "smaq_quantize")}
     say(f"  launches during the checks: {counts}")
     if min(counts.values()) == 0:
         fail("a kernel was never launched by the checks")
     return errs
 
 
+def float_cases(device):
+    """The float kernels' inputs: the largest activation with the edge
+    values at its head and stretches at 1e-6 and at float32-subnormal
+    scale, a ragged tensor, the fc bias."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    act = torch.randn(ACT_SHAPE, generator=gen, device=device).reshape(-1) * 1.7
+    edges = torch.tensor(
+        [0.0, -0.0, 1e38, -1e38, 3.3e38, float("inf"), float("-inf"), float("nan"),
+         1e-45, -1e-45, 1.17549435e-38, -5.9e-39, 57344.0, -57344.0, 65504.0,
+         65520.0, 2.0**-14, 2.0**-16, 2.0**-17, 2.0**-24, 2.0**-126, 2.0**-133],
+        device=device)
+    act[: edges.numel()] = edges
+    act[4096:8192] *= 1e-6
+    act[8192:12288] *= 1e-40
+    return [
+        ("act 128x64x32x32", act.view(ACT_SHAPE)),
+        ("ragged 300001", torch.randn(300_001, generator=gen, device=device) * 2.5 - 0.7),
+        ("fc bias 10", torch.randn(10, generator=gen, device=device) * 0.01),
+    ]
+
+
+def check_float_kernels(device):
+    """Nearest: bitwise equal to ``ops/float_format.py`` on the card, with
+    and without check_inf.  Stochastic: every output is one of the plain
+    version's two roundings (all-zero and all-one random words) and the
+    mean error of the 8 M-element tensor is within 4 sigma of 0."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.float_format import (
+        BF16_FORMAT,
+        FP8_FORMAT,
+        FP16_FORMAT,
+        float_quantize,
+    )
+
+    F.reset_launch_counts()
+    host = torch.Generator().manual_seed(11)
+    formats = (("fp8", FP8_FORMAT), ("fp16", FP16_FORMAT), ("bf16", BF16_FORMAT))
+    for name, x in float_cases(device):
+        n = x.numel()
+        for fname, fmt in formats:
+            for ci in (True, False):
+                y = F.float_quantize_fused(x, fmt, None, stochastic=False, check_inf=ci)
+                y_ref = float_quantize(x, fmt, stochastic=False, check_inf=ci)
+                bad = int((y.view(torch.int32) != y_ref.view(torch.int32)).sum())
+                say(f"  {name} {fname} nearest check_inf={ci}: {bad} of {n} bit patterns "
+                    f"differ -> {'ok' if bad == 0 else 'MISMATCH'}")
+                if bad:
+                    fail(f"float_quantize nearest is not bitwise equal: {name} {fname}")
+            ys = F.float_quantize_fused(x, fmt, host, stochastic=True, check_inf=False)
+            lo = float_quantize(x, fmt, stochastic=True, check_inf=False,
+                                rand=torch.zeros(x.shape, dtype=torch.int64, device=device))
+            hi = float_quantize(x, fmt, stochastic=True, check_inf=False,
+                                rand=torch.full(x.shape, 2**32 - 1, dtype=torch.int64, device=device))
+            bits = ys.view(torch.int32)
+            off = int(((bits != lo.view(torch.int32)) & (bits != hi.view(torch.int32))).sum())
+            line = f"  {name} {fname} stochastic: {off} outputs off the two roundings"
+            ok = off == 0
+            if n >= 1_000_000:
+                keep = torch.isfinite(x).reshape(-1)
+                keep[:32] = False  # the edge values
+                err = (ys.reshape(-1)[keep] - x.reshape(-1)[keep]).double()
+                sigma = float(err.std()) / math.sqrt(err.numel())
+                bias = float(err.mean())
+                ok = ok and abs(bias) <= 4 * sigma
+                line += f", mean err={bias:.3e} (4 sigma={4 * sigma:.3e})"
+            say(line + f" -> {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"stochastic float rounding off its grid or biased: {name} {fname}")
+    say(f"  launches during the checks: {dict(F.LAUNCHES)}")
+    if F.LAUNCHES["float_quantize"] == 0:
+        fail("float_quantize was never launched by the checks")
+    return {"float_quantize": 0.0}
+
+
+def e5m2_steps(a, b):
+    """How many e5m2 steps apart two nonnegative squeezed values are, in
+    steps of the coarser of the two binades (2^-16 below 2^-14)."""
+    import torch
+
+    big = torch.maximum(a, b).clamp_min(2.0**-14)
+    step = torch.exp2(torch.floor(torch.log2(big)) - 2)
+    return (a - b).abs() / step
+
+
+def check_s2fp8_kernels(device):
+    """The stats against their plain version within 1e-6 relative; the
+    output (nearest) equal to ``s2fp8_fused_reference`` except for at most
+    1e-3 of the elements, each at most one e5m2 step away in the squeezed
+    domain (exp2f/log2f and torch's differ in the last ulp); stochastic
+    outputs on one of the plain version's two roundings but for as few."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.s2fp8 import squeeze_coefs
+
+    S.reset_launch_counts()
+    host = torch.Generator().manual_seed(12)
+    gen = torch.Generator(device=device).manual_seed(13)
+    cases = [
+        ("act 128x64x32x32", torch.randn(ACT_SHAPE, generator=gen, device=device) * 1.7),
+        ("ragged 300001", torch.randn(300_001, generator=gen, device=device) * 2.5e-3 - 1e-3),
+        ("fc bias 10", torch.randn(10, generator=gen, device=device) * 0.01),
+        ("signed zeros 4096", torch.cat([torch.zeros(2048, device=device),
+                                         -torch.zeros(2048, device=device)])),
+        ("constant 4096", torch.full((4096,), 2.0, device=device)),
+    ]
+    cases[0][1].reshape(-1)[:4] = torch.tensor([0.0, -0.0, 1e-30, -3e4], device=device)
+    errs = {"s2fp8_stats": 0.0, "s2fp8_quantize": 0.0}
+    for name, x in cases:
+        flat = x.reshape(-1)
+        n = flat.numel()
+        mu_k, m_k = S.fold_partials(S.s2fp8_stats(flat), n)
+        mu_r, m_r = S.stats_reference(flat)
+        d_mu, d_m = float((mu_k - mu_r).abs()), float((m_k - m_r).abs())
+        ok = d_mu <= 1e-6 * max(1.0, abs(float(mu_r))) and d_m <= 1e-6 * max(1.0, abs(float(m_r)))
+        say(f"  {name}: stats |d mu|={d_mu:.2e} |d max|={d_m:.2e} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"s2fp8_stats disagrees with its plain version: {name}")
+        errs["s2fp8_stats"] = max(errs["s2fp8_stats"], d_mu, d_m)
+
+        alpha, beta = (c.double() for c in squeeze_coefs(mu_r, m_r))
+
+        def squeezed(y):
+            a = y.reshape(-1).double().abs()
+            return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
+
+        y = S.s2fp8_fused(x, None, stochastic=False)
+        y_ref = S.s2fp8_fused_reference(x, stochastic=False)
+        diff = y.view(torch.int32) != y_ref.view(torch.int32)
+        n_diff = int(diff.sum())
+        steps = float(e5m2_steps(squeezed(y)[diff.reshape(-1)],
+                                 squeezed(y_ref)[diff.reshape(-1)]).max()) if n_diff else 0.0
+        ok = n_diff <= max(1e-3 * n, 1) and steps <= 1.01 and bool(torch.isfinite(y).all())
+        if name.startswith(("signed", "constant")):
+            ok = ok and n_diff == 0
+        say(f"  {name} nearest: {n_diff} of {n} differ, at most {steps:.3f} e5m2 steps "
+            f"-> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"s2fp8_quantize disagrees with its plain version: {name}")
+        errs["s2fp8_quantize"] = max(errs["s2fp8_quantize"], float((y - y_ref).abs().max()))
+
+        ys = S.s2fp8_fused(x, host, stochastic=True)
+        lo = S.s2fp8_fused_reference(x, stochastic=True,
+                                     rand=torch.zeros(x.shape, dtype=torch.int64, device=device))
+        hi = S.s2fp8_fused_reference(x, stochastic=True,
+                                     rand=torch.full(x.shape, 2**32 - 1, dtype=torch.int64, device=device))
+        b = ys.view(torch.int32)
+        off = int(((b != lo.view(torch.int32)) & (b != hi.view(torch.int32))).sum())
+        ok = off <= max(1e-3 * n, 1) and bool(torch.isfinite(ys).all())
+        say(f"  {name} stochastic: {off} outputs off the two roundings -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"stochastic S2FP8 off its grid: {name}")
+    say(f"  launches during the checks: {dict(S.LAUNCHES)}")
+    if min(S.LAUNCHES.values()) == 0:
+        fail("an S2FP8 kernel was never launched by the checks")
+    return errs
+
+
+def check_bn_kernel(device):
+    """The BatchNorm-folded SmaQ against its plain version by the flip rule:
+    NCHW with per-channel (gamma, beta), a ragged shape, a scalar pair, a
+    zero gamma (ResNet's init of each block's last BN; must stay finite);
+    stochastic outputs on one of their two grid points."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    host = torch.Generator().manual_seed(15)
+    trunc, stoch = SmaQParams(stochastic_rounding=False), SmaQParams()
+    before = K.LAUNCHES["smaq_quantize_bn"]
+    x = torch.randn(BN_SHAPE, generator=gen, device=device) * 1.3 + 0.2
+    xr = torch.randn(RAGGED_BN_SHAPE, generator=gen, device=device) * 0.8 - 0.1
+
+    def affine(c):
+        return (torch.randn(c, generator=gen, device=device) * 0.3 + 1.0,
+                torch.randn(c, generator=gen, device=device) * 0.2)
+
+    g, b = affine(BN_SHAPE[1])
+    g_zero = g.clone()
+    g_zero[::3] = 0.0
+    cases = [
+        ("bn 128x64x32x32", x, g, b),
+        ("bn ragged 3x10x7x5", xr, *affine(RAGGED_BN_SHAPE[1])),
+        ("bn scalar pair", x, g.mean(), b.mean()),
+        ("bn zero gamma", x, g_zero, b),
+        ("bn all-zero gamma", x, torch.zeros_like(g), b),
+    ]
+    err = 0.0
+    for name, xx, gg, bb in cases:
+        y, bits = K.smaq_fused_bn(xx, host, gg, bb, trunc)
+        y_ref, bits_ref = K.smaq_fused_bn_reference(xx, None, gg, bb, trunc)
+        _, std = K.pivot_stats_reference(xx.reshape(-1), trunc)
+        g_safe = torch.where(gg == 0, torch.ones_like(gg), gg)
+        quantum = std * g_safe.abs().max() / trunc.range_main
+        err = max(err, flip_check(f"{name} trunc", y, y_ref, bits, bits_ref, quantum))
+    ys, _ = K.smaq_fused_bn(x, host, g, b, stoch)
+    lo, _ = K.smaq_fused_bn_reference(x, None, g, b, stoch, u=torch.zeros_like(x))
+    hi, _ = K.smaq_fused_bn_reference(x, None, g, b, stoch, u=torch.ones_like(x))
+    tol = 1e-5 + 2.5e-7 * lo.abs()
+    off = int((((ys - lo).abs() > tol) & ((ys - hi).abs() > tol)).sum())
+    ok = off <= FLIP_FRACTION * x.numel() and bool(torch.isfinite(ys).all())
+    say(f"  bn 128x64x32x32 stochastic: off-grid={off} -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("stochastic BN SmaQ off its grid")
+    if K.LAUNCHES["smaq_quantize_bn"] == before:
+        fail("smaq_quantize_bn was never launched by the checks")
+    return {"smaq_quantize_bn": err}
+
+
 # ---------------------------------------------------------------- phase 4
 def per_step_launches(model) -> int:
-    """SmaQ calls per training step: every tap forward and backward, every
+    """Encoder calls per training step: every tap forward and backward, every
     gradient, every non-BN weight and every momentum buffer."""
     from smart_quantization_tpu_torch.optim.compressed import norm_param_mask
 
@@ -230,45 +486,79 @@ def per_step_launches(model) -> int:
     return 2 * RESNET18_TAPS + len(names) + non_bn + len(names)
 
 
-def run_main_path():
-    """The user's entry point, with the launch counts read around it."""
-    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
-    from smart_quantization_tpu_torch.train.__main__ import main
+def path_kernels(args) -> tuple[str, ...]:
+    """The kernels a parsed command line's training runs through."""
+    if args.compress in ("fp8", "fp16", "bf16"):
+        return ("float_quantize",)
+    if args.compress == "s2fp8":
+        return ("s2fp8_stats", "s2fp8_quantize")
+    if args.use_batch_norm:
+        return ("smaq_stats", "smaq_quantize", "smaq_quantize_bn")
+    return ("smaq_stats", "smaq_quantize")
 
-    argv = MAIN_ARGV + ["--limit_train_batches", "10", "--limit_val_batches", "2",
-                        "--logdir", os.path.join(OUT, "smoke_logs")]
-    K.reset_launch_counts()
+
+def expected_launches(args, model) -> dict:
+    """Launches of each kernel in one training step: one per encoder call
+    (two for the two-pass encoders); under --use_batch_norm the forward
+    taps of the BatchNorms go to the BN kernel."""
+    from smart_quantization_tpu_torch.models.resnet import TappedBatchNorm
+
+    e = per_step_launches(model)
+    out = {k: e for k in path_kernels(args)}
+    if "smaq_quantize_bn" in out:
+        n_bn = sum(isinstance(m, TappedBatchNorm) for m in model.modules())
+        out["smaq_quantize"] = e - n_bn
+        out["smaq_quantize_bn"] = n_bn
+    return out
+
+
+def run_main_path(extra_argv=(), ratio_range=(4.5, 5.5), finite_loss=True,
+                  train_batches=10, label="smart"):
+    """The user's entry point, with the launch counts read around it."""
+    from smart_quantization_tpu_torch.train.__main__ import main
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    argv = MAIN_ARGV + list(extra_argv) + [
+        "--limit_train_batches", str(train_batches), "--limit_val_batches", "2",
+        "--logdir", os.path.join(OUT, "smoke_logs")]
+    kernels = path_kernels(parse_args(argv))
+    reset_counts()
     final = main(argv)
-    counts = dict(K.LAUNCHES)
-    say(f"  main path launches: {counts}")
-    if min(counts.values()) == 0:
-        fail("the main path launched a kernel no time")
+    counts = read_counts()
+    say(f"  [{label}] main path launches: {counts}")
+    if any(counts[k] == 0 for k in kernels):
+        fail(f"[{label}] the main path launched a kernel of {kernels} no time")
+    stray = {k: v for k, v in counts.items() if k not in kernels and v}
+    if stray:
+        fail(f"[{label}] the main path launched kernels off its path: {stray}")
     tags = ("forward_autograd", "backward_autograd", "optimizer_grad",
             "optimizer_weight", "optimizer_momentum")
     missing = [t for t in tags if f"compression_ratio_{t}" not in final]
     if missing:
-        fail(f"missing compression_ratio tags: {missing}")
+        fail(f"[{label}] missing compression_ratio tags: {missing}")
     ratio = final.get("compression_ratio", float("nan"))
-    say("  compression ratios: " + ", ".join(
+    loss = final.get("val_loss", float("nan"))
+    say(f"  [{label}] compression ratios: " + ", ".join(
         f"{t}={final[f'compression_ratio_{t}']:.4f}" for t in tags)
-        + f", overall={ratio:.4f}")
-    if not 4.5 <= ratio <= 5.5:
-        fail(f"overall compression ratio {ratio} outside 4.5-5.5")
-    if not math.isfinite(final.get("val_loss", float("nan"))):
-        fail("non-finite validation loss")
-    return counts
+        + f", overall={ratio!r}; val_loss={loss!r} (finite: {math.isfinite(loss)})")
+    lo, hi = ratio_range
+    if not lo <= ratio <= hi:
+        fail(f"[{label}] overall compression ratio {ratio} outside {lo}-{hi}")
+    if finite_loss and not math.isfinite(loss):
+        fail(f"[{label}] non-finite validation loss")
+    return {k: counts[k] for k in kernels}
 
 
-def time_steps(extra_argv, check_launches: bool):
+def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
     import torch
 
-    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
     from smart_quantization_tpu_torch.train.__main__ import build_trainer
     from smart_quantization_tpu_torch.utils.config import parse_args
 
     torch.manual_seed(0)
     # no logdir: these steps are timed, not logged
-    trainer = build_trainer(parse_args(MAIN_ARGV + extra_argv + ["--logdir", ""]))
+    args = parse_args(MAIN_ARGV + list(extra_argv) + ["--logdir", ""])
+    trainer = build_trainer(args)
     state = trainer.init_state()
     # slice every batch first: an epoch's start uploads its order, which is
     # a host-to-device copy the sync check would flag
@@ -278,7 +568,7 @@ def time_steps(extra_argv, check_launches: bool):
         batches.extend(trainer.data.device_train_batches(epoch, trainer.device))
         epoch += 1
     batches = iter(batches)
-    expected = per_step_launches(trainer.model)
+    expected = expected_launches(args, trainer.model)
 
     def step():
         images, labels = next(batches)
@@ -293,17 +583,16 @@ def time_steps(extra_argv, check_launches: bool):
         torch.cuda.set_sync_debug_mode("error")
         try:
             for _ in range(5):
-                before = K.LAUNCHES["smaq_quantize"], K.LAUNCHES["smaq_stats"]
+                before = read_counts()
                 metrics = step()
-                got = (K.LAUNCHES["smaq_quantize"] - before[0],
-                       K.LAUNCHES["smaq_stats"] - before[1])
-                if got != (expected, expected):
-                    fail(f"a step launched {got} (quantize, stats); expected {expected} each")
+                got = {k: v - before[k] for k, v in read_counts().items()}
+                want = {k: expected.get(k, 0) for k in got}
+                if got != want:
+                    fail(f"a step launched {got}; expected {want}")
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        say(f"  {expected} quantize + {expected} stats launches on every step; "
-            "no host sync in 5 non-logging steps")
-        if not math.isfinite(float(metrics["train_loss"])):
+        say(f"  launches on every step: {expected}; no host sync in 5 non-logging steps")
+        if finite_loss and not math.isfinite(float(metrics["train_loss"])):
             fail("non-finite training loss")
     times = []
     for _ in range(10):
@@ -313,7 +602,7 @@ def time_steps(extra_argv, check_launches: bool):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     loss = float(metrics["train_loss"])
-    if not math.isfinite(loss):
+    if finite_loss and not math.isfinite(loss):
         fail("non-finite training loss")
     return statistics.median(times), loss, expected
 
@@ -322,7 +611,15 @@ def time_steps(extra_argv, check_launches: bool):
 def time_kernels(device):
     import torch
 
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
     from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.float_format import (
+        BF16_FORMAT,
+        FP8_FORMAT,
+        FP16_FORMAT,
+        float_quantize,
+    )
     from smart_quantization_tpu_torch.ops.smaq import SmaQParams
 
     params = SmaQParams()
@@ -335,6 +632,11 @@ def time_kernels(device):
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
     partials = K.smaq_stats(x)
     mean, std = K.pivot_stats_reference(x, params)
+    s2_partials = S.s2fp8_stats(x)
+    xb = x.view(BN_SHAPE)
+    channels = BN_SHAPE[1]
+    gamma = torch.randn(channels, generator=gen, device=device) * 0.3 + 1.0
+    beta = torch.randn(channels, generator=gen, device=device) * 0.2
 
     def timed(fn, runs=25):
         fn()
@@ -349,6 +651,9 @@ def time_kernels(device):
             out.append(a.elapsed_time(b))
         return statistics.median(out)
 
+    def fq(fmt, stochastic):
+        return lambda: F.float_quantize_launch(x, fmt, seed=7, stochastic=stochastic, check_inf=True)
+
     t = {
         "smaq_stats": timed(lambda: K.smaq_stats(x)),
         "smaq_quantize": timed(lambda: K.smaq_quantize(x, params, seed=7, partials=partials)),
@@ -356,12 +661,40 @@ def time_kernels(device):
         "plain_stats": timed(lambda: K.pivot_stats_reference(x, params)),
         "plain_quantize": timed(lambda: K.smaq_fused_reference(x, host, params, mean=mean, std=std)),
         "plain_pair": timed(lambda: K.smaq_fused_reference(x, host, params)),
+        "float_quantize": timed(fq(FP8_FORMAT, True)),
+        "float_fp8_nearest": timed(fq(FP8_FORMAT, False)),
+        "float_fp16_nearest": timed(fq(FP16_FORMAT, False)),
+        "float_bf16_nearest": timed(fq(BF16_FORMAT, False)),
+        "plain_float": timed(lambda: float_quantize(x, FP8_FORMAT, host, stochastic=True)),
+        "plain_float_nearest": timed(lambda: float_quantize(x, FP8_FORMAT, stochastic=False)),
+        "library_fp8": timed(lambda: x.to(torch.float8_e5m2).float()),
+        "library_fp16": timed(lambda: x.half().float()),
+        "library_bf16": timed(lambda: x.bfloat16().float()),
+        "s2fp8_stats": timed(lambda: S.s2fp8_stats(x)),
+        "s2fp8_quantize": timed(lambda: S.s2fp8_quantize(
+            x, s2_partials, seed=7, stochastic=True, check_inf=True)),
+        "s2fp8_pair": timed(lambda: S.s2fp8_fused(x, host)),
+        "plain_s2fp8_stats": timed(lambda: S.stats_reference(x)),
+        "plain_s2fp8": timed(lambda: S.s2fp8_fused_reference(x, host)),
+        "smaq_quantize_bn": timed(lambda: K.smaq_quantize_bn(
+            x, gamma, beta, channels, n // (BN_SHAPE[0] * channels), params,
+            seed=7, partials=partials)),
+        "plain_bn": timed(lambda: K.smaq_fused_bn_reference(
+            xb, host, gamma, beta, params, mean=mean, std=std)),
     }
+    rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
     bound = {
-        "smaq_stats": 4 * n / HBM_BYTES_PER_S * 1e3,
-        "smaq_quantize": 8 * n / HBM_BYTES_PER_S * 1e3,
+        "smaq_stats": 4 * n / rate,
+        "smaq_quantize": 8 * n / rate,
+        "float_quantize": 8 * n / rate,
+        "s2fp8_stats": 4 * n / rate,
+        "s2fp8_quantize": 8 * n / rate,
+        "smaq_quantize_bn": (8 * n + 8 * channels) / rate,
     }
     bound["pair"] = bound["smaq_stats"] + bound["smaq_quantize"]
+    bound["s2fp8_pair"] = bound["s2fp8_stats"] + bound["s2fp8_quantize"]
+    for k in ("float_fp8_nearest", "float_fp16_nearest", "float_bf16_nearest"):
+        bound[k] = bound["float_quantize"]
     return t, bound, n
 
 
@@ -396,37 +729,70 @@ def main() -> int:
     torch.cuda.set_device(device)
     say("[3] kernels against their plain version")
     errs = check_kernels(device)
+    errs.update(check_float_kernels(device))
+    errs.update(check_s2fp8_kernels(device))
+    errs.update(check_bn_kernel(device))
 
-    say("[4] training: ResNet-18, batch 128, SmaQ 6/8, full coverage")
+    say("[4] training: ResNet-18, batch 128, full coverage")
     launches = run_main_path()
     step_ms, loss, per_step = time_steps([], check_launches=True)
     plain_ms, plain_loss, _ = time_steps(["--no_compress"], check_launches=False)
     say(f"  median step: {step_ms:.2f} ms compressed (loss {loss:.4f}), "
         f"{plain_ms:.2f} ms --no_compress (loss {plain_loss:.4f}) on {card}")
+    steps = {"smart": step_ms, "no_compress": plain_ms}
+    for label, extra, ratio_range, finite in PATHS:
+        got = run_main_path(extra, ratio_range, finite, train_batches=5, label=label)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ms, loss, _ = time_steps(extra, check_launches=True, finite_loss=finite)
+        steps[label] = ms
+        say(f"  [{label}] median step: {ms:.2f} ms (loss {loss:.4f}, finite: "
+            f"{math.isfinite(loss)}) on {card}")
+    say("  median steps (ms): " + json.dumps(steps))
 
     say("[5] kernel times at 8388608 elements (median of 25, L2 flushed)")
     t, bound, n = time_kernels(device)
-    for k in ("smaq_stats", "smaq_quantize", "pair"):
-        plain = {"smaq_stats": "plain_stats", "smaq_quantize": "plain_quantize",
-                 "pair": "plain_pair"}[k]
-        say(f"  {k}: {t[k] * 1e3:.1f} us, plain {t[plain] * 1e3:.1f} us, "
-            f"bound {bound[k] * 1e3:.1f} us (bytes), {bound[k] / t[k]:.1%} of it, on {card}")
-    say("  library_ms: none (no single PyTorch call computes SmaQ)")
-
-    src = "smart_quantization_tpu_torch/csrc/smaq.cu"
-    tpu = "smart_quantization_tpu/ops/pallas/smaq_kernel.py"
-    kernels = [
-        {"name": "smaq_stats", "route": "cuda", "source": src, "replaces": f"{tpu}:268",
-         "launches": launches["smaq_stats"], "max_abs_err": errs["smaq_stats"],
-         "ms": t["smaq_stats"], "plain_ms": t["plain_stats"],
-         "bound_ms": bound["smaq_stats"], "bound_by": "bytes", "library_ms": None},
-        {"name": "smaq_quantize", "route": "cuda", "source": src, "replaces": f"{tpu}:212",
-         "launches": launches["smaq_quantize"], "max_abs_err": errs["smaq_quantize"],
-         "ms": t["smaq_quantize"], "plain_ms": t["plain_quantize"],
-         "bound_ms": bound["smaq_quantize"], "bound_by": "bytes", "library_ms": None},
+    rows = [
+        ("smaq_stats", "plain_stats", None),
+        ("smaq_quantize", "plain_quantize", None),
+        ("pair", "plain_pair", None),
+        ("float_quantize", "plain_float", "library_fp8"),
+        ("float_fp8_nearest", "plain_float_nearest", "library_fp8"),
+        ("float_fp16_nearest", None, "library_fp16"),
+        ("float_bf16_nearest", None, "library_bf16"),
+        ("s2fp8_stats", "plain_s2fp8_stats", None),
+        ("s2fp8_quantize", None, None),
+        ("s2fp8_pair", "plain_s2fp8", None),
+        ("smaq_quantize_bn", "plain_bn", None),
     ]
-    say(f"  per step: {per_step} launches of each kernel; whole run "
-        f"{time.perf_counter() - t_start:.0f} s")
+    for k, plain, lib in rows:
+        line = f"  {k}: {t[k] * 1e3:.1f} us"
+        if plain:
+            line += f", plain {t[plain] * 1e3:.1f} us"
+        if lib:
+            line += f", {lib} {t[lib] * 1e3:.1f} us"
+        say(line + f", bound {bound[k] * 1e3:.1f} us (bytes), {bound[k] / t[k]:.1%} of it, on {card}")
+    say("  library_ms: none for SmaQ, S2FP8 and BN (no single PyTorch call computes them)")
+
+    def row(kname, source, replaces, plain, lib=None):
+        return {"name": kname, "route": "cuda", "source": f"{CSRC}/{source}",
+                "replaces": f"{TPU}/{replaces}", "launches": launches[kname],
+                "max_abs_err": errs[kname], "ms": t[kname], "plain_ms": t[plain],
+                "bound_ms": bound[kname], "bound_by": "bytes",
+                "library_ms": None if lib is None else t[lib]}
+
+    kernels = [
+        row("smaq_stats", "smaq.cu", "smaq_kernel.py:268", "plain_stats"),
+        row("smaq_quantize", "smaq.cu", "smaq_kernel.py:212", "plain_quantize"),
+        row("smaq_quantize_bn", "smaq.cu", "smaq_kernel.py:486", "plain_bn"),
+        row("float_quantize", "float_quantize.cu", "float_kernel.py:137", "plain_float",
+            "library_fp8"),
+        row("s2fp8_stats", "s2fp8.cu", "s2fp8_kernel.py:226", "plain_s2fp8_stats"),
+        # the plain version computes its own stats: its time is the pair's
+        row("s2fp8_quantize", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8"),
+    ]
+    say(f"  per step: {per_step} (smart); launches summed over the main-path runs; "
+        f"whole run {time.perf_counter() - t_start:.0f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

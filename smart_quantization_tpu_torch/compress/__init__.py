@@ -8,11 +8,25 @@ from smart_quantization_tpu_torch.compress.base import (  # noqa: F401
     SizeStats,
     SizeTotals,
 )
-from smart_quantization_tpu_torch.compress.encoders import FP32, SmaQ  # noqa: F401
+from smart_quantization_tpu_torch.compress.encoders import (  # noqa: F401
+    BF16,
+    FP8,
+    FP16,
+    FP32,
+    S2FP8,
+    FloatEncoder,
+    SmaQ,
+)
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams
 
-COMPRESSORS = {"smart": SmaQ, "fp32": FP32}
-NOT_YET_PORTED = ("fp8", "s2fp8", "fp16", "bf16")
+COMPRESSORS = {
+    "smart": SmaQ,
+    "fp8": FP8,
+    "s2fp8": S2FP8,
+    "fp16": FP16,
+    "bf16": BF16,
+    "fp32": FP32,
+}
 
 
 def build_compressor(name: str, **options) -> CompressorBase:
@@ -21,10 +35,6 @@ def build_compressor(name: str, **options) -> CompressorBase:
     SmaQ options that belong to :class:`SmaQParams` may be passed flat
     (e.g. ``num_bits_main=6``); the fp16-mode std clamp is derived from
     ``precision``."""
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} encoder is not yet ported (ROADMAP Queue 1 item 9)"
-        )
     if name not in COMPRESSORS:
         raise KeyError(f"unknown compressor {name!r}; have {sorted(COMPRESSORS)}")
     cls = COMPRESSORS[name]

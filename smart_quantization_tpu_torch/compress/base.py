@@ -71,6 +71,8 @@ class CompressorBase:
         gen: torch.Generator | None,
         *,
         all_positive: bool = False,
+        gamma: torch.Tensor | None = None,
+        beta: torch.Tensor | None = None,
         mean: torch.Tensor | None = None,
         std: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, SizeStats]:

@@ -1,0 +1,80 @@
+// Float-format (exp/man) fake-quantization for Hopper (sm_90a).
+//
+// Replaces the TPU kernel smart_quantization_tpu/ops/pallas/float_kernel.py::
+// float_quantize_fused (_kernel 32-50, body fp_round_block 53-119).  It
+// computes what float_format.py:96-155 computes, element by element, in the
+// integer domain (float_round.cuh): stochastic rounding adds random bits
+// under the kept mantissa and masks them off, nearest rounds to even,
+// target subnormals sit on the fixed quantum grid, values saturate at the
+// format's max, zeros keep their sign, +max becomes +inf under check_inf,
+// and inf and NaN pass through.  Formats: e5m2 (FP8), e5m10 (FP16), e8m7
+// (BF16).  The TPU's 1024-lane rows, row buckets and padding do not carry
+// over.
+//
+// Random bits: one 32-bit Philox word per element, counted by element index
+// and keyed by a 64-bit seed from the caller's host generator (philox.cuh).
+//
+// What bounds it: memory.  One read and one write of 4 bytes per element;
+// about 25 integer operations per element, plus a Philox call per 4
+// elements when stochastic, are well under the card's rate.  So the kernel
+// is one pass, loads and stores float4 where both pointers are 16-byte
+// aligned, and keeps no temporaries in device memory.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "float_round.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using smaq::FloatFmt;
+using smaq::fp_round;
+
+__device__ __forceinline__ float round_one(float v, uint32_t rand, const FloatFmt& f,
+                                           bool stochastic, bool check_inf) {
+  return __uint_as_float(fp_round(__float_as_uint(v), rand, f, stochastic, check_inf));
+}
+
+__global__ void float_quantize_kernel(const float* __restrict__ x, float* __restrict__ y,
+                                      int64_t n, FloatFmt f, uint64_t seed, int stochastic,
+                                      int check_inf) {
+  const bool st = stochastic != 0, ci = check_inf != 0;
+  const uint2 key = smaq::philox_key(seed);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int64_t groups = (n + 3) >> 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    const uint4 r = st ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+    const int64_t e = g << 2;
+    if (aligned && e + 3 < n) {
+      const float4 v = reinterpret_cast<const float4*>(x)[g];
+      float4 o;
+      o.x = round_one(v.x, r.x, f, st, ci);
+      o.y = round_one(v.y, r.y, f, st, ci);
+      o.z = round_one(v.z, r.z, f, st, ci);
+      o.w = round_one(v.w, r.w, f, st, ci);
+      reinterpret_cast<float4*>(y)[g] = o;
+    } else {
+      const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
+      for (int j = 0; j < 4 && e + j < n; ++j) y[e + j] = round_one(x[e + j], rw[j], f, st, ci);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches on `stream` and returns cudaGetLastError().
+int float_quantize(const float* x, float* y, long long n, int man, int emin,
+                   unsigned int maxv_bits, unsigned int quantum_bits, float c1,
+                   float c2, unsigned long long seed, int stochastic, int check_inf,
+                   int num_blocks, int threads, void* stream) {
+  const FloatFmt f{man, emin, maxv_bits, quantum_bits, c1, c2};
+  float_quantize_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, static_cast<int64_t>(n), f, static_cast<uint64_t>(seed), stochastic, check_inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

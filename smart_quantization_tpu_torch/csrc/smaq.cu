@@ -19,90 +19,43 @@
 //                  folded reciprocals of smaq_kernel.py:119-130; then one read
 //                  and one write per element.  Rounding is trunc or
 //                  floor(q + u), u the top 24 bits of a counter-based
-//                  Philox4x32-10 keyed by a per-call 64-bit seed and counted
-//                  by element index (the output does not depend on the launch
-//                  shape).  The outlier count goes through a block reduction
-//                  and one 64-bit integer atomicAdd per block; the last block
-//                  to finish turns it into the size in bits, on the device.
+//                  Philox4x32-10 (philox.cuh) keyed by a per-call 64-bit seed
+//                  and counted by element index (the output does not depend
+//                  on the launch shape).  The outlier count goes through a
+//                  block reduction and one 64-bit integer atomicAdd per
+//                  block; the last block to finish turns it into the size in
+//                  bits, on the device.
+//   smaq_quantize_bn  the same pass with BatchNorm's per-channel (gamma,
+//                  beta) folded in: the port of smaq_kernel.py::smaq_fused_bn
+//                  (_kernel_bn 398-482).  Stats come from smaq_stats on the
+//                  raw tensor, before the unfold (the reference quirk); gamma
+//                  = 0 is taken as 1.  The tensor is NCHW, so the channel of
+//                  element e is (e / (H*W)) % C; each block stages the four
+//                  folded constants of every channel in shared memory.
 //
-// What bounds it: memory.  Full stats move 12 bytes per element (two reads,
-// one write); caller-supplied stats 8 bytes.  The operations per element
-// (about 20 float32 operations and a tenth of a Philox call) are far below
-// the card's rate.  So the design keeps to two passes, writes no temporaries
-// to device memory beyond one partial per block, and loads and stores float4
-// where both pointers are 16-byte aligned.
+// What bounds them: memory.  Full stats move 12 bytes per element (two
+// reads, one write); caller-supplied stats 8 bytes.  The operations per
+// element (about 20 float32 operations and a tenth of a Philox call, and
+// for BN a 32-bit division per four elements) are far below the card's
+// rate.  So the design keeps to two passes, writes no temporaries to device
+// memory beyond one partial per block, and loads and stores float4 where
+// both pointers are 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "block_reduce.cuh"
+#include "philox.cuh"
+
 namespace {
 
+using smaq::block_reduce;
+using smaq::block_sum;
+using smaq::MaxOp;
+using smaq::MinOp;
+
 constexpr int kPivotElems = 256;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
-    const uint32_t hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += kW0;
-    key.y += kW1;
-  }
-  return ctr;
-}
-
-struct MinOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fminf(a, b); }
-};
-struct MaxOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-
-// Reduce over the block in a fixed order; every thread gets the result.
-// `smem` holds at least 32 values.  Lanes past the last warp re-read
-// smem[0], which is harmless for min and max; block_sum pads with zeros.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, T* smem, Op op) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = smem[lane < nwarps ? lane : 0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) smem[0] = v;
-  }
-  __syncthreads();
-  v = smem[0];
-  __syncthreads();
-  return v;
-}
-
-template <typename T>
-__device__ T block_sum(T v, T* smem) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? smem[lane] : T(0);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) smem[0] = v;
-  }
-  __syncthreads();
-  v = smem[0];
-  __syncthreads();
-  return v;
-}
 
 __global__ void smaq_stats_kernel(const float* __restrict__ x, int64_t n,
                                   double* __restrict__ partials) {
@@ -175,20 +128,17 @@ struct Quant {
   }
 };
 
-// stats_mode: 0 = stats[0..1] hold (mean, std); 1 = fold the partials with
-// the ddof=1 std; 2 = fold the partials with the range std.
-__global__ void smaq_quantize_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int64_t n,
-    const float* __restrict__ stats, const double* __restrict__ partials,
-    int num_partials, int stats_mode, uint64_t seed, int stochastic,
-    int all_positive, int compute_size, float t, float range_main,
-    float range_outlier, float inv_range_main, float inv_range_outlier,
-    float std_lo, float std_hi, int bits_main, int bits_outlier,
-    unsigned long long* __restrict__ counter, float* __restrict__ size_out) {
-  __shared__ double sd[32];
-  __shared__ float sf[32];
-  __shared__ unsigned long long su[32];
+struct Stats {
+  float mean, std;
+};
 
+// stats_mode: 0 = stats[0..1] hold (mean, std); 1 = fold the partials with
+// the ddof=1 std; 2 = fold the partials with the range std.  Then the
+// zero-std guard and the clamp.  Every block does this first.
+__device__ Stats fold_stats(int64_t n, const float* __restrict__ stats,
+                            const double* __restrict__ partials, int num_partials,
+                            int stats_mode, float std_lo, float std_hi, double* sd,
+                            float* sf) {
   float mean, std;
   if (stats_mode == 0) {
     mean = stats[0];
@@ -219,44 +169,14 @@ __global__ void smaq_quantize_kernel(
   }
   if (std == 0.f) std = 1.f;
   std = fminf(fmaxf(std, std_lo), std_hi);
+  return Stats{mean, std};
+}
 
-  Quant qz;
-  qz.a = 1.f / std;
-  qz.b = -mean * qz.a;
-  qz.t = t;
-  qz.range_main = range_main;
-  qz.range_outlier = range_outlier;
-  qz.inv_out_std = std * inv_range_outlier;
-  qz.inv_main_std = std * inv_range_main;
-  qz.t_std = t * std;
-  qz.mean = mean;
-  qz.stochastic = stochastic != 0;
-  qz.all_positive = all_positive != 0;
-
-  const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  const int64_t groups = (n + 3) >> 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int cnt = 0;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (qz.stochastic)
-      r = philox4x32_10(make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32), 0u, 0u), key);
-    const int64_t e = g << 2;
-    if (aligned && e + 3 < n) {
-      const float4 v = reinterpret_cast<const float4*>(x)[g];
-      float4 o;
-      o.x = qz(v.x, r.x, cnt);
-      o.y = qz(v.y, r.y, cnt);
-      o.z = qz(v.z, r.z, cnt);
-      o.w = qz(v.w, r.w, cnt);
-      reinterpret_cast<float4*>(y)[g] = o;
-    } else {
-      const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
-      for (int j = 0; j < 4 && e + j < n; ++j) y[e + j] = qz(x[e + j], rw[j], cnt);
-    }
-  }
-
+// The size in bits from the block's outlier count: one 64-bit integer
+// atomicAdd per block; the last block to finish writes the size.
+__device__ void write_size(int cnt, int64_t n, int compute_size, int bits_main,
+                           int bits_outlier, unsigned long long* __restrict__ counter,
+                           float* __restrict__ size_out, unsigned long long* su) {
   if (!compute_size) {
     if (blockIdx.x == 0 && threadIdx.x == 0)
       size_out[0] = static_cast<float>(static_cast<double>(n) * bits_main);
@@ -275,11 +195,152 @@ __global__ void smaq_quantize_kernel(
   }
 }
 
+__global__ void smaq_quantize_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int64_t n,
+    const float* __restrict__ stats, const double* __restrict__ partials,
+    int num_partials, int stats_mode, uint64_t seed, int stochastic,
+    int all_positive, int compute_size, float t, float range_main,
+    float range_outlier, float inv_range_main, float inv_range_outlier,
+    float std_lo, float std_hi, int bits_main, int bits_outlier,
+    unsigned long long* __restrict__ counter, float* __restrict__ size_out) {
+  __shared__ double sd[32];
+  __shared__ float sf[32];
+  __shared__ unsigned long long su[32];
+
+  const Stats st = fold_stats(n, stats, partials, num_partials, stats_mode, std_lo, std_hi, sd, sf);
+  const float mean = st.mean, std = st.std;
+
+  Quant qz;
+  qz.a = 1.f / std;
+  qz.b = -mean * qz.a;
+  qz.t = t;
+  qz.range_main = range_main;
+  qz.range_outlier = range_outlier;
+  qz.inv_out_std = std * inv_range_outlier;
+  qz.inv_main_std = std * inv_range_main;
+  qz.t_std = t * std;
+  qz.mean = mean;
+  qz.stochastic = stochastic != 0;
+  qz.all_positive = all_positive != 0;
+
+  const uint2 key = smaq::philox_key(seed);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int64_t groups = (n + 3) >> 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int cnt = 0;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    uint4 r = make_uint4(0u, 0u, 0u, 0u);
+    if (qz.stochastic)
+      r = smaq::philox_group(g, key);
+    const int64_t e = g << 2;
+    if (aligned && e + 3 < n) {
+      const float4 v = reinterpret_cast<const float4*>(x)[g];
+      float4 o;
+      o.x = qz(v.x, r.x, cnt);
+      o.y = qz(v.y, r.y, cnt);
+      o.z = qz(v.z, r.z, cnt);
+      o.w = qz(v.w, r.w, cnt);
+      reinterpret_cast<float4*>(y)[g] = o;
+    } else {
+      const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
+      for (int j = 0; j < 4 && e + j < n; ++j) y[e + j] = qz(x[e + j], rw[j], cnt);
+    }
+  }
+  write_size(cnt, n, compute_size, bits_main, bits_outlier, counter, size_out, su);
+}
+
+// BatchNorm-folded SmaQ, the port of smaq_kernel.py::_kernel_bn (398-482):
+// per channel c, k = (A, B, G, H) with A = 1 / (g_c * std),
+// B = -(beta_c * A) - mean / std, G = std * g_c, H = mean * g_c + beta_c and
+// g_c = gamma_c, or 1 where gamma_c == 0.  z = x * A + B, then the SmaQ
+// buckets and rounding, zhat = q / scale - shift, y = zhat * G + H.
+struct QuantBN {
+  float t, range_main, range_outlier, inv_range_main, inv_range_outlier;
+  bool stochastic, all_positive;
+
+  __device__ __forceinline__ float operator()(float x, float4 k, uint32_t bits, int& cnt) const {
+    const float z = x * k.x + k.y;
+    const bool hi = z > t, lo = z < -t, out = hi || lo;
+    const float shift = hi ? -t : (lo ? t : 0.f);
+    float q = (z + shift) * (out ? range_outlier : range_main);
+    q = stochastic ? floorf(q + static_cast<float>(bits >> 8) * 0x1p-24f) : truncf(q);
+    const float zhat = q * (out ? inv_range_outlier : inv_range_main) - shift;
+    float y = zhat * k.z + k.w;
+    if (all_positive && y < 0.f) y = 0.f;
+    cnt += out;
+    return y;
+  }
+};
+
+// x is (outer, channels, inner) in memory (NCHW: inner = H * W); element e
+// is in channel (e / inner) % channels.  The per-channel constants live in
+// dynamic shared memory, one float4 per channel.
+__global__ void smaq_quantize_bn_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int64_t n,
+    const float* __restrict__ stats, const double* __restrict__ partials,
+    int num_partials, int stats_mode, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int channels, int64_t inner, uint64_t seed,
+    int stochastic, int all_positive, int compute_size, float t, float range_main,
+    float range_outlier, float inv_range_main, float inv_range_outlier,
+    float std_lo, float std_hi, int bits_main, int bits_outlier,
+    unsigned long long* __restrict__ counter, float* __restrict__ size_out) {
+  __shared__ double sd[32];
+  __shared__ float sf[32];
+  __shared__ unsigned long long su[32];
+  extern __shared__ float4 chan[];
+
+  const Stats st = fold_stats(n, stats, partials, num_partials, stats_mode, std_lo, std_hi, sd, sf);
+  const float mean = st.mean, std = st.std;
+  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
+    const float g = gamma[c] == 0.f ? 1.f : gamma[c];
+    const float b = beta[c];
+    const float a = 1.f / (g * std);
+    chan[c] = make_float4(a, -(b * a) - mean / std, std * g, mean * g + b);
+  }
+  __syncthreads();
+
+  QuantBN qz{t, range_main, range_outlier, inv_range_main, inv_range_outlier,
+             stochastic != 0, all_positive != 0};
+  // 32-bit index arithmetic where it fits (64-bit division is a long
+  // software routine); a float4 group lies in one channel when inner % 4 == 0
+  const bool small = n <= 0xFFFFFFFFll;
+  const uint32_t inner32 = static_cast<uint32_t>(inner), ch32 = static_cast<uint32_t>(channels);
+  auto chan_of = [&](int64_t e) -> int {
+    return small ? static_cast<int>((static_cast<uint32_t>(e) / inner32) % ch32)
+                 : static_cast<int>((e / inner) % channels);
+  };
+  const bool group_in_one = (inner & 3) == 0;
+  const uint2 key = smaq::philox_key(seed);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int64_t groups = (n + 3) >> 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int cnt = 0;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    const uint4 r = qz.stochastic ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+    const int64_t e = g << 2;
+    if (aligned && group_in_one && e + 3 < n) {
+      const float4 k = chan[chan_of(e)];
+      const float4 v = reinterpret_cast<const float4*>(x)[g];
+      float4 o;
+      o.x = qz(v.x, k, r.x, cnt);
+      o.y = qz(v.y, k, r.y, cnt);
+      o.z = qz(v.z, k, r.z, cnt);
+      o.w = qz(v.w, k, r.w, cnt);
+      reinterpret_cast<float4*>(y)[g] = o;
+    } else {
+      const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
+      for (int j = 0; j < 4 && e + j < n; ++j)
+        y[e + j] = qz(x[e + j], chan[chan_of(e + j)], rw[j], cnt);
+    }
+  }
+  write_size(cnt, n, compute_size, bits_main, bits_outlier, counter, size_out, su);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Both entry points launch on `stream` and return cudaGetLastError().
+// The entry points launch on `stream` and return cudaGetLastError().
 
 int smaq_stats(const float* x, long long n, double* partials, int num_blocks,
                int threads, void* stream) {
@@ -301,6 +362,25 @@ int smaq_quantize(const float* x, float* y, long long n, const float* stats,
       static_cast<uint64_t>(seed), stochastic, all_positive, compute_size, t,
       range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
       std_hi, bits_main, bits_outlier, counter, size_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int smaq_quantize_bn(const float* x, float* y, long long n, const float* stats,
+                     const double* partials, int num_partials, int stats_mode,
+                     const float* gamma, const float* beta, int channels,
+                     long long inner, unsigned long long seed, int stochastic,
+                     int all_positive, int compute_size, float t, float range_main,
+                     float range_outlier, float inv_range_main,
+                     float inv_range_outlier, float std_lo, float std_hi,
+                     int bits_main, int bits_outlier, unsigned long long* counter,
+                     float* size_out, int num_blocks, int threads, void* stream) {
+  const size_t smem = static_cast<size_t>(channels) * sizeof(float4);
+  smaq_quantize_bn_kernel<<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, static_cast<int64_t>(n), stats, partials, num_partials, stats_mode, gamma,
+      beta, channels, static_cast<int64_t>(inner), static_cast<uint64_t>(seed),
+      stochastic, all_positive, compute_size, t, range_main, range_outlier,
+      inv_range_main, inv_range_outlier, std_lo, std_hi, bits_main, bits_outlier,
+      counter, size_out);
   return static_cast<int>(cudaGetLastError());
 }
 

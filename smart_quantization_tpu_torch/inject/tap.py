@@ -11,6 +11,11 @@ draws do not depend on the order autograd visits the taps in.
 Sizes go to the step's :class:`SizeTotals` as device tensors; no tap reads a
 value back to the host, so PyTorch needs none of the JAX package's
 telemetry-token plumbing.
+
+Under ``--use_batch_norm`` a BatchNorm tap hands its (detached) gamma and
+beta to the forward compress only, as the JAX tap does (``tap.py:95-117``).
+The tap stays straight-through: gamma and beta get their gradient from the
+BatchNorm alone, which is what the JAX tap's VJP specifies.
 """
 
 from __future__ import annotations
@@ -41,13 +46,13 @@ def _generator(seed: int) -> torch.Generator:
 class _CompressionTap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, compressor, compress_forward, compress_backward,
-                seed_fwd, seed_bwd, sizes):
+                seed_fwd, seed_bwd, sizes, gamma, beta):
         ctx.compressor = compressor
         ctx.compress_backward = compress_backward
         ctx.seed_bwd = seed_bwd
         ctx.sizes = sizes
         if compress_forward:
-            y, s = compressor(x, _generator(seed_fwd))
+            y, s = compressor(x, _generator(seed_fwd), gamma=gamma, beta=beta)
         else:
             y, s = x, SizeStats.of(x.numel(), 32, 32, x.device)
         if y is x:  # a passthrough still has to be a new autograd output
@@ -61,7 +66,7 @@ class _CompressionTap(torch.autograd.Function):
             g, s = ctx.compressor(g.contiguous(), _generator(ctx.seed_bwd))
             if ctx.sizes is not None:
                 ctx.sizes.add("backward_autograd", s)
-        return g, None, None, None, None, None, None
+        return g, None, None, None, None, None, None, None, None
 
 
 def compression_tap(
@@ -72,12 +77,16 @@ def compression_tap(
     compress_forward: bool = True,
     compress_backward: bool = True,
     sizes: SizeTotals | None = None,
+    gamma: torch.Tensor | None = None,
+    beta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, SizeStats]:
     """Apply the tap; returns ``(y, forward SizeStats)``.  The backward
-    sizes are added to ``sizes`` under ``backward_autograd``."""
+    sizes are added to ``sizes`` under ``backward_autograd``.  ``gamma`` and
+    ``beta`` (no gradient flows to them here) go to the forward compress."""
     seed_fwd, seed_bwd = torch.randint(0, 2**62, (2,), generator=gen).tolist()
     y, orig_bits, new_bits = _CompressionTap.apply(
-        x, compressor, compress_forward, compress_backward, seed_fwd, seed_bwd, sizes
+        x, compressor, compress_forward, compress_backward, seed_fwd, seed_bwd, sizes,
+        gamma, beta,
     )
     return y, SizeStats(orig_bits, new_bits)
 
@@ -96,13 +105,6 @@ class TapConfig:
     # tag="forward_hook"
     tag: str = "forward_autograd"
 
-    def __post_init__(self):
-        if self.use_batch_norm:
-            raise NotImplementedError(
-                "BN-folded taps (--use_batch_norm) are not yet ported "
-                "(ROADMAP Queue 1 item 10)"
-            )
-
     def as_global_hook(self) -> "TapConfig":
         """Forward-output-only compression (the reference's global_hook)."""
         return dataclasses.replace(self, compress_backward=False, tag="forward_hook")
@@ -119,13 +121,19 @@ def module_tap(
     kind: LayerKind,
     cfg: TapConfig | None,
     tap_ctx: TapContext | None,
+    *,
+    gamma: torch.Tensor | None = None,
+    beta: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Tap ``x`` if ``cfg``'s policy covers ``kind``; forward sizes go to
-    ``tap_ctx.sizes`` under ``cfg.tag``."""
+    ``tap_ctx.sizes`` under ``cfg.tag``.  ``gamma``/``beta`` reach the
+    compressor only under ``cfg.use_batch_norm``."""
     if cfg is None or not cfg.active or not cfg.policy.should_tap(kind):
         return x
     if tap_ctx is None:
         raise ValueError("an active tap needs a TapContext (generator + sizes)")
+    if not cfg.use_batch_norm:
+        gamma = beta = None
     y, stats = compression_tap(
         x,
         tap_ctx.gen,
@@ -133,6 +141,8 @@ def module_tap(
         compress_forward=cfg.compress_forward,
         compress_backward=cfg.compress_backward,
         sizes=tap_ctx.sizes,
+        gamma=gamma,
+        beta=beta,
     )
     if tap_ctx.sizes is not None:
         tap_ctx.sizes.add(cfg.tag, stats)

@@ -35,7 +35,8 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
 
 
 class TappedBatchNorm(nn.Module):
-    """BatchNorm + compression tap, with flax's statistics: momentum 0.9
+    """BatchNorm + compression tap (BN-folded under ``--use_batch_norm``),
+    with flax's statistics: momentum 0.9
     (torch's 0.1), eps 1e-5, and the running variance updated with the
     BIASED batch variance, as ``flax.linen.BatchNorm`` does (torch's own
     BatchNorm2d uses the unbiased one, so the update is written here)."""
@@ -65,7 +66,10 @@ class TappedBatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
-        return module_tap(y, LayerKind.NORM, self.tap, tap_ctx)
+        # --use_batch_norm folds gamma and beta into the forward compress;
+        # they are detached: their gradient comes from F.batch_norm alone
+        return module_tap(y, LayerKind.NORM, self.tap, tap_ctx,
+                          gamma=self.weight.detach(), beta=self.bias.detach())
 
 
 class BasicBlock(nn.Module):

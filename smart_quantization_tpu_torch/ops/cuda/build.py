@@ -1,7 +1,8 @@
 """Build and load the port's CUDA library.
 
-``nvcc`` compiles the repository's own sources (``csrc/*.cu``) into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
+``nvcc`` compiles the repository's own sources (``csrc/*.cu``, one process
+per source, all started together) and links them into one shared library
+with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, never at import, and is keyed by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads the
 library already in ``smart_quantization_tpu_torch/_build/``.  A failed build
@@ -16,13 +17,16 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# no --use_fast_math or -ftz: the float formats' subnormal grids need
+# denormals kept
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -56,6 +60,10 @@ def _library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsmaq_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build() -> str:
     """Compile the library if it is not built yet; returns its path."""
     global build_log
@@ -63,25 +71,54 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)
+    tmp = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", f"{tmp}.so", *objs]
+    try:
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            procs = list(pool.map(_run, compiles))
+        build_log = "".join(p.stdout + p.stderr for p in procs)
+        for cmd, proc in zip(compiles, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                )
+        proc = _run(link)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{build_log}")
+        os.replace(f"{tmp}.so", out)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return out
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    u32, u64 = ctypes.c_uint, ctypes.c_ulonglong
     lib.smaq_stats.argtypes = [p, ll, p, i, i, p]
     lib.smaq_stats.restype = i
     lib.smaq_quantize.argtypes = [
-        p, p, ll, p, p, i, i, ctypes.c_ulonglong, i, i, i,
+        p, p, ll, p, p, i, i, u64, i, i, i,
         f, f, f, f, f, f, f, i, i, p, p, i, i, p,
     ]
     lib.smaq_quantize.restype = i
+    lib.smaq_quantize_bn.argtypes = [
+        p, p, ll, p, p, i, i, p, p, i, ll, u64, i, i, i,
+        f, f, f, f, f, f, f, i, i, p, p, i, i, p,
+    ]
+    lib.smaq_quantize_bn.restype = i
+    lib.float_quantize.argtypes = [p, p, ll, i, i, u32, u32, f, f, u64, i, i, i, i, p]
+    lib.float_quantize.restype = i
+    lib.s2fp8_stats.argtypes = [p, ll, p, i, i, p]
+    lib.s2fp8_stats.restype = i
+    lib.s2fp8_quantize.argtypes = [p, p, ll, p, i, i, i, u32, u32, f, f, u64, i, i, i, i, p]
+    lib.s2fp8_quantize.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -1,0 +1,102 @@
+"""Float-format fake-quantization on the card: the wrapper of
+``csrc/float_quantize.cu`` and the dispatcher.
+
+The port of ``smart_quantization_tpu/ops/pallas/float_kernel.py::
+float_quantize_fused``.  The source note in ``csrc/float_quantize.cu``
+gives the design.  Here:
+
+- ``float_quantize_launch`` launches the kernel on PyTorch's current stream
+  and counts its launches in ``LAUNCHES``;
+- ``float_quantize_fused`` is the kernel path for a CUDA tensor;
+- the plain version is ``ops/float_format.py::float_quantize``, on any
+  device: in nearest mode the kernel gives its bits exactly;
+- ``float_quantize_fused_or_reference`` sends a CUDA tensor to the kernel
+  and a CPU tensor to the plain version.  There is no size threshold.
+
+Stochastic rounding draws one 64-bit seed per call from the caller's host
+``torch.Generator``; the kernel's Philox words are not the plain version's
+draws, so stochastic outputs compare by statistics only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smart_quantization_tpu_torch.ops.cuda import build
+from smart_quantization_tpu_torch.ops.cuda.launch import (
+    THREADS,
+    check_input,
+    quant_blocks,
+    raise_on,
+    seed_for,
+    stream,
+)
+from smart_quantization_tpu_torch.ops.float_format import FloatFormat, f32_bits, float_quantize
+
+# Launches of the kernel since the last reset (one per launch, nowhere else).
+LAUNCHES = {"float_quantize": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def format_args(fmt: FloatFormat) -> tuple:
+    """``fmt`` as the C functions take it: man, emin, bits of the max and of
+    the quantum, and 1/quantum as two powers of two."""
+    c1, c2 = fmt.quantum_scale
+    return fmt.man, fmt.emin, f32_bits(fmt.max_value), f32_bits(fmt.quantum), c1, c2
+
+
+def float_quantize_launch(
+    xf: torch.Tensor, fmt: FloatFormat, *, seed: int, stochastic: bool, check_inf: bool
+) -> torch.Tensor:
+    """Launch the kernel on a flat float32 CUDA tensor; returns the output."""
+    check_input(xf)
+    n = xf.numel()
+    y = torch.empty_like(xf)
+    rc = build.library().float_quantize(
+        xf.data_ptr(), y.data_ptr(), n, *format_args(fmt), seed, int(stochastic),
+        int(check_inf), quant_blocks(n), THREADS, stream(xf),
+    )
+    raise_on(rc, "float_quantize")
+    LAUNCHES["float_quantize"] += 1
+    return y
+
+
+def float_quantize_fused(
+    x: torch.Tensor,
+    fmt: FloatFormat,
+    gen: torch.Generator | None = None,
+    *,
+    stochastic: bool = True,
+    check_inf: bool = True,
+) -> torch.Tensor:
+    """``float_quantize`` of a CUDA tensor through the kernel; float32 of
+    ``x``'s shape."""
+    if not x.is_cuda:
+        raise ValueError(f"float_quantize_fused takes CUDA tensors, got {x.device}")
+    if x.numel() == 0:
+        return x.to(torch.float32)
+    xf = x.reshape(-1).to(torch.float32).contiguous()
+    y = float_quantize_launch(
+        xf, fmt, seed=seed_for(gen, stochastic), stochastic=stochastic, check_inf=check_inf
+    )
+    return y.view(x.shape)
+
+
+def float_quantize_fused_or_reference(
+    x: torch.Tensor,
+    fmt: FloatFormat,
+    gen: torch.Generator | None = None,
+    *,
+    stochastic: bool = True,
+    check_inf: bool = True,
+) -> torch.Tensor:
+    """A CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
+    if x.is_cuda:
+        return float_quantize_fused(x, fmt, gen, stochastic=stochastic, check_inf=check_inf)
+    if x.device.type == "cpu":
+        return float_quantize(x, fmt, gen, stochastic=stochastic, check_inf=check_inf)
+    raise ValueError(f"no float_quantize path for device {x.device}")

@@ -2,18 +2,25 @@
 PyTorch version, and the dispatcher.
 
 The port of ``smart_quantization_tpu/ops/pallas/smaq_kernel.py::smaq_fused``
-(and of the one-pass statistics reduction its wrapper runs first).  The
-source note in ``csrc/smaq.cu`` gives the design.  Here:
+(and of the one-pass statistics reduction its wrapper runs first) and of
+its BatchNorm-folded variant ``smaq_fused_bn``.  The source note in
+``csrc/smaq.cu`` gives the design.  Here:
 
-- ``smaq_stats`` and ``smaq_quantize`` launch the two kernels on PyTorch's
-  current stream and count their launches in ``LAUNCHES``;
-- ``smaq_fused`` is the kernel path of one SmaQ call on a CUDA tensor;
-- ``smaq_fused_reference`` is the kernel's plain version: the same
-  arithmetic in PyTorch ops (pivot-shifted one-pass stats, folded
-  reciprocals), for any device;
+- ``smaq_stats``, ``smaq_quantize`` and ``smaq_quantize_bn`` launch the
+  kernels on PyTorch's current stream and count their launches in
+  ``LAUNCHES``;
+- ``smaq_fused`` and ``smaq_fused_bn`` are the kernel paths of one SmaQ
+  call on a CUDA tensor, without and with (gamma, beta);
+- ``smaq_fused_reference`` and ``smaq_fused_bn_reference`` are the
+  kernels' plain versions: the same arithmetic in PyTorch ops
+  (pivot-shifted one-pass stats, folded reciprocals), for any device;
 - ``smaq_fused_or_reference`` sends a CUDA tensor to the kernels and a CPU
   tensor to ``ops/smaq.py``.  There is no size threshold: on the card every
-  tensor of ``min_size`` or more elements goes to the kernels.
+  tensor of ``min_size`` or more elements goes to the kernels, and a scalar
+  gamma (``--bn_scalar_params``) to the BN kernel.
+
+BatchNorm tensors are NCHW: gamma and beta are per channel (dim 1), or 0-d
+for one scalar pair.
 
 Stochastic rounding draws one 64-bit seed per call from the caller's host
 ``torch.Generator``; the kernel's Philox stream will never give the bits of
@@ -27,21 +34,27 @@ import math
 import torch
 
 from smart_quantization_tpu_torch.ops.cuda import build
-from smart_quantization_tpu_torch.ops.rounding import draw_seed, uniform
+from smart_quantization_tpu_torch.ops.cuda.launch import (
+    THREADS,
+    check_input,
+    ptr,
+    quant_blocks,
+    raise_on,
+    seed_for,
+    stats_blocks,
+    stream,
+)
+from smart_quantization_tpu_torch.ops.rounding import uniform
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams, smaq_quantize_dequantize
 
 # Launches of each kernel since the last reset (one per launch, nowhere else).
-LAUNCHES = {"smaq_stats": 0, "smaq_quantize": 0}
+LAUNCHES = {"smaq_stats": 0, "smaq_quantize": 0, "smaq_quantize_bn": 0}
 
-_THREADS = 256
-# Partials per stats launch: every quantize block folds all of them, so they
-# are kept few (264 = 2 per SM of an H100).
-_MAX_STATS_BLOCKS = 264
-# 8 blocks of 256 threads fill an SM; larger tensors loop inside the block.
-_MAX_QUANT_BLOCKS = 1056
 # The TPU kernel's in-kernel sample spans its first block of 512 x 1024.
 _SAMPLE_SPAN = 512 * 1024
 _STATS_GIVEN, _STATS_FULL, _STATS_RANGE = 0, 1, 2
+# the BN kernel keeps one float4 per channel in shared memory (48 KB)
+MAX_BN_CHANNELS = 3072
 
 
 def reset_launch_counts() -> None:
@@ -49,43 +62,41 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _blocks(n: int, per_block: int, cap: int) -> int:
-    return max(1, min(cap, -(-n // per_block)))
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
-
-
-def _check_input(x: torch.Tensor) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"the SmaQ kernels take CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the SmaQ kernels take float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("the SmaQ kernels take contiguous tensors")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"tensor on {x.device} but the current device is "
-            f"cuda:{torch.cuda.current_device()}"
-        )
-
-
 def smaq_stats(xf: torch.Tensor) -> torch.Tensor:
     """Launch the stats kernel; returns the float64 partials
     ``[s1, s2, min, max] * blocks + [pivot]``."""
-    _check_input(xf)
+    check_input(xf)
     n = xf.numel()
-    blocks = _blocks(n, _THREADS * 16, _MAX_STATS_BLOCKS)
+    blocks = stats_blocks(n)
     partials = torch.empty(4 * blocks + 1, dtype=torch.float64, device=xf.device)
     rc = build.library().smaq_stats(
-        xf.data_ptr(), n, partials.data_ptr(), blocks, _THREADS,
-        torch.cuda.current_stream(xf.device).cuda_stream,
+        xf.data_ptr(), n, partials.data_ptr(), blocks, THREADS, stream(xf)
     )
-    _raise_on(rc, "smaq_stats")
+    raise_on(rc, "smaq_stats")
     LAUNCHES["smaq_stats"] += 1
     return partials
+
+
+def _stats_args(xf, params, stats, partials):
+    """(stats or None, partials or None, mode, number of partials)."""
+    if (stats is None) == (partials is None):
+        raise ValueError("pass exactly one of stats= and partials=")
+    if stats is not None:
+        if stats.dtype != torch.float32 or stats.numel() != 2 or stats.device != xf.device:
+            raise ValueError("stats must be a float32 (mean, std) pair on the tensor's device")
+        return stats.contiguous(), None, _STATS_GIVEN, 0
+    mode = _STATS_RANGE if params.use_range_std_dev else _STATS_FULL
+    return None, partials, mode, (partials.numel() - 1) // 4
+
+
+def _quant_args(params: SmaQParams) -> tuple:
+    """The scalar arguments both quantize kernels take after the flags."""
+    return (
+        params.main_std_dev_threshold, params.range_main, params.range_outlier,
+        1.0 / params.range_main, 1.0 / params.range_outlier,
+        params.std_clamp_lo, params.std_clamp_hi,
+        params.num_bits_main, params.num_bits_outlier,
+    )
 
 
 def smaq_quantize(
@@ -101,37 +112,64 @@ def smaq_quantize(
     """Launch the quantize kernel against ``stats`` (a float32 (mean, std)
     pair on the device) or the stats kernel's ``partials``; returns the
     flat output and the size in bits as a 0-d float32 device tensor."""
-    _check_input(xf)
-    if (stats is None) == (partials is None):
-        raise ValueError("pass exactly one of stats= and partials=")
+    check_input(xf)
+    stats, partials, mode, num_partials = _stats_args(xf, params, stats, partials)
     n = xf.numel()
-    if stats is not None:
-        if stats.dtype != torch.float32 or stats.numel() != 2 or stats.device != xf.device:
-            raise ValueError("stats must be a float32 (mean, std) pair on the tensor's device")
-        stats = stats.contiguous()
-        mode, num_partials = _STATS_GIVEN, 0
-    else:
-        mode = _STATS_RANGE if params.use_range_std_dev else _STATS_FULL
-        num_partials = (partials.numel() - 1) // 4
     y = torch.empty_like(xf)
     size = torch.empty((), dtype=torch.float32, device=xf.device)
     counter = torch.zeros(2, dtype=torch.int64, device=xf.device) if compute_size else None
-    blocks = _blocks(n, _THREADS * 4, _MAX_QUANT_BLOCKS)
+    blocks = quant_blocks(n)
     rc = build.library().smaq_quantize(
-        xf.data_ptr(), y.data_ptr(), n,
-        None if stats is None else stats.data_ptr(),
-        None if partials is None else partials.data_ptr(),
+        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(partials),
         num_partials, mode, seed, int(params.stochastic_rounding),
-        int(all_positive), int(compute_size),
-        params.main_std_dev_threshold, params.range_main, params.range_outlier,
-        1.0 / params.range_main, 1.0 / params.range_outlier,
-        params.std_clamp_lo, params.std_clamp_hi,
-        params.num_bits_main, params.num_bits_outlier,
-        None if counter is None else counter.data_ptr(), size.data_ptr(),
-        blocks, _THREADS, torch.cuda.current_stream(xf.device).cuda_stream,
+        int(all_positive), int(compute_size), *_quant_args(params),
+        ptr(counter), size.data_ptr(),
+        blocks, THREADS, stream(xf),
     )
-    _raise_on(rc, "smaq_quantize")
+    raise_on(rc, "smaq_quantize")
     LAUNCHES["smaq_quantize"] += 1
+    return y, size
+
+
+def smaq_quantize_bn(
+    xf: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    channels: int,
+    inner: int,
+    params: SmaQParams,
+    *,
+    seed: int,
+    stats: torch.Tensor | None = None,
+    partials: torch.Tensor | None = None,
+    all_positive: bool = False,
+    compute_size: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the BN-folded quantize kernel: ``xf`` is the flat NCHW tensor,
+    element e in channel ``(e // inner) % channels``, and ``gamma``/``beta``
+    hold ``channels`` float32 values on the device."""
+    check_input(xf)
+    for v in (gamma, beta):
+        check_input(v)
+        if v.numel() != channels:
+            raise ValueError(f"gamma and beta need {channels} values, got {v.numel()}")
+    if not 1 <= channels <= MAX_BN_CHANNELS:
+        raise ValueError(f"the BN kernel takes 1 to {MAX_BN_CHANNELS} channels, got {channels}")
+    stats, partials, mode, num_partials = _stats_args(xf, params, stats, partials)
+    n = xf.numel()
+    y = torch.empty_like(xf)
+    size = torch.empty((), dtype=torch.float32, device=xf.device)
+    counter = torch.zeros(2, dtype=torch.int64, device=xf.device) if compute_size else None
+    blocks = quant_blocks(n)
+    rc = build.library().smaq_quantize_bn(
+        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(partials),
+        num_partials, mode, gamma.data_ptr(), beta.data_ptr(), channels, inner,
+        seed, int(params.stochastic_rounding), int(all_positive), int(compute_size),
+        *_quant_args(params), ptr(counter), size.data_ptr(),
+        blocks, THREADS, stream(xf),
+    )
+    raise_on(rc, "smaq_quantize_bn")
+    LAUNCHES["smaq_quantize_bn"] += 1
     return y, size
 
 
@@ -194,12 +232,14 @@ def _given_stats(mean, std, device) -> torch.Tensor:
     )
 
 
-def _seed(gen: torch.Generator | None, params: SmaQParams) -> int:
-    if not params.stochastic_rounding:
-        return 0
-    if gen is None:
-        raise ValueError("stochastic rounding requires a torch.Generator")
-    return draw_seed(gen)
+def _device_stats(xf, params, mean, std):
+    """(stats, partials) for a quantize launch: the caller's (mean, std),
+    the sampled stats, or the stats kernel's partials."""
+    if mean is not None and std is not None:
+        return _given_stats(mean, std, xf.device), None
+    if params.use_sample_stats and xf.numel() > params.num_samples:
+        return sample_stats(xf, params), None
+    return None, smaq_stats(xf)
 
 
 def smaq_fused(
@@ -221,19 +261,99 @@ def smaq_fused(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     xf = x.reshape(-1).to(torch.float32).contiguous()
-    seed = _seed(gen, params)
-    stats = partials = None
-    if mean is not None and std is not None:
-        stats = _given_stats(mean, std, x.device)
-    elif params.use_sample_stats and n > params.num_samples:
-        stats = sample_stats(xf, params)
-    else:
-        partials = smaq_stats(xf)
+    seed = seed_for(gen, params.stochastic_rounding)
+    stats, partials = _device_stats(xf, params, mean, std)
     y, size = smaq_quantize(
         xf, params, seed=seed, stats=stats, partials=partials,
         all_positive=all_positive, compute_size=compute_size,
     )
     return y.view(x.shape).to(x.dtype), size
+
+
+def channel_layout(x: torch.Tensor, gamma: torch.Tensor) -> tuple[int, int]:
+    """(channels, inner) of the fold: a 0-d gamma is one pair for the whole
+    tensor; a (C,) gamma runs over dim 1 of ``x``."""
+    if gamma.dim() == 0:
+        return 1, 1
+    if gamma.dim() == 1 and x.dim() >= 2 and x.shape[1] == gamma.numel():
+        return gamma.numel(), math.prod(x.shape[2:])
+    raise ValueError(
+        f"gamma of shape {tuple(gamma.shape)} does not fold over dim 1 of {tuple(x.shape)}"
+    )
+
+
+def smaq_fused_bn(
+    x: torch.Tensor,
+    gen: torch.Generator | None,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    params: SmaQParams = SmaQParams(),
+    *,
+    all_positive: bool = False,
+    compute_size: bool = True,
+    mean: torch.Tensor | None = None,
+    std: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BN-folded SmaQ of a CUDA tensor through the kernels: the stats of
+    the raw tensor (``smaq_stats``, or the sampled or given stats), then
+    ``smaq_quantize_bn``."""
+    if not x.is_cuda:
+        raise ValueError(f"smaq_fused_bn takes CUDA tensors, got {x.device}")
+    n = x.numel()
+    if n < params.min_size:
+        return x, torch.full((), float(n * 32), device=x.device)
+    channels, inner = channel_layout(x, gamma)
+    xf = x.reshape(-1).to(torch.float32).contiguous()
+    seed = seed_for(gen, params.stochastic_rounding)
+    stats, partials = _device_stats(xf, params, mean, std)
+    y, size = smaq_quantize_bn(
+        xf, gamma.reshape(-1).to(torch.float32).contiguous(),
+        beta.reshape(-1).to(torch.float32).contiguous(), channels, inner, params,
+        seed=seed, stats=stats, partials=partials,
+        all_positive=all_positive, compute_size=compute_size,
+    )
+    return y.view(x.shape).to(x.dtype), size
+
+
+def _reference_stats(flat, params, mean, std):
+    """The kernels' stats in PyTorch ops, with the zero-std guard and the
+    clamp: the caller's, the sampled, or the pivot-shifted full stats."""
+    if mean is not None and std is not None:
+        mean, std = _given_stats(mean, std, flat.device).unbind()
+    elif params.use_sample_stats and flat.numel() > params.num_samples:
+        mean, std = sample_stats(flat, params).unbind()
+    else:
+        mean, std = pivot_stats_reference(flat, params)
+    std = torch.where(std == 0.0, torch.ones_like(std), std)
+    return mean, std.clamp(params.std_clamp_lo, params.std_clamp_hi)
+
+
+def _buckets(z, params, gen, u):
+    """Bucket and round the normalized ``z`` as the kernels do; returns
+    (q, hi, lo, outlier)."""
+    t = params.main_std_dev_threshold
+    hi, lo = z > t, z < -t
+    outlier = hi | lo
+    shift = torch.where(hi, -t, torch.where(lo, t, 0.0))
+    scale = torch.where(outlier, params.range_outlier, params.range_main)
+    q = (z + shift) * scale
+    if params.stochastic_rounding or u is not None:
+        if u is None:
+            if gen is None:
+                raise ValueError("stochastic rounding requires a torch.Generator")
+            # top 24 random bits, as the kernel takes them
+            u = torch.floor(uniform(q.shape, gen, q.device) * 2**24) * 2.0**-24
+        q = torch.floor(q + u.reshape(q.shape))
+    else:
+        q = torch.trunc(q)
+    return q, hi, lo, outlier
+
+
+def _reference_size(outlier, n, params, compute_size, device):
+    bm, bo = params.num_bits_main, params.num_bits_outlier
+    if compute_size:
+        return (n * bm + outlier.sum().double() * (bo - bm)).float()
+    return torch.full((), float(n * bm), device=device)
 
 
 def smaq_fused_reference(
@@ -259,14 +379,7 @@ def smaq_fused_reference(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     flat = x.reshape(-1).to(torch.float32)
-    if mean is not None and std is not None:
-        mean, std = _given_stats(mean, std, x.device).unbind()
-    elif params.use_sample_stats and n > params.num_samples:
-        mean, std = sample_stats(flat, params).unbind()
-    else:
-        mean, std = pivot_stats_reference(flat, params)
-    std = torch.where(std == 0.0, torch.ones_like(std), std)
-    std = std.clamp(params.std_clamp_lo, params.std_clamp_hi)
+    mean, std = _reference_stats(flat, params, mean, std)
 
     t = params.main_std_dev_threshold
     a = 1.0 / std
@@ -275,31 +388,57 @@ def smaq_fused_reference(
     inv_main_std = std * (1.0 / params.range_main)
     t_std = t * std
 
-    z = flat * a + b
-    hi, lo = z > t, z < -t
-    outlier = hi | lo
-    shift = torch.where(hi, -t, torch.where(lo, t, 0.0))
-    scale = torch.where(outlier, params.range_outlier, params.range_main)
-    q = (z + shift) * scale
-    if params.stochastic_rounding or u is not None:
-        if u is None:
-            if gen is None:
-                raise ValueError("stochastic rounding requires a torch.Generator")
-            # top 24 random bits, as the kernel takes them
-            u = torch.floor(uniform(q.shape, gen, q.device) * 2**24) * 2.0**-24
-        q = torch.floor(q + u.reshape(-1))
-    else:
-        q = torch.trunc(q)
+    q, hi, lo, outlier = _buckets(flat * a + b, params, gen, u)
     inv_scale_std = torch.where(outlier, inv_out_std, inv_main_std)
     shift_term = torch.where(hi, t_std, torch.where(lo, -t_std, torch.zeros_like(t_std)))
     y = q * inv_scale_std + shift_term + mean
     if all_positive:
         y = y.clamp_min(0.0)
-    bm, bo = params.num_bits_main, params.num_bits_outlier
-    if compute_size:
-        size = (n * bm + outlier.sum().double() * (bo - bm)).float()
-    else:
-        size = torch.full((), float(n * bm), device=x.device)
+    size = _reference_size(outlier, n, params, compute_size, x.device)
+    return y.view(x.shape).to(x.dtype), size
+
+
+def smaq_fused_bn_reference(
+    x: torch.Tensor,
+    gen: torch.Generator | None,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    params: SmaQParams = SmaQParams(),
+    *,
+    all_positive: bool = False,
+    compute_size: bool = True,
+    mean: torch.Tensor | None = None,
+    std: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The BN kernel's plain version, in PyTorch ops on any device.
+
+    The stats of the raw tensor as ``smaq_fused_reference`` takes them,
+    then the per-channel constants of ``smaq_kernel.py:436-443`` (gamma = 0
+    taken as 1): z = x * A + B, zhat = q / scale - shift, y = zhat * G + H."""
+    n = x.numel()
+    if n < params.min_size:
+        return x, torch.full((), float(n * 32), device=x.device)
+    channels, inner = channel_layout(x, gamma)
+    flat = x.reshape(-1, channels, inner).to(torch.float32)
+    mean, std = _reference_stats(flat.reshape(-1), params, mean, std)
+
+    g = gamma.reshape(1, -1, 1).to(torch.float32)
+    g = torch.where(g == 0.0, torch.ones_like(g), g)
+    b = beta.reshape(1, -1, 1).to(torch.float32)
+    a = 1.0 / (g * std)
+    bb = -(b * a) - mean / std
+    gg = std * g
+    hh = mean * g + b
+
+    q, hi, lo, outlier = _buckets(flat * a + bb, params, gen, u)
+    t = params.main_std_dev_threshold
+    shift = torch.where(hi, -t, torch.where(lo, t, 0.0))
+    inv_scale = torch.where(outlier, 1.0 / params.range_outlier, 1.0 / params.range_main)
+    y = (q * inv_scale - shift) * gg + hh
+    if all_positive:
+        y = y.clamp_min(0.0)
+    size = _reference_size(outlier, n, params, compute_size, x.device)
     return y.view(x.shape).to(x.dtype), size
 
 
@@ -312,18 +451,27 @@ def smaq_fused_or_reference(
     compute_size: bool = True,
     mean: torch.Tensor | None = None,
     std: torch.Tensor | None = None,
+    gamma: torch.Tensor | None = None,
+    beta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A CUDA tensor goes to the kernels, a CPU tensor to ``ops/smaq.py``.
+    """A CUDA tensor goes to the kernels (the BN kernel when ``gamma`` and
+    ``beta`` are given), a CPU tensor to ``ops/smaq.py``.
 
     The CPU path always computes the true size; ``compute_size`` only
     spares the kernel's outlier count."""
     if x.is_cuda:
+        if gamma is not None and beta is not None:
+            return smaq_fused_bn(
+                x, gen, gamma, beta, params, all_positive=all_positive,
+                compute_size=compute_size, mean=mean, std=std,
+            )
         return smaq_fused(
             x, gen, params, all_positive=all_positive,
             compute_size=compute_size, mean=mean, std=std,
         )
     if x.device.type == "cpu":
         return smaq_quantize_dequantize(
-            x, gen, params, all_positive=all_positive, mean=mean, std=std
+            x, gen, params, all_positive=all_positive, mean=mean, std=std,
+            gamma=gamma, beta=beta,
         )
     raise ValueError(f"no SmaQ path for device {x.device}")

@@ -33,6 +33,14 @@ def uniform(shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
 
 
+def random_bits(shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    """Uniform 32-bit words (int64 in ``[0, 2^32)``) of ``shape`` on
+    ``device`` from ``gen``."""
+    if gen.device.type != torch.device(device).type:
+        gen = child_generator(gen, device)
+    return torch.randint(0, 2**32, shape, generator=gen, device=device, dtype=torch.int64)
+
+
 def stochastic_round(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """``floor(x) + (frac(x) > u)`` with ``u ~ U[0, 1)``: E[result] == x."""
     floored = torch.floor(x)

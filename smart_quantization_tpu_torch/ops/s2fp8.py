@@ -1,0 +1,53 @@
+"""S2FP8 (shifted-squeezed FP8) fake-quantization, plain PyTorch.
+
+The counterpart of ``smart_quantization_tpu/ops/s2fp8.py`` (22-53): the
+per-tensor mean ``mu`` and max ``m`` of ``log2|x|`` (zeros count as 0 in
+both), ``alpha = 15 / (m - mu)`` (15 where ``m == mu``, the JAX package's
+guard of a constant tensor), ``beta = -alpha * mu``; the magnitudes are
+squeezed to ``|x|^alpha * 2^beta``, rounded onto FP8 e5m2, unsqueezed and
+given their signs back (zeros stay zeros).
+
+This is the path every CPU tensor takes.  CUDA tensors go to the kernels in
+``ops/cuda/s2fp8_kernel.py``, whose plain version computes the squeeze as
+``exp2(alpha * log2|x| + beta)`` like the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT, float_quantize
+
+# two float32 scalars (alpha, beta) per tensor
+OVERHEAD_BITS = 64
+
+
+def squeeze_coefs(mu: torch.Tensor, m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(alpha, beta) from the mean and max of ``log2|x|``."""
+    denom = m - mu
+    fifteen = torch.full_like(denom, 15.0)
+    # a true division: `15.0 / tensor` would be 15 * reciprocal, one more rounding
+    alpha = fifteen / torch.where(denom == 0.0, fifteen, denom)
+    return alpha, -alpha * mu
+
+
+def s2fp8_quantize_dequantize(
+    x: torch.Tensor,
+    gen: torch.Generator | None,
+    *,
+    stochastic: bool = True,
+    check_inf: bool = True,
+    rand: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """S2FP8 of ``x``; ``rand`` is passed on to ``float_quantize``."""
+    xf = x.to(torch.float32)
+    x_abs = xf.abs()
+    lg = torch.where(x_abs == 0.0, x_abs, torch.log2(x_abs))
+    alpha, beta = squeeze_coefs(lg.mean(), lg.max())
+    beta_pow2 = torch.exp2(beta)
+    squeezed = torch.pow(x_abs, alpha) * beta_pow2
+    t = float_quantize(
+        squeezed, FP8_FORMAT, gen, stochastic=stochastic, check_inf=check_inf, rand=rand
+    )
+    out = torch.pow(t / beta_pow2, 1.0 / alpha) * torch.sign(xf)
+    return out.to(x.dtype)

@@ -15,6 +15,13 @@ with the same math:
 6. optional ``all_positive`` clamp at zero (Adam's second moment);
 7. data-dependent size: ``outliers * b_out + rest * b_main`` bits.
 
+With BatchNorm's ``gamma``/``beta`` (``--use_batch_norm``) the quantizer
+works on the unfolded ``(x - beta) / gamma`` and folds the result back;
+the stats still come from the raw tensor (the reference quirk).  The fold
+runs over dim 1 (NCHW; the JAX package's NHWC uses the last axis), a 0-d
+pair over the whole tensor, and a zero gamma is taken as 1, as the TPU
+kernel does (the JAX jnp path divides by it and returns NaN).
+
 This is the path every CPU tensor takes.  CUDA tensors go to the kernels in
 ``ops/cuda/smaq_kernel.py``.
 """
@@ -94,6 +101,19 @@ def compute_stats(
     return mean, std
 
 
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``v`` (0-d, or one value per channel of dim 1) broadcastable to ``x``."""
+    v = v.to(torch.float32)
+    if v.dim() == 0:
+        return v
+    if v.dim() != 1 or x.dim() < 2 or x.shape[1] != v.numel():
+        raise ValueError(
+            f"BatchNorm parameters of shape {tuple(v.shape)} do not fold over "
+            f"dim 1 of {tuple(x.shape)}"
+        )
+    return v.view(1, -1, *([1] * (x.dim() - 2)))
+
+
 def smaq_quantize_dequantize(
     x: torch.Tensor,
     gen: torch.Generator | None,
@@ -102,12 +122,14 @@ def smaq_quantize_dequantize(
     all_positive: bool = False,
     mean: torch.Tensor | None = None,
     std: torch.Tensor | None = None,
+    gamma: torch.Tensor | None = None,
+    beta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fake-quantize ``x`` with SmaQ; returns ``(x_hat, new_size_bits)``.
 
     ``new_size_bits`` is a 0-d float32 tensor on ``x``'s device (the
     original size is the static ``x.numel() * 32``).  Given ``mean``/``std``
-    skip the stats pass."""
+    skip the stats pass; ``gamma``/``beta`` fold BatchNorm's affine in."""
     n = x.numel()
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
@@ -115,6 +137,12 @@ def smaq_quantize_dequantize(
     xf = x.float()
     if mean is None or std is None:
         mean, std = compute_stats(xf, params, gen)
+
+    use_bn = gamma is not None and beta is not None
+    if use_bn:
+        gamma, beta = _per_channel(gamma, xf), _per_channel(beta, xf)
+        gamma = torch.where(gamma == 0.0, torch.ones_like(gamma), gamma)
+        xf = (xf - beta) / gamma
 
     std = torch.where(std == 0.0, torch.ones_like(std), std)
     std = std.clamp(params.std_clamp_lo, params.std_clamp_hi)
@@ -130,6 +158,8 @@ def smaq_quantize_dequantize(
 
     q = round_to_grid((z + shift) * scale, gen, params.stochastic_rounding)
     x_hat = (q / scale - shift) * std + mean
+    if use_bn:
+        x_hat = x_hat * gamma + beta
     if all_positive:
         x_hat = x_hat.clamp_min(0.0)
 

@@ -1,9 +1,11 @@
 """Where a training step's time goes on the card.
 
     python -m smart_quantization_tpu_torch.profile_step [--no_compress]
+        [--compress smart|fp8|fp16|bf16|s2fp8|fp32] [--use_batch_norm]
 
-Runs 3 warm-up steps of the main path (ResNet-18, batch 128, synthetic
-CIFAR-10, SmaQ 6/8 on every structure, or ``--no_compress``), times 10
+Runs 3 warm-up steps of a main path (ResNet-18, batch 128, synthetic
+CIFAR-10, every structure compressed by the chosen encoder, SmaQ 6/8 by
+default, or ``--no_compress``), times 10
 steps on the host clock, then 10 more under ``torch.profiler``, and prints: the median step time of each, the device's
 busy time per step (the sum of its kernel times; one stream, so kernels do
 not overlap), its idle share of the unprofiled step, kernel launches per
@@ -36,15 +38,20 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no_compress", action="store_true")
+    ap.add_argument("--compress", default="smart",
+                    choices=("smart", "fp8", "fp16", "bf16", "s2fp8", "fp32"))
+    ap.add_argument("--use_batch_norm", action="store_true")
     args = ap.parse_args(argv)
     steps, warmup = 10, 3
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
 
-    cli = ["--device", "cuda", "--resnet_model", "resnet18", "--compress", "smart",
+    cli = ["--device", "cuda", "--resnet_model", "resnet18", "--compress", args.compress,
            "--measure_compression_ratio", "--batch_size", "128", "--logdir", ""]
     if args.no_compress:
         cli.append("--no_compress")
+    if args.use_batch_norm:
+        cli.append("--use_batch_norm")
     torch.manual_seed(0)
     trainer = build_trainer(parse_args(cli))
     state = trainer.init_state()
@@ -82,21 +89,27 @@ def main(argv=None) -> dict:
     launches = sum(e.count for e in kernels) / steps
     step_ms = statistics.median(times)
     top = sorted(kernels, key=_device_time_us, reverse=True)[:15]
-    smaq_ms = sum(_device_time_us(e) for e in kernels if "smaq_" in e.key) / 1e3 / steps
+    # the port's own kernels (csrc/*.cu)
+    encoder_ms = sum(
+        _device_time_us(e) for e in kernels
+        if any(k in e.key for k in ("smaq_", "float_quantize", "s2fp8_"))
+    ) / 1e3 / steps
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: step {step_ms:.2f} ms (median of {steps}; "
+    what = " ".join(cli[4:6] + cli[11:])
+    print(f"{card} [{what}]: step {step_ms:.2f} ms (median of {steps}; "
           f"{statistics.median(profiled_times):.2f} ms profiled), device busy "
           f"{busy_ms:.2f} ms/step, idle {1 - busy_ms / step_ms:.1%}, "
-          f"{launches:.0f} kernel launches/step, SmaQ kernels {smaq_ms:.2f} ms/step")
+          f"{launches:.0f} kernel launches/step, encoder kernels {encoder_ms:.2f} ms/step")
     for e in top:
         print(f"  {_device_time_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count / steps:6.0f}/step  {e.key[:90]}")
     result = {
-        "device": card, "compress": not args.no_compress, "step_ms": step_ms,
+        "device": card, "compress": None if args.no_compress else args.compress,
+        "use_batch_norm": args.use_batch_norm, "step_ms": step_ms,
         "step_ms_all": times, "profiled_step_ms": statistics.median(profiled_times),
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / step_ms, "launches_per_step": launches,
-        "smaq_kernel_ms": smaq_ms,
+        "encoder_kernel_ms": encoder_ms,
         "top": [{"kernel": e.key, "ms_per_step": _device_time_us(e) / 1e3 / steps,
                  "per_step": e.count / steps} for e in top],
     }

@@ -2,7 +2,7 @@
 
 Counterpart of ``smart_quantization_tpu/utils/config.py`` (``parse_args``
 and ``build_components``) for the path ported so far: ResNet on
-CIFAR-10/100 with the SmaQ or FP32 encoder.  Phase 1 parses the class
+CIFAR-10/100 with any of the six encoders.  Phase 1 parses the class
 selectors and the per-structure toggles; phase 2 re-parses with the
 selected components' own flags.  Flags of paths not yet ported are
 accepted and raise ``NotImplementedError`` naming their ROADMAP item;
@@ -44,6 +44,16 @@ def add_smart_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--use_range_std_dev", action="store_true")
     parser.add_argument("--use_batch_norm", action="store_true")
     parser.add_argument("--bn_scalar_params", action="store_true")
+
+
+def add_float_args(parser: argparse.ArgumentParser) -> None:
+    # the JAX package's add_float_args (utils/config.py:52-59)
+    add_compression_args(parser)
+    parser.add_argument(
+        "--no_float_quantize_check_inf",
+        action="store_false",
+        dest="float_quantize_check_inf",
+    )
 
 
 def add_resnet_args(parser: argparse.ArgumentParser) -> None:
@@ -97,6 +107,7 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
 
 
 COMPRESSORS = ("bf16", "fp16", "fp32", "fp8", "s2fp8", "smart")
+FLOAT_COMPRESSORS = ("fp8", "s2fp8", "fp16", "bf16")
 MODELS = ("bert", "inception", "resnet")
 DATASETS = ("cifar10", "cifar100", "glue", "imdb")
 
@@ -105,7 +116,6 @@ _NOT_YET_PORTED = (
     (lambda a: a.model == "inception", "--model inception", 13),
     (lambda a: a.model == "bert", "--model bert", 14),
     (lambda a: a.dataset in ("glue", "imdb"), "--dataset glue/imdb", 14),
-    (lambda a: a.compress in ("fp8", "s2fp8", "fp16", "bf16"), "this --compress encoder", 9),
     (lambda a: a.compress_loss, "--compress_loss", 12),
     (lambda a: a.compute_dtype != "float32", "--compute_dtype bfloat16", 12),
     (lambda a: a.steps_per_call != 1, "--steps_per_call", 12),
@@ -160,6 +170,8 @@ def parse_args(argv: list[str] | str | None = None) -> argparse.Namespace:
     phase2 = argparse.ArgumentParser(parents=[phase1])
     if args1.compress == "smart":
         add_smart_args(phase2)
+    elif args1.compress in FLOAT_COMPRESSORS:
+        add_float_args(phase2)
     else:
         add_compression_args(phase2)
     add_resnet_args(phase2)
@@ -237,6 +249,8 @@ def build_components(
                 # skip the kernel's size accounting when the ratio is not logged
                 measure_sizes=args.measure_compression_ratio,
             )
+        elif args.compress in FLOAT_COMPRESSORS:
+            opts.update(check_inf=args.float_quantize_check_inf)
         compressor = build_compressor(args.compress, **opts)
 
     tap_cfg = None
@@ -245,6 +259,7 @@ def build_components(
             compressor=compressor,
             compress_forward=args.compress_forward,
             compress_backward=args.compress_backward,
+            use_batch_norm=getattr(args, "use_batch_norm", False),
         )
         if args.compression_hook_fn == "global_hook":
             tap_cfg = tap_cfg.as_global_hook()

@@ -149,3 +149,40 @@ def test_tapped_forward_matches_in_truncation_mode(setup):
     ref = sizes_ref["forward_autograd"]
     assert got[0] == ref[0]
     assert abs(got[1] - ref[1]) <= 0.01 * ref[1]
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_bn_folded_forward_matches_jax(setup, train):
+    """``use_batch_norm``: every BatchNorm tap folds the layer's (nonzero,
+    see ``setup``) gamma and beta into SmaQ, in truncation mode.  JAX runs
+    this forward pass (its training step cannot, ROADMAP Queue 3); held as
+    the tapped forward above: logits to 1e-2 of their scale, the original
+    sizes exactly and the new ones to 1 %."""
+    x, _, params, stats = setup
+    jcomp = jax_build_compressor("smart", stochastic_rounding=False, use_batch_norm=True)
+    jmodel = JaxResNet(stage_sizes=STAGES, block_cls=JaxBasicBlock, num_classes=10,
+                       tap=JaxTapConfig(compressor=jcomp, use_batch_norm=True))
+    mutable = ["batch_stats", "compression_stats"] if train else ["compression_stats"]
+    logits_ref, mut = jax.jit(
+        lambda p, s: jmodel.apply(
+            {"params": p, "batch_stats": s}, jnp.asarray(x), train=train,
+            rngs={"compress": jax.random.key(2)}, mutable=mutable,
+        )
+    )(params, stats)
+    ref = np.asarray(fold_sown_stats(mut["compression_stats"])["forward_autograd"])
+
+    comp = build_compressor("smart", stochastic_rounding=False, use_batch_norm=True)
+    model = torch_model(params, stats, tap=TapConfig(compressor=comp, use_batch_norm=True))
+    ctx = TapContext(torch.Generator().manual_seed(0), SizeTotals())
+    with torch.no_grad():
+        logits = model.train(train)(nchw(x), ctx)
+    scale = float(np.abs(logits_ref).max())
+    assert float((logits - torch.from_numpy(np.array(logits_ref))).abs().max()) <= 1e-2 * scale
+    got = ctx.sizes.totals["forward_autograd"].numpy()
+    assert got[0] == ref[0]
+    assert abs(got[1] - ref[1]) <= 0.01 * ref[1]
+    # the fold changes the result: the same model without it differs
+    plain = torch_model(params, stats, tap=TapConfig(compressor=comp))
+    with torch.no_grad():
+        unfolded = plain.train(train)(nchw(x), TapContext(torch.Generator().manual_seed(0)))
+    assert not torch.equal(unfolded, logits)

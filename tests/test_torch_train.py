@@ -54,14 +54,14 @@ TAGS = ("forward_autograd", "backward_autograd", "optimizer_grad",
         "optimizer_weight", "optimizer_momentum")
 
 
-@pytest.mark.parametrize("coverage", ["optimizer", "full"])
-def test_trainer_step_matches_jax(coverage):
-    taps = coverage == "full"
+def run_both_steps(jcomp, comp, taps):
+    """One training step of the tiny ResNet in JAX and in the port, with
+    the same parameters and batch; returns the port's metrics, state and
+    model and JAX's loss, parameters, trace and sizes."""
     r = np.random.RandomState(0)
     x = r.randn(4, 8, 8, 3).astype(np.float32)
     labels = np.array([1, 4, 7, 9], np.int32)
 
-    jcomp = jax_build_compressor("smart", stochastic_rounding=False)
     jmodel = JaxResNet(stage_sizes=(1, 1), block_cls=JaxBasicBlock, num_classes=10,
                        tap=JaxTapConfig(compressor=jcomp) if taps else None)
     variables = jax.jit(
@@ -95,7 +95,6 @@ def test_trainer_step_matches_jax(coverage):
         variables["params"], variables["batch_stats"], variables.get("telemetry")
     )
 
-    comp = build_compressor("smart", stochastic_rounding=False)
     model = ResNet((1, 1), BasicBlock, num_classes=10,
                    tap=TapConfig(compressor=comp) if taps else None)
     model.load_state_dict(params_from_jax(
@@ -112,6 +111,16 @@ def test_trainer_step_matches_jax(coverage):
         state, torch.from_numpy(x.transpose(0, 3, 1, 2).copy()),
         torch.from_numpy(labels),
     )
+    return metrics, state, model, (loss_ref, p_ref, trace_ref, sizes_ref)
+
+
+@pytest.mark.parametrize("coverage", ["optimizer", "full"])
+def test_trainer_step_matches_jax(coverage):
+    taps = coverage == "full"
+    jcomp = jax_build_compressor("smart", stochastic_rounding=False)
+    comp = build_compressor("smart", stochastic_rounding=False)
+    metrics, state, model, (loss_ref, p_ref, trace_ref, sizes_ref) = run_both_steps(
+        jcomp, comp, taps)
 
     assert state.step == 1
     loss_tol = 1e-2 if taps else 1e-5
@@ -136,6 +145,81 @@ def test_trainer_step_matches_jax(coverage):
         a, b = metrics[f"_ratio/{tag}"].numpy(), np.asarray(sizes_ref[tag])
         assert a[0] == b[0], tag
         assert abs(a[1] - b[1]) <= 0.01 * b[1], tag
+
+
+@pytest.mark.parametrize("name", ["fp8", "fp16", "bf16"])
+def test_float_encoder_step_matches_jax(name):
+    """A full-coverage step with a float encoder in nearest mode: the loss
+    to 1e-2 relative (a last-ulp convolution difference can move a tapped
+    value across a rounding midpoint), every size exactly (n * bits), and
+    finite parameters."""
+    metrics, state, model, (loss_ref, _, _, sizes_ref) = run_both_steps(
+        jax_build_compressor(name, stochastic=False), build_compressor(name, stochastic=False),
+        taps=True)
+    assert abs(float(metrics["train_loss"]) - float(loss_ref)) <= 1e-2 * float(loss_ref)
+    for tag in TAGS:
+        np.testing.assert_array_equal(metrics[f"_ratio/{tag}"].numpy(),
+                                      np.asarray(sizes_ref[tag]), err_msg=tag)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def test_bn_folded_training_step_on_cpu():
+    """``--use_batch_norm`` from the command line: the taps fold each BN's
+    gamma and beta into the forward compress, gamma and beta still get
+    gradients (from the BatchNorm; the JAX package's training step cannot
+    run here, ROADMAP Queue 3), and a trainer step gives a finite loss."""
+    from smart_quantization_tpu_torch.compress import SizeTotals
+    from smart_quantization_tpu_torch.inject.tap import TapContext
+    from smart_quantization_tpu_torch.utils.config import build_components, parse_args
+
+    args = parse_args("--device cpu --compress smart --use_batch_norm "
+                      "--measure_compression_ratio")
+    comps = build_components(args)
+    assert comps["tap_cfg"].use_batch_norm and comps["compressor"].use_batch_norm
+    torch.manual_seed(0)
+    model = ResNet((1, 1), BasicBlock, num_classes=10, tap=comps["tap_cfg"])
+    x = torch.from_numpy(np.random.RandomState(1).randn(4, 3, 8, 8).astype(np.float32))
+    labels = torch.tensor([1, 4, 7, 9])
+    logits = model(x, TapContext(torch.Generator().manual_seed(0), SizeTotals()))
+    torch.nn.functional.cross_entropy(logits, labels).backward()
+    bn = {n: p for n, p in model.named_parameters() if n.split(".")[-2].endswith("bn")}
+    assert bn and all(torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0
+                      for p in bn.values())
+    trainer = Trainer(model, None, comps["optimizer_spec"], optim_comp=comps["optim_comp"],
+                      config=TrainConfig(measure_compression_ratio=True), device="cpu")
+    metrics = trainer.train_step(trainer.init_state(), x, labels)
+    assert np.isfinite(float(metrics["train_loss"]))
+    assert "_ratio/forward_autograd" in metrics
+
+
+@pytest.mark.parametrize("argv", [
+    "--compress fp8", "--compress fp16 --precision 16", "--compress bf16",
+    "--compress s2fp8 --no_float_quantize_check_inf", "--compress smart --use_batch_norm",
+    "--compress smart --use_batch_norm --bn_scalar_params", "--compress fp32",
+])
+def test_cli_builds_every_encoder(argv):
+    from smart_quantization_tpu_torch.utils.config import build_components, parse_args
+
+    args = parse_args(f"--device cpu {argv}")
+    comps = build_components(args)
+    comp = comps["compressor"]
+    assert comp.name == args.compress
+    assert comps["optim_comp"].compressor is comp and comps["tap_cfg"].compressor is comp
+    if args.compress in ("fp8", "fp16", "bf16", "s2fp8"):
+        assert comp.check_inf == ("--no_float_quantize_check_inf" not in argv)
+        assert comp.precision == args.precision
+    assert comps["tap_cfg"].use_batch_norm == ("--use_batch_norm" in argv)
+    if args.compress == "smart":
+        assert comp.use_batch_norm and comp.bn_scalar_params == ("--bn_scalar_params" in argv)
+
+
+@pytest.mark.parametrize("argv", ["--compress_loss", "--steps_per_call 2", "--model inception",
+                                  "--checkpoint_dir ckpt", "--packed_momentum"])
+def test_cli_deferred_flags_still_raise(argv):
+    from smart_quantization_tpu_torch.utils.config import build_components, parse_args
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        build_components(parse_args(f"--device cpu --compress fp8 {argv}"))
 
 
 def test_cli_reports_every_tag(tmp_path):
