@@ -15,6 +15,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    bitwise in nearest mode with and without ``check_inf``, on their grid
    and unbiased in stochastic mode; S2FP8's stats and its output; the
    BatchNorm-folded SmaQ on NCHW tensors, a scalar pair and a zero gamma;
+   SmaQ's one-block small form at the main path's small sizes and around
+   its threshold, the stats kernel's constants buffer, and the outlier
+   size after 1000 back-to-back calls (the self-resetting counters);
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -24,7 +27,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    uncompressed step;
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
-   cast to the same format;
+   cast to the same format; the SmaQ call at the main path's sizes, both
+   walk orders of its quantize pass, both forms around the small-form
+   threshold, truncation beside stochastic rounding, the SmaQ kernel time
+   of one ResNet-18 step reckoned from its calls' sizes, and the SmaQ
+   kernels' blocks resident per SM;
 6. the kernel table as one JSON line, then the result as the last line.
 
 Needs the repository beside it and one CUDA card.
@@ -57,6 +64,9 @@ MAIN_ARGV = [
 BN_SHAPE = (128, 64, 32, 32)  # the largest BatchNorm output, NCHW
 RAGGED_BN_SHAPE = (3, 10, 7, 5)
 TPU = "smart_quantization_tpu/ops/pallas"
+# the kernels of csrc/*.cu, as their wrappers count them
+KERNEL_NAMES = ("smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize",
+                "s2fp8_stats", "s2fp8_quantize")
 CSRC = "smart_quantization_tpu_torch/csrc"
 # the other CLI paths: (label, arguments after MAIN_ARGV's, overall ratio
 # range, the loss must be finite); argparse takes the last --compress
@@ -182,13 +192,18 @@ def check_kernels(device):
     for name, x in cases:
         n = x.numel()
         flat = x.reshape(-1)
-        # the stats kernel alone, against its plain version
-        mean_k, std_k = K.fold_partials(K.smaq_stats(flat), n, trunc)
+        # the stats kernel alone, against its plain version: mean and std,
+        # and the constants derived from them (to an ulp)
+        consts = K.smaq_stats(flat, trunc)
+        mean_k, std_k = K.read_consts(consts)
         mean_p, std_p = K.pivot_stats_reference(flat, trunc)
         d_mean, d_std = float((mean_k - mean_p).abs()), float((std_k - std_p).abs())
-        stat_ok = d_mean <= 1e-6 * (1 + abs(float(mean_p))) and d_std <= 1e-5 * float(std_p) + 1e-12
-        say(f"  {name}: stats |d mean|={d_mean:.2e} |d std|={d_std:.2e} "
-            f"-> {'ok' if stat_ok else 'MISMATCH'}")
+        derived = K.consts_reference(mean_k, std_k, trunc)
+        d_derived = float(((consts - derived).abs() / derived.abs().clamp_min(1e-30)).max())
+        stat_ok = (d_mean <= 1e-6 * (1 + abs(float(mean_p))) and d_std <= 1e-5 * float(std_p) + 1e-12
+                   and d_derived <= 2.5e-7)
+        say(f"  {name}: stats |d mean|={d_mean:.2e} |d std|={d_std:.2e}, constants "
+            f"within {d_derived:.1e} of theirs -> {'ok' if stat_ok else 'MISMATCH'}")
         if not stat_ok:
             fail(f"smaq_stats disagrees with its plain version: {name}")
         errs["smaq_stats"] = max(errs["smaq_stats"], d_mean, d_std)
@@ -230,34 +245,132 @@ def check_kernels(device):
 
         # stochastic: every output on one of the two grid points around its
         # input, and no bias over many elements
-        ys, bs = K.smaq_fused(x, host, stoch)
-        lo, _ = K.smaq_fused_reference(x, None, stoch, u=torch.zeros_like(flat))
-        hi, _ = K.smaq_fused_reference(x, None, stoch, u=torch.ones_like(flat))
-        tol = 1e-5 + 2.5e-7 * lo.abs()
-        off_grid = int((((ys - lo).abs() > tol) & ((ys - hi).abs() > tol)).sum())
-        # an element off its grid point is a flip: never more than one
-        # quantum outside the pair; as many flips as the trunc mode allows
-        # (the ill-conditioned tensor's cancellation flips ~2 % of them)
-        slack = quantum * 1.01 + tol
-        far = int(((ys < torch.minimum(lo, hi) - slack) | (ys > torch.maximum(lo, hi) + slack)).sum())
-        allowed = (0.05 if name.startswith("ill") else FLIP_FRACTION) * n
-        ok = off_grid <= allowed and far == 0 and bool(torch.isfinite(ys).all())
-        line = f"  {name} stochastic: off-grid={off_grid} beyond a quantum={far}"
-        if n >= 1_000_000:
-            err = (ys - x).double().flatten()
-            sigma = float(err.std()) / math.sqrt(n)
-            bias = float(err.mean())
-            ok = ok and abs(bias) <= 4 * sigma
-            line += f" mean err={bias:.3e} (4 sigma={4 * sigma:.3e})"
-        say(line + f" -> {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"stochastic rounding off its grid or biased: {name}")
+        ys, _ = K.smaq_fused(x, host, stoch)
+        stochastic_check(name, x, ys, stoch, quantum, 0.05 if name.startswith("ill") else FLIP_FRACTION)
 
     counts = {k: K.LAUNCHES[k] for k in ("smaq_stats", "smaq_quantize")}
     say(f"  launches during the checks: {counts}")
     if min(counts.values()) == 0:
         fail("a kernel was never launched by the checks")
     return errs
+
+
+def stochastic_check(name, x, ys, params, quantum, flip_fraction):
+    """Every output on one of the two grid points around its input (the
+    plain version at u = 0 and u = 1), and no bias over many elements.  An
+    element off its grid point is a flip: never more than one quantum
+    outside the pair; as many flips as the trunc mode allows (the
+    ill-conditioned tensor's cancellation flips ~2 % of them)."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+
+    n = x.numel()
+    lo, _ = K.smaq_fused_reference(x, None, params, u=torch.zeros_like(x))
+    hi, _ = K.smaq_fused_reference(x, None, params, u=torch.ones_like(x))
+    ys = ys.view(x.shape)
+    tol = 1e-5 + 2.5e-7 * lo.abs()
+    off_grid = int((((ys - lo).abs() > tol) & ((ys - hi).abs() > tol)).sum())
+    slack = quantum * 1.01 + tol
+    far = int(((ys < torch.minimum(lo, hi) - slack) | (ys > torch.maximum(lo, hi) + slack)).sum())
+    ok = off_grid <= flip_fraction * n and far == 0 and bool(torch.isfinite(ys).all())
+    line = f"  {name} stochastic: off-grid={off_grid} beyond a quantum={far}"
+    if n >= 1_000_000:
+        err = (ys - x).double().flatten()
+        sigma = float(err.std()) / math.sqrt(n)
+        bias = float(err.mean())
+        ok = ok and abs(bias) <= 4 * sigma
+        line += f" mean err={bias:.3e} (4 sigma={4 * sigma:.3e})"
+    say(line + f" -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"stochastic rounding off its grid or biased: {name}")
+
+
+def check_small_form(device):
+    """SmaQ's one-block small form (``smaq_quantize`` with no stats given)
+    against the plain version, at the main path's small sizes (fc bias, BN
+    leaf, a 1728-element conv weight, a 3x3x64x64 conv weight) and around
+    the threshold, in truncation, stochastic, ``all_positive`` and
+    range-std modes; then ``smaq_fused`` on each side of the threshold
+    launches the form ``smaq_plan`` names."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    host = torch.Generator().manual_seed(17)
+    trunc, stoch = SmaQParams(stochastic_rounding=False), SmaQParams()
+    rng = SmaQParams(stochastic_rounding=False, use_range_std_dev=True)
+    t = K.SMALL_MAX
+    err = 0.0
+    for n in (10, 64, 512, 1728, 36864, t - 1, t, t + 1):
+        x = torch.randn(n, generator=gen, device=device) * 0.8 + 0.3
+        name = f"small form {n}"
+        quantum = K.pivot_stats_reference(x, trunc)[1] / trunc.range_main
+        y, bits = K.smaq_quantize(x, trunc, seed=0)
+        y_ref, bits_ref = K.smaq_fused_reference(x, None, trunc)
+        err = max(err, flip_check(f"{name} trunc", y, y_ref, bits, bits_ref, quantum))
+        xp = x - x.mean()
+        y, bits = K.smaq_quantize(xp, trunc, seed=0, all_positive=True)
+        y_ref, bits_ref = K.smaq_fused_reference(xp, None, trunc, all_positive=True)
+        flip_check(f"{name} all_positive", y, y_ref, bits, bits_ref, quantum)
+        if float(y.min()) < 0.0:
+            fail(f"all_positive left a negative value: {name}")
+        y, bits = K.smaq_quantize(x, rng, seed=0)
+        y_ref, bits_ref = K.smaq_fused_reference(x, None, rng)
+        flip_check(f"{name} range std", y, y_ref, bits, bits_ref,
+                   K.pivot_stats_reference(x, rng)[1] / rng.range_main)
+        ys, _ = K.smaq_quantize(x, stoch, seed=int(torch.randint(0, 2**62, (), generator=host)))
+        stochastic_check(name, x, ys, stoch, quantum, FLIP_FRACTION)
+    for n, form in ((t, "small"), (t + 1, "split")):
+        x = torch.randn(n, generator=gen, device=device)
+        before = dict(K.LAUNCHES)
+        K.smaq_fused(x, host, stoch)
+        got = {k: K.LAUNCHES[k] - before[k] for k in ("smaq_stats", "smaq_quantize")}
+        want = {"smaq_stats": int(form == "split"), "smaq_quantize": 1}
+        say(f"  smaq_fused at {n}: {form} form, launches {got} -> {'ok' if got == want else 'MISMATCH'}")
+        if got != want or K.smaq_plan(n)[0] != form:
+            fail(f"smaq_fused at {n} did not take the {form} form")
+    return err
+
+
+def check_counter_reset(device):
+    """1000 back-to-back calls on one stream, alternating the split form,
+    the small form and the BN kernel (all three share the stream's
+    counters): every size must equal the first call's and the plain
+    version's, which it would not if a counter kept its count."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    gen = torch.Generator(device=device).manual_seed(18)
+    trunc = SmaQParams(stochastic_rounding=False)
+    big = torch.randn(300_001, generator=gen, device=device) * 2.5 - 0.7
+    small = torch.randn(1728, generator=gen, device=device)
+    xb = torch.randn(RAGGED_BN_SHAPE, generator=gen, device=device)
+    g = torch.rand(RAGGED_BN_SHAPE[1], generator=gen, device=device) + 0.5
+    b = torch.randn(RAGGED_BN_SHAPE[1], generator=gen, device=device)
+    calls = [lambda: K.smaq_fused(big, None, trunc)[1],
+             lambda: K.smaq_fused(small, None, trunc)[1],
+             lambda: K.smaq_fused_bn(xb, None, g, b, trunc)[1]]
+    refs = [K.smaq_fused_reference(big, None, trunc)[1],
+            K.smaq_fused_reference(small, None, trunc)[1],
+            K.smaq_fused_bn_reference(xb, None, g, b, trunc)[1]]
+    sizes = torch.stack([calls[i % 3]() for i in range(1000)]).view(-1)
+    ok = True
+    for j, (name, n) in enumerate((("split 300001", big.numel()), ("small 1728", small.numel()),
+                                   ("bn 3x10x7x5", xb.numel()))):
+        s = sizes[j::3]
+        same = bool((s == s[0]).all())
+        d = abs(float(s[0]) - float(refs[j]))
+        ok = ok and same and d <= 2 * FLIP_FRACTION * n + 1e-3  # the flip rule's bit slack
+        say(f"  counters after {s.numel()} {name} calls: sizes all {float(s[0]):.0f} ({same}), "
+            f"plain {float(refs[j]):.0f}")
+    say(f"  1000 back-to-back calls -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("a SmaQ counter did not reset between calls")
 
 
 def float_cases(device):
@@ -497,18 +610,60 @@ def path_kernels(args) -> tuple[str, ...]:
     return ("smaq_stats", "smaq_quantize")
 
 
-def expected_launches(args, model) -> dict:
-    """Launches of each kernel in one training step: one per encoder call
-    (two for the two-pass encoders); under --use_batch_norm the forward
-    taps of the BatchNorms go to the BN kernel."""
-    from smart_quantization_tpu_torch.models.resnet import TappedBatchNorm
+def step_calls(trainer, batch_size: int) -> list[tuple[int, bool]]:
+    """Every encoder call of one training step as (elements, goes to the BN
+    kernel): each tap site forward and backward (the sites read off one
+    forward pass of the model with the taps recording instead of
+    compressing), every gradient, every non-BN weight and every momentum
+    buffer."""
+    import torch
 
-    e = per_step_launches(model)
-    out = {k: e for k in path_kernels(args)}
-    if "smaq_quantize_bn" in out:
-        n_bn = sum(isinstance(m, TappedBatchNorm) for m in model.modules())
-        out["smaq_quantize"] = e - n_bn
-        out["smaq_quantize_bn"] = n_bn
+    from smart_quantization_tpu_torch.compress.base import SizeStats
+    from smart_quantization_tpu_torch.inject import tap
+    from smart_quantization_tpu_torch.optim.compressed import norm_param_mask
+
+    taps = []
+
+    def record(x, gen, compressor, *, gamma=None, **_):
+        taps.append((x.numel(), gamma is not None))
+        return x, SizeStats.of(x.numel(), 32, 32, x.device)
+
+    model, real = trainer.model, tap.compression_tap
+    tap.compression_tap = record
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(torch.zeros(batch_size, 3, 32, 32, device=trainer.device),
+                  tap.TapContext(torch.Generator()))
+    finally:
+        tap.compression_tap = real
+    named = dict(model.named_parameters())
+    is_bn = norm_param_mask(list(named))
+    params = [p.numel() for p in named.values()]
+    weights = [p.numel() for k, p in named.items() if not is_bn[k]]
+    return (taps + [(n, False) for n, _ in taps]
+            + [(n, False) for n in params + weights + params])
+
+
+def expected_launches(args, calls) -> dict:
+    """Launches of each kernel in one training step: one per encoder call
+    for the float formats, two for S2FP8; for SmaQ, a stats launch where
+    ``smaq_plan`` takes the split form (and for every BN-kernel call) and
+    one quantize launch per call; under --use_batch_norm the forward taps
+    of the BatchNorms go to the BN kernel."""
+    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import smaq_plan
+
+    kernels = path_kernels(args)
+    if kernels[0] != "smaq_stats":
+        return {k: len(calls) for k in kernels}
+    out = dict.fromkeys(kernels, 0)
+    for n, bn in calls:
+        if bn:
+            out["smaq_stats"] += 1
+            out["smaq_quantize_bn"] += 1
+        else:
+            out["smaq_stats"] += smaq_plan(n)[0] == "split"
+            out["smaq_quantize"] += 1
     return out
 
 
@@ -568,7 +723,12 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
         batches.extend(trainer.data.device_train_batches(epoch, trainer.device))
         epoch += 1
     batches = iter(batches)
-    expected = expected_launches(args, trainer.model)
+    calls, expected = [], {}
+    if check_launches:
+        calls = step_calls(trainer, args.batch_size)
+        if len(calls) != per_step_launches(trainer.model):
+            fail(f"{len(calls)} encoder calls per step, not {per_step_launches(trainer.model)}")
+        expected = expected_launches(args, calls)
 
     def step():
         images, labels = next(batches)
@@ -604,11 +764,52 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
     loss = float(metrics["train_loss"])
     if finite_loss and not math.isfinite(loss):
         fail("non-finite training loss")
-    return statistics.median(times), loss, expected
+    return statistics.median(times), loss, expected, calls
 
 
 # ---------------------------------------------------------------- phase 5
-def time_kernels(device):
+def make_timer(device):
+    """``timed(fn)``: the median of 25 CUDA-event timings of ``fn`` after one
+    warm-up call, with 512 MB written before each (that evicts the 50 MB L2)
+    and then a 1 ms spin, so the queue is ahead of the host and the events
+    time the kernels and not the launch.  ``per_call(fn)``: ``fn`` 20 times
+    in a CUDA graph, timed as above and divided by 20: a call's device time
+    in a stream of calls, gaps between kernels included, host excluded."""
+    import torch
+
+    flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
+    capture = torch.cuda.Stream(device)
+
+    def timed(fn, runs=25):
+        fn()
+        out = []
+        for _ in range(runs):
+            flush.zero_()
+            torch.cuda._sleep(1 << 21)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
+
+    def per_call(fn, reps=20):
+        capture.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(capture):
+            fn()  # the capture stream's first call allocates its workspace
+        torch.cuda.current_stream(device).wait_stream(capture)
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            for _ in range(reps):
+                fn()
+        return timed(graph.replay, runs=10) / reps
+
+    return timed, per_call
+
+
+def time_kernels(device, timed):
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
@@ -627,40 +828,25 @@ def time_kernels(device):
     host = torch.Generator().manual_seed(3)
     x = torch.randn(ACT_SHAPE, generator=gen, device=device).reshape(-1)
     n = x.numel()
-    # 512 MB written between runs: evicts the 50 MB L2 and keeps the queue
-    # ahead of the host, so the events time the kernel and not the launch
-    flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
-    partials = K.smaq_stats(x)
+    consts = K.smaq_stats(x, params)
     mean, std = K.pivot_stats_reference(x, params)
     s2_partials = S.s2fp8_stats(x)
     xb = x.view(BN_SHAPE)
     channels = BN_SHAPE[1]
     gamma = torch.randn(channels, generator=gen, device=device) * 0.3 + 1.0
     beta = torch.randn(channels, generator=gen, device=device) * 0.2
-
-    def timed(fn, runs=25):
-        fn()
-        out = []
-        for _ in range(runs):
-            flush.zero_()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b))
-        return statistics.median(out)
+    y = torch.empty_like(x)
 
     def fq(fmt, stochastic):
         return lambda: F.float_quantize_launch(x, fmt, seed=7, stochastic=stochastic, check_inf=True)
 
     t = {
-        "smaq_stats": timed(lambda: K.smaq_stats(x)),
-        "smaq_quantize": timed(lambda: K.smaq_quantize(x, params, seed=7, partials=partials)),
-        "pair": timed(lambda: K.smaq_fused(x, host, params)),
+        "smaq_stats": timed(lambda: K.smaq_stats(x, params)),
+        "smaq_quantize": timed(lambda: K.smaq_quantize(x, params, seed=7, consts=consts)),
+        "smaq_call": timed(lambda: K.smaq_fused(x, host, params)),
         "plain_stats": timed(lambda: K.pivot_stats_reference(x, params)),
         "plain_quantize": timed(lambda: K.smaq_fused_reference(x, host, params, mean=mean, std=std)),
-        "plain_pair": timed(lambda: K.smaq_fused_reference(x, host, params)),
+        "plain_call": timed(lambda: K.smaq_fused_reference(x, host, params)),
         "float_quantize": timed(fq(FP8_FORMAT, True)),
         "float_fp8_nearest": timed(fq(FP8_FORMAT, False)),
         "float_fp16_nearest": timed(fq(FP16_FORMAT, False)),
@@ -678,24 +864,127 @@ def time_kernels(device):
         "plain_s2fp8": timed(lambda: S.s2fp8_fused_reference(x, host)),
         "smaq_quantize_bn": timed(lambda: K.smaq_quantize_bn(
             x, gamma, beta, channels, n // (BN_SHAPE[0] * channels), params,
-            seed=7, partials=partials)),
+            seed=7, consts=consts)),
         "plain_bn": timed(lambda: K.smaq_fused_bn_reference(
             xb, host, gamma, beta, params, mean=mean, std=std)),
+        # yardsticks that move the same bytes: a read, and a read and a write
+        "torch_sum": timed(lambda: x.sum()),
+        "torch_copy": timed(lambda: y.copy_(x)),
     }
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    # each input read once, each output written once
     bound = {
         "smaq_stats": 4 * n / rate,
         "smaq_quantize": 8 * n / rate,
+        "smaq_call": 8 * n / rate,
         "float_quantize": 8 * n / rate,
         "s2fp8_stats": 4 * n / rate,
         "s2fp8_quantize": 8 * n / rate,
+        "s2fp8_pair": 8 * n / rate,
         "smaq_quantize_bn": (8 * n + 8 * channels) / rate,
     }
-    bound["pair"] = bound["smaq_stats"] + bound["smaq_quantize"]
-    bound["s2fp8_pair"] = bound["s2fp8_stats"] + bound["s2fp8_quantize"]
     for k in ("float_fp8_nearest", "float_fp16_nearest", "float_bf16_nearest"):
         bound[k] = bound["float_quantize"]
     return t, bound, n
+
+
+CALL_SIZES = (8_388_608, 2_097_152, 147_456, 36_864, 8192, 512, 64)
+# the main path's sizes around the small form's threshold
+FORM_SIZES = (1728, 5120, 8192, 32_768, 36_864, 65_536, 147_456)
+
+
+def time_smaq(device, timed, per_call, calls, card):
+    """Phase 5's SmaQ lines; returns them as a dict."""
+    import collections
+    import ctypes
+
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import build
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    params, trunc = SmaQParams(), SmaQParams(stochastic_rounding=False)
+    host = torch.Generator().manual_seed(5)
+    x = torch.randn(math.prod(ACT_SHAPE), device=device,
+                    generator=torch.Generator(device=device).manual_seed(4))
+    rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    out = {"card": card}
+
+    def call(n):
+        xn = x[:n]
+        return lambda: K.smaq_fused(xn, host, params)
+
+    say("  the SmaQ call (smaq_fused, stochastic, size counted) by size, alone and "
+        "in a stream of 20:")
+    out["call_us"] = {}
+    for n in CALL_SIZES:
+        alone, stream = timed(call(n)), per_call(call(n))
+        b = 8 * n / rate
+        out["call_us"][n] = {"alone": alone * 1e3, "in_stream": stream * 1e3}
+        say(f"    {n}: {alone * 1e3:.2f} us alone, {stream * 1e3:.2f} us in a stream "
+            f"({K.smaq_plan(n)[0]} form); bound {b * 1e3:.3f} us (8 B/element), "
+            f"{b / alone:.1%} / {b / stream:.1%} of it")
+
+    out["walk_us"] = {}
+    for n in (8_388_608, 4_194_304):
+        xn = x[:n]
+        ms = {rev: timed(lambda: K.smaq_quantize(xn, params, seed=7, reverse=rev,
+                                                 consts=K.smaq_stats(xn, params)))
+              for rev in (False, True)}
+        out["walk_us"][n] = {"forward": ms[False] * 1e3, "reverse": ms[True] * 1e3}
+        say(f"  stats + quantize at {n}: quantize walking forward {ms[False] * 1e3:.2f} us, "
+            f"back from the end {ms[True] * 1e3:.2f} us (kept: "
+            f"{'back' if K.REVERSE else 'forward'})")
+
+    consts = K.smaq_stats(x, params)
+    q = {name: timed(lambda p=p: K.smaq_quantize(x, p, seed=7, consts=consts)) * 1e3
+         for name, p in (("trunc", trunc), ("stochastic", params))}
+    out["quantize_us"] = q
+    say(f"  smaq_quantize at {x.numel()}: truncation {q['trunc']:.2f} us, "
+        f"stochastic {q['stochastic']:.2f} us")
+
+    say(f"  small form (one block) against split (stats + quantize) by size, "
+        f"in a stream of 20 and alone; threshold {K.SMALL_MAX}:")
+    out["forms_us"] = {}
+    for n in FORM_SIZES:
+        xn = x[:n]
+        forms = {"small": lambda: K.smaq_quantize(xn, params, seed=7),
+                 "split": lambda: K.smaq_quantize(xn, params, seed=7,
+                                                  consts=K.smaq_stats(xn, params))}
+        r = {f"{k} {how}": f(fn) * 1e3 for k, fn in forms.items()
+             for how, f in (("in_stream", per_call), ("alone", timed))}
+        out["forms_us"][n] = r
+        say(f"    {n}: small {r['small in_stream']:.2f} / {r['small alone']:.2f} us, "
+            f"split {r['split in_stream']:.2f} / {r['split alone']:.2f} us "
+            f"(plan: {K.smaq_plan(n)[0]})")
+
+    sizes = collections.Counter(n for n, bn in calls if not bn)
+    per_step = sum(k * per_call(call(n)) for n, k in sizes.items())
+    step_bound = sum(8 * n * k for n, k in sizes.items()) / rate
+    out["per_step_ms"], out["per_step_bound_ms"] = per_step, step_bound
+    say(f"  SmaQ kernels per ResNet-18 step, reckoned from its {sum(sizes.values())} calls' "
+        f"{len(sizes)} sizes (each size's call timed in a stream of 20): {per_step:.3f} ms, "
+        f"bound {step_bound:.3f} ms (8 B/element), {step_bound / per_step:.1%} of it")
+
+    lib = build.library()
+    out["blocks_per_sm"] = {}
+    for kernel, label, threads, smem in ((0, "smaq_stats", 256, 0),
+                                         (1, "smaq_quantize", 256, 0),
+                                         (1, "smaq_quantize small form", K.SMALL_THREADS, 0),
+                                         (2, "smaq_quantize_bn (64 channels)", 256, 64 * 16)):
+        c = ctypes.c_int(0)
+        rc = lib.smaq_occupancy(kernel, threads, smem, ctypes.addressof(c))
+        if rc:
+            fail(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: {rc}")
+        out["blocks_per_sm"][label] = c.value
+        say(f"  {label}: {c.value} blocks of {threads} threads resident per SM")
+    if out["blocks_per_sm"]["smaq_quantize"] < K.BLOCKS_PER_SM or \
+            out["blocks_per_sm"]["smaq_stats"] < K.BLOCKS_PER_SM:
+        fail(f"a SmaQ kernel fits fewer than the planned {K.BLOCKS_PER_SM} blocks per SM")
+    with open(os.path.join(OUT, "smaq_times.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def main() -> int:
@@ -721,22 +1010,28 @@ def main() -> int:
     path = build.build()
     build.library()
     say(f"[2] built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f} s")
+    kernel = "?"
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"    ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            names = [k for k in KERNEL_NAMES if f"{k}_kernel" in line]
+            kernel = names[0] if names else line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            say(f"    ptxas {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     say("[3] kernels against their plain version")
     errs = check_kernels(device)
+    errs["smaq_quantize"] = max(errs["smaq_quantize"], check_small_form(device))
+    check_counter_reset(device)
     errs.update(check_float_kernels(device))
     errs.update(check_s2fp8_kernels(device))
     errs.update(check_bn_kernel(device))
 
     say("[4] training: ResNet-18, batch 128, full coverage")
     launches = run_main_path()
-    step_ms, loss, per_step = time_steps([], check_launches=True)
-    plain_ms, plain_loss, _ = time_steps(["--no_compress"], check_launches=False)
+    step_ms, loss, per_step, calls = time_steps([], check_launches=True)
+    plain_ms, plain_loss, _, _ = time_steps(["--no_compress"], check_launches=False)
     say(f"  median step: {step_ms:.2f} ms compressed (loss {loss:.4f}), "
         f"{plain_ms:.2f} ms --no_compress (loss {plain_loss:.4f}) on {card}")
     steps = {"smart": step_ms, "no_compress": plain_ms}
@@ -744,18 +1039,19 @@ def main() -> int:
         got = run_main_path(extra, ratio_range, finite, train_batches=5, label=label)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        ms, loss, _ = time_steps(extra, check_launches=True, finite_loss=finite)
+        ms, loss, _, _ = time_steps(extra, check_launches=True, finite_loss=finite)
         steps[label] = ms
         say(f"  [{label}] median step: {ms:.2f} ms (loss {loss:.4f}, finite: "
             f"{math.isfinite(loss)}) on {card}")
     say("  median steps (ms): " + json.dumps(steps))
 
     say("[5] kernel times at 8388608 elements (median of 25, L2 flushed)")
-    t, bound, n = time_kernels(device)
+    timed, per_call = make_timer(device)
+    t, bound, n = time_kernels(device, timed)
     rows = [
         ("smaq_stats", "plain_stats", None),
         ("smaq_quantize", "plain_quantize", None),
-        ("pair", "plain_pair", None),
+        ("smaq_call", "plain_call", None),
         ("float_quantize", "plain_float", "library_fp8"),
         ("float_fp8_nearest", "plain_float_nearest", "library_fp8"),
         ("float_fp16_nearest", None, "library_fp16"),
@@ -773,6 +1069,10 @@ def main() -> int:
             line += f", {lib} {t[lib] * 1e3:.1f} us"
         say(line + f", bound {bound[k] * 1e3:.1f} us (bytes), {bound[k] / t[k]:.1%} of it, on {card}")
     say("  library_ms: none for SmaQ, S2FP8 and BN (no single PyTorch call computes them)")
+    say(f"  PyTorch moving the same bytes: x.sum() {t['torch_sum'] * 1e3:.1f} us (a read, as "
+        f"smaq_stats), y.copy_(x) {t['torch_copy'] * 1e3:.1f} us (a read and a write, as "
+        f"smaq_quantize)")
+    time_smaq(device, timed, per_call, calls, card)
 
     def row(kname, source, replaces, plain, lib=None):
         return {"name": kname, "route": "cuda", "source": f"{CSRC}/{source}",

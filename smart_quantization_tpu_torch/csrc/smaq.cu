@@ -6,25 +6,37 @@
 // what that kernel computes, not how: the TPU's 1024-lane rows, power-of-two
 // row bucketing, zero padding with its pad correction, and the SMEM scratch
 // carried across a sequential grid do not carry over.  Blocks on Hopper run
-// in parallel and in no order, so the work is two launches:
+// in parallel and in no order, so a tensor of more than a few thousand
+// elements takes two launches, and a small one takes one:
 //
-//   smaq_stats     one pass over x.  Every block computes the pivot (mean of
-//                  the first min(n, 256) elements, which stay in L2), then
-//                  accumulates sum(d) and sum(d*d) of d = x - pivot in double,
-//                  plus min and max, and writes one partial per block.  No
-//                  float atomics: the result does not depend on block order.
-//   smaq_quantize  every block first folds the partials in a fixed order, in
-//                  double, into mean and std (ddof=1, or the range estimator),
-//                  applies the zero-std guard and the clamp and derives the
-//                  folded reciprocals of smaq_kernel.py:119-130; then one read
-//                  and one write per element.  Rounding is trunc or
-//                  floor(q + u), u the top 24 bits of a counter-based
-//                  Philox4x32-10 (philox.cuh) keyed by a per-call 64-bit seed
-//                  and counted by element index (the output does not depend
-//                  on the launch shape).  The outlier count goes through a
-//                  block reduction and one 64-bit integer atomicAdd per
-//                  block; the last block to finish turns it into the size in
-//                  bits, on the device.
+//   smaq_stats     one pass over x.  Each warp computes the pivot (mean of
+//                  the first min(n, 256) elements, which stay in L2) after
+//                  its first loads are in flight; every thread accumulates
+//                  sum(d) and sum(d*d) of d = x - pivot in double, plus min
+//                  and max, and each block writes one partial.  The last
+//                  block to finish (a fence and a ticket) folds the partials
+//                  in a fixed order, in double, into mean and std (ddof=1,
+//                  or the range estimator), applies the zero-std guard and
+//                  the clamp and writes the per-tensor constants of
+//                  smaq_kernel.py:119-130 (mean, std, a, b, std/range for
+//                  each bucket, t*std) to a 32-byte buffer.  So the stats
+//                  are folded once per call, as the TPU kernel derives its
+//                  scalars once; no float atomics: the result does not
+//                  depend on block order.
+//   smaq_quantize  reads those constants (or derives them from a given
+//                  (mean, std) pair), then one read and one write per
+//                  element.  Rounding is trunc or floor(q + u), u the top 24
+//                  bits of a counter-based Philox4x32-10 (philox.cuh) keyed
+//                  by a per-call 64-bit seed and counted by element index
+//                  (the output does not depend on the launch shape or walk
+//                  order).  The outlier count goes through a block reduction
+//                  and one 64-bit integer atomicAdd per block that also
+//                  draws the block's ticket; the block with the last ticket
+//                  turns the count into the size in bits, on the device.
+//                  The small form (stats mode kSmall) is one block of 1024
+//                  threads that computes the stats itself, over the same
+//                  code, reads x again from L1/L2 and quantizes: one launch,
+//                  no atomics, where a tensor is a few thousand elements.
 //   smaq_quantize_bn  the same pass with BatchNorm's per-channel (gamma,
 //                  beta) folded in: the port of smaq_kernel.py::smaq_fused_bn
 //                  (_kernel_bn 398-482).  Stats come from smaq_stats on the
@@ -33,13 +45,23 @@
 //                  element e is (e / (H*W)) % C; each block stages the four
 //                  folded constants of every channel in shared memory.
 //
-// What bounds them: memory.  Full stats move 12 bytes per element (two
-// reads, one write); caller-supplied stats 8 bytes.  The operations per
-// element (about 20 float32 operations and a tenth of a Philox call, and
-// for BN a 32-bit division per four elements) are far below the card's
-// rate.  So the design keeps to two passes, writes no temporaries to device
-// memory beyond one partial per block, and loads and stores float4 where
-// both pointers are 16-byte aligned.
+// The counters (the stats ticket; the quantize tickets and outlier count) and the
+// stats partials live in a workspace the wrapper zeroes once per (device,
+// stream); the block that reads a counter last puts it back to 0, so no call
+// needs a memset.  Launches on one stream run in order, so one workspace per
+// stream is never used by two kernels at once.
+//
+// What bounds them: memory, and for small tensors the fixed cost of a
+// launch.  The call moves 8 bytes per element at the least (one read, one
+// write); the stats pass reads x a second time, from L2 as far as x still
+// fits there.  The operations per element (about 20 float32 operations, two
+// float64 ones and a conversion in the stats pass, a quarter of a Philox
+// call) are far below the card's rates.  So both streaming loops keep
+// kUnroll independent 16-byte loads in flight per thread, spaced a grid
+// apart so every block has work even where x is one grid's worth, with
+// enough blocks resident to fill every SM; and the quantize pass walks x
+// from its end, the reverse of the stats pass, whose last loads are the
+// likeliest still in L2.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -50,203 +72,338 @@
 
 namespace {
 
-using smaq::block_reduce;
 using smaq::block_sum;
-using smaq::MaxOp;
-using smaq::MinOp;
 
 constexpr int kPivotElems = 256;
+// float4 loads in flight per thread in the streaming loops
+constexpr int kUnroll = 4;
+// the split form's blocks: 256 threads, at least 4 resident per SM (64
+// registers a thread at most)
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;
+// the small form's one block
+constexpr int kSmallThreads = 1024;
+// partials each thread of the last stats block loads at once
+constexpr int kFoldLoads = 4;
 
-__global__ void smaq_stats_kernel(const float* __restrict__ x, int64_t n,
-                                  double* __restrict__ partials) {
-  __shared__ double sd[32];
-  __shared__ float sf[32];
+// Workspace words (64-bit): the counters, then 4 doubles per stats block.
+// The quantize word counts finished blocks in its top 24 bits and outliers
+// in the low 40, so one atomicAdd a block does both, with no fence.
+constexpr int kStatsTicket = 0, kQuantCount = 1, kCounterWords = 4;
+constexpr int kTicketShift = 40;
 
-  const int64_t n_pivot = n < kPivotElems ? n : kPivotElems;
-  float pv = 0.f;
-  for (int64_t i = threadIdx.x; i < n_pivot; i += blockDim.x) pv += x[i];
-  const float pivot = block_sum(pv, sf) / static_cast<float>(n_pivot);
+// Stats modes of the quantize kernels: a given (mean, std) pair; the
+// constants smaq_stats wrote; the small form's own stats (one block).
+constexpr int kGiven = 0, kConsts = 1, kSmall = 2;
 
-  double s1 = 0.0, s2 = 0.0;
-  float mn = CUDART_INF_F, mx = -CUDART_INF_F;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  auto acc = [&](float v) {
-    const float d = v - pivot;
-    s1 += d;
-    s2 += static_cast<double>(d) * d;
-    mn = fminf(mn, v);
-    mx = fmaxf(mx, v);
-  };
-  int64_t head = 0;
-  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 v = x4[i];
-      acc(v.x);
-      acc(v.y);
-      acc(v.z);
-      acc(v.w);
-    }
-    head = n4 << 2;
+struct QParams {
+  float t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo, std_hi;
+  int bits_main, bits_outlier;
+};
+
+// The per-tensor constants, as smaq_kernel.py:121-130 derives them.
+struct __align__(16) Consts {
+  float mean, std, a, b, inv_main_std, inv_out_std, t_std, unused;
+};
+
+// The zero-std guard, the clamp, then the folded reciprocals.
+__device__ Consts make_consts(float mean, float std, const QParams& p) {
+  if (std == 0.f) std = 1.f;
+  std = fminf(fmaxf(std, p.std_lo), p.std_hi);
+  Consts c;
+  c.mean = mean;
+  c.std = std;
+  c.a = 1.f / std;
+  c.b = -mean * c.a;
+  c.inv_main_std = std * p.inv_range_main;
+  c.inv_out_std = std * p.inv_range_outlier;
+  c.t_std = p.t * std;
+  c.unused = 0.f;
+  return c;
+}
+
+struct Sums {
+  double s1, s2;
+  float mn, mx;
+};
+
+__device__ __forceinline__ Sums no_sums() { return Sums{0.0, 0.0, CUDART_INF_F, -CUDART_INF_F}; }
+
+__device__ __forceinline__ Sums warp_sums(Sums s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s.s1 += __shfl_xor_sync(0xffffffffu, s.s1, off);
+    s.s2 += __shfl_xor_sync(0xffffffffu, s.s2, off);
+    s.mn = fminf(s.mn, __shfl_xor_sync(0xffffffffu, s.mn, off));
+    s.mx = fmaxf(s.mx, __shfl_xor_sync(0xffffffffu, s.mx, off));
   }
-  for (int64_t i = head + tid; i < n; i += stride) acc(x[i]);
+  return s;
+}
 
-  s1 = block_sum(s1, sd);
-  s2 = block_sum(s2, sd);
-  mn = block_reduce(mn, sf, MinOp());
-  mx = block_reduce(mx, sf, MaxOp());
+// The four reductions over the block in block_reduce.cuh's fixed order, in
+// one round through shared memory; every thread gets the result.
+__device__ Sums block_sums(Sums s, Sums* sm) {
+  s = warp_sums(s);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) sm[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    s = warp_sums(lane < static_cast<int>(blockDim.x >> 5) ? sm[lane] : no_sums());
+    if (lane == 0) sm[0] = s;
+  }
+  __syncthreads();
+  s = sm[0];
+  __syncthreads();
+  return s;
+}
+
+// The pivot, summed by each warp on its own: the xor butterfly leaves the
+// same bits in every lane, and every warp of every block adds in the same
+// order, so no block-wide barrier stands before the stream.
+__device__ float warp_pivot(const float* __restrict__ x, int64_t n) {
+  const int n_pivot = n < kPivotElems ? static_cast<int>(n) : kPivotElems;
+  float v[kPivotElems / 32];
+#pragma unroll
+  for (int k = 0; k < kPivotElems / 32; ++k) {  // all loads issued before the first add
+    const int i = (threadIdx.x & 31) + 32 * k;
+    v[k] = i < n_pivot ? x[i] : 0.f;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPivotElems / 32; ++k) s += v[k];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s / static_cast<float>(n_pivot);
+}
+
+// This thread's share of the one-pass sums.  The grid's threads cover one
+// slice of x, a float4 group each; a thread takes the groups g0 + u * span
+// (u < kUnroll, span = the grid's thread count) for g0 = its index, then
+// steps by kUnroll slices: kUnroll loads in flight, every block busy even
+// where x is one slice, and the first loads issued before the pivot.  The
+// elements past the last whole group (all of them when x is not 16-byte
+// aligned) go one per thread.
+__device__ Sums thread_sums(const float* __restrict__ x, int64_t n, float& pivot) {
+  const int64_t n4 = (reinterpret_cast<uintptr_t>(x) & 15) == 0 ? n >> 2 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t g0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float4 v[kUnroll];
+  auto load = [&]() {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (g0 + u * span < n4) v[u] = x4[g0 + u * span];
+  };
+  load();
+  pivot = warp_pivot(x, n);
+  Sums s = no_sums();
+  auto acc = [&](float e) {
+    const float d = e - pivot;
+    s.s1 += d;
+    s.s2 += static_cast<double>(d) * d;
+    s.mn = fminf(s.mn, e);
+    s.mx = fmaxf(s.mx, e);
+  };
+  while (g0 < n4) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (g0 + u * span < n4) {
+        acc(v[u].x);
+        acc(v[u].y);
+        acc(v[u].z);
+        acc(v[u].w);
+      }
+    }
+    g0 += span * kUnroll;
+    load();
+  }
+  for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) acc(x[e]);
+  return s;
+}
+
+// Mean and std from the folded sums (ddof=1, or the range estimator), then
+// the constants.
+__device__ Consts finish_stats(const Sums& s, float pivot, int64_t n, int range_std,
+                               const QParams& p) {
+  const double nn = static_cast<double>(n);
+  const float mean = static_cast<float>(static_cast<double>(pivot) + s.s1 / nn);
+  float std;
+  if (!range_std) {
+    const double var = fmax((s.s2 - s.s1 * (s.s1 / nn)) / fmax(nn - 1.0, 1.0), 0.0);
+    std = static_cast<float>(sqrt(var));
+  } else {
+    std = (s.mx - s.mn) / sqrtf(2.f * logf(static_cast<float>(n)));
+  }
+  return make_consts(mean, std, p);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+smaq_stats_kernel(const float* __restrict__ x, int64_t n, int range_std, QParams p,
+                  unsigned long long* __restrict__ ws, Consts* __restrict__ out) {
+  __shared__ Sums sm[32];
+  __shared__ bool last;
+  double* partials = reinterpret_cast<double*>(ws + kCounterWords);
+
+  float pivot;
+  const Sums s = block_sums(thread_sums(x, n, pivot), sm);
   if (threadIdx.x == 0) {
-    double* p = partials + 4 * static_cast<int64_t>(blockIdx.x);
-    p[0] = s1;
-    p[1] = s2;
-    p[2] = mn;
-    p[3] = mx;
-    if (blockIdx.x == 0) partials[4 * static_cast<int64_t>(gridDim.x)] = pivot;
+    double* q = partials + 4 * static_cast<int64_t>(blockIdx.x);
+    q[0] = s.s1;
+    q[1] = s.s2;
+    q[2] = s.mn;
+    q[3] = s.mx;
+    __threadfence();
+    last = atomicAdd(&ws[kStatsTicket], 1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every partial is written; fold them in a fixed order
+  __threadfence();
+  Sums f = no_sums();
+  for (int i0 = threadIdx.x; i0 < static_cast<int>(gridDim.x); i0 += kFoldLoads * blockDim.x) {
+    double q[kFoldLoads][4];  // all loads issued before the first add
+#pragma unroll
+    for (int k = 0; k < kFoldLoads; ++k) {
+      const int i = i0 + k * blockDim.x;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[k][j] = i < static_cast<int>(gridDim.x) ? __ldcg(partials + 4 * static_cast<int64_t>(i) + j) : 0.0;
+    }
+#pragma unroll
+    for (int k = 0; k < kFoldLoads; ++k) {
+      if (i0 + k * static_cast<int>(blockDim.x) < static_cast<int>(gridDim.x)) {
+        f.s1 += q[k][0];
+        f.s2 += q[k][1];
+        f.mn = fminf(f.mn, static_cast<float>(q[k][2]));
+        f.mx = fmaxf(f.mx, static_cast<float>(q[k][3]));
+      }
+    }
+  }
+  f = block_sums(f, sm);
+  if (threadIdx.x == 0) {
+    *out = finish_stats(f, pivot, n, range_std, p);
+    ws[kStatsTicket] = 0;
   }
 }
 
 struct Quant {
-  float a, b, t, range_main, range_outlier, inv_main_std, inv_out_std, t_std, mean;
+  Consts c;
+  float t, range_main, range_outlier;
   bool stochastic, all_positive;
 
   // q = round((z + shift) * scale); y = q * std / scale + shift * std + mean
   __device__ __forceinline__ float operator()(float x, uint32_t bits, int& cnt) const {
-    const float z = x * a + b;
+    const float z = x * c.a + c.b;
     const bool hi = z > t, lo = z < -t, out = hi || lo;
     const float shift = hi ? -t : (lo ? t : 0.f);
     const float scale = out ? range_outlier : range_main;
     float q = (z + shift) * scale;
     q = stochastic ? floorf(q + static_cast<float>(bits >> 8) * 0x1p-24f) : truncf(q);
-    const float inv = out ? inv_out_std : inv_main_std;
-    const float st = hi ? t_std : (lo ? -t_std : 0.f);
-    float y = q * inv + st + mean;
+    const float inv = out ? c.inv_out_std : c.inv_main_std;
+    const float st = hi ? c.t_std : (lo ? -c.t_std : 0.f);
+    float y = q * inv + st + c.mean;
     if (all_positive && y < 0.f) y = 0.f;
     cnt += out;
     return y;
   }
 };
 
-struct Stats {
-  float mean, std;
-};
-
-// stats_mode: 0 = stats[0..1] hold (mean, std); 1 = fold the partials with
-// the ddof=1 std; 2 = fold the partials with the range std.  Then the
-// zero-std guard and the clamp.  Every block does this first.
-__device__ Stats fold_stats(int64_t n, const float* __restrict__ stats,
-                            const double* __restrict__ partials, int num_partials,
-                            int stats_mode, float std_lo, float std_hi, double* sd,
-                            float* sf) {
-  float mean, std;
-  if (stats_mode == 0) {
-    mean = stats[0];
-    std = stats[1];
-  } else {
-    double s1 = 0.0, s2 = 0.0;
-    float mn = CUDART_INF_F, mx = -CUDART_INF_F;
-    for (int i = threadIdx.x; i < num_partials; i += blockDim.x) {
-      const double* p = partials + 4 * static_cast<int64_t>(i);
-      s1 += p[0];
-      s2 += p[1];
-      mn = fminf(mn, static_cast<float>(p[2]));
-      mx = fmaxf(mx, static_cast<float>(p[3]));
-    }
-    s1 = block_sum(s1, sd);
-    s2 = block_sum(s2, sd);
-    const double nn = static_cast<double>(n);
-    const double pivot = partials[4 * static_cast<int64_t>(num_partials)];
-    mean = static_cast<float>(pivot + s1 / nn);
-    if (stats_mode == 1) {
-      const double var = fmax((s2 - s1 * (s1 / nn)) / fmax(nn - 1.0, 1.0), 0.0);
-      std = static_cast<float>(sqrt(var));
-    } else {
-      mn = block_reduce(mn, sf, MinOp());
-      mx = block_reduce(mx, sf, MaxOp());
-      std = (mx - mn) / sqrtf(2.f * logf(static_cast<float>(n)));
-    }
-  }
-  if (std == 0.f) std = 1.f;
-  std = fminf(fmaxf(std, std_lo), std_hi);
-  return Stats{mean, std};
+__device__ __forceinline__ uint32_t word(uint4 r, int64_t e) {
+  const int j = static_cast<int>(e & 3);
+  return j == 0 ? r.x : (j == 1 ? r.y : (j == 2 ? r.z : r.w));
 }
 
-// The size in bits from the block's outlier count: one 64-bit integer
-// atomicAdd per block; the last block to finish writes the size.
-__device__ void write_size(int cnt, int64_t n, int compute_size, int bits_main,
-                           int bits_outlier, unsigned long long* __restrict__ counter,
-                           float* __restrict__ size_out, unsigned long long* su) {
+// The size in bits from the block's outlier count.  One block writes it
+// directly; otherwise each block adds (1 ticket, its count) to the quantize
+// word in one 64-bit atomicAdd, and the block that draws the last ticket
+// finds every count in the sum, writes the size and puts the word back to 0.
+__device__ void write_size(int cnt, int64_t n, int compute_size, const QParams& p,
+                           unsigned long long* __restrict__ ws, float* __restrict__ size_out,
+                           unsigned long long* su) {
   if (!compute_size) {
     if (blockIdx.x == 0 && threadIdx.x == 0)
-      size_out[0] = static_cast<float>(static_cast<double>(n) * bits_main);
+      size_out[0] = static_cast<float>(static_cast<double>(n) * p.bits_main);
     return;
   }
   const unsigned long long block_cnt = block_sum(static_cast<unsigned long long>(cnt), su);
-  if (threadIdx.x == 0) {
-    atomicAdd(&counter[0], block_cnt);
-    __threadfence();
-    const unsigned long long done = atomicAdd(&counter[1], 1ull);
-    if (done == gridDim.x - 1) {
-      const unsigned long long total = atomicAdd(&counter[0], 0ull);
-      size_out[0] = static_cast<float>(static_cast<double>(n) * bits_main +
-                                       static_cast<double>(total) * (bits_outlier - bits_main));
-    }
+  if (threadIdx.x != 0) return;
+  unsigned long long total = block_cnt;
+  if (gridDim.x > 1) {
+    const unsigned long long mine = (1ull << kTicketShift) + block_cnt;
+    const unsigned long long before = atomicAdd(&ws[kQuantCount], mine);
+    if ((before >> kTicketShift) != gridDim.x - 1) return;
+    total = (before + mine) & ((1ull << kTicketShift) - 1);
+    ws[kQuantCount] = 0;
   }
+  size_out[0] = static_cast<float>(static_cast<double>(n) * p.bits_main +
+                                   static_cast<double>(total) * (p.bits_outlier - p.bits_main));
 }
 
-__global__ void smaq_quantize_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int64_t n,
-    const float* __restrict__ stats, const double* __restrict__ partials,
-    int num_partials, int stats_mode, uint64_t seed, int stochastic,
-    int all_positive, int compute_size, float t, float range_main,
-    float range_outlier, float inv_range_main, float inv_range_outlier,
-    float std_lo, float std_hi, int bits_main, int bits_outlier,
-    unsigned long long* __restrict__ counter, float* __restrict__ size_out) {
-  __shared__ double sd[32];
-  __shared__ float sf[32];
+// Launched with kThreads-thread blocks, or as one block of kSmallThreads in
+// the small form.
+__global__ void __launch_bounds__(kSmallThreads)
+smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
+                     const float* __restrict__ stats, const Consts* __restrict__ consts,
+                     int stats_mode, int range_std, uint64_t seed, int stochastic,
+                     int all_positive, int compute_size, int reverse, QParams p,
+                     unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
+  __shared__ Sums sm[32];
   __shared__ unsigned long long su[32];
 
-  const Stats st = fold_stats(n, stats, partials, num_partials, stats_mode, std_lo, std_hi, sd, sf);
-  const float mean = st.mean, std = st.std;
-
   Quant qz;
-  qz.a = 1.f / std;
-  qz.b = -mean * qz.a;
-  qz.t = t;
-  qz.range_main = range_main;
-  qz.range_outlier = range_outlier;
-  qz.inv_out_std = std * inv_range_outlier;
-  qz.inv_main_std = std * inv_range_main;
-  qz.t_std = t * std;
-  qz.mean = mean;
+  if (stats_mode == kConsts) {
+    qz.c = *consts;
+  } else if (stats_mode == kGiven) {
+    qz.c = make_consts(stats[0], stats[1], p);
+  } else {
+    float pivot;
+    const Sums s = block_sums(thread_sums(x, n, pivot), sm);
+    qz.c = finish_stats(s, pivot, n, range_std, p);
+  }
+  qz.t = p.t;
+  qz.range_main = p.range_main;
+  qz.range_outlier = p.range_outlier;
   qz.stochastic = stochastic != 0;
   qz.all_positive = all_positive != 0;
 
   const uint2 key = smaq::philox_key(seed);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  const int64_t groups = (n + 3) >> 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t n4 = aligned ? n >> 2 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (qz.stochastic)
-      r = smaq::philox_group(g, key);
-    const int64_t e = g << 2;
-    if (aligned && e + 3 < n) {
-      const float4 v = reinterpret_cast<const float4*>(x)[g];
-      float4 o;
-      o.x = qz(v.x, r.x, cnt);
-      o.y = qz(v.y, r.y, cnt);
-      o.z = qz(v.z, r.z, cnt);
-      o.w = qz(v.w, r.w, cnt);
-      reinterpret_cast<float4*>(y)[g] = o;
-    } else {
-      const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
-      for (int j = 0; j < 4 && e + j < n; ++j) y[e + j] = qz(x[e + j], rw[j], cnt);
+  // as thread_sums walks x; group i of the walk is group n4 - 1 - i of x
+  // when walking back
+  for (int64_t g0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g0 < n4;
+       g0 += span * kUnroll) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = g0 + u * span;
+      if (i < n4) v[u] = x4[reverse ? n4 - 1 - i : i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = g0 + u * span;
+      if (i < n4) {
+        const int64_t g = reverse ? n4 - 1 - i : i;
+        const uint4 r = qz.stochastic ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+        float4 o;
+        o.x = qz(v[u].x, r.x, cnt);
+        o.y = qz(v[u].y, r.y, cnt);
+        o.z = qz(v[u].z, r.z, cnt);
+        o.w = qz(v[u].w, r.w, cnt);
+        y4[g] = o;
+      }
     }
   }
-  write_size(cnt, n, compute_size, bits_main, bits_outlier, counter, size_out, su);
+  // the elements past the last whole group (all of them when unaligned)
+  for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) {
+    const uint4 r = qz.stochastic ? smaq::philox_group(e >> 2, key) : make_uint4(0u, 0u, 0u, 0u);
+    y[e] = qz(x[e], word(r, e), cnt);
+  }
+  write_size(cnt, n, compute_size, p, ws, size_out, su);
 }
 
 // BatchNorm-folded SmaQ, the port of smaq_kernel.py::_kernel_bn (398-482):
@@ -277,20 +434,15 @@ struct QuantBN {
 // dynamic shared memory, one float4 per channel.
 __global__ void smaq_quantize_bn_kernel(
     const float* __restrict__ x, float* __restrict__ y, int64_t n,
-    const float* __restrict__ stats, const double* __restrict__ partials,
-    int num_partials, int stats_mode, const float* __restrict__ gamma,
-    const float* __restrict__ beta, int channels, int64_t inner, uint64_t seed,
-    int stochastic, int all_positive, int compute_size, float t, float range_main,
-    float range_outlier, float inv_range_main, float inv_range_outlier,
-    float std_lo, float std_hi, int bits_main, int bits_outlier,
-    unsigned long long* __restrict__ counter, float* __restrict__ size_out) {
-  __shared__ double sd[32];
-  __shared__ float sf[32];
+    const float* __restrict__ stats, const Consts* __restrict__ consts, int stats_mode,
+    const float* __restrict__ gamma, const float* __restrict__ beta, int channels,
+    int64_t inner, uint64_t seed, int stochastic, int all_positive, int compute_size,
+    QParams p, unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
   __shared__ unsigned long long su[32];
   extern __shared__ float4 chan[];
 
-  const Stats st = fold_stats(n, stats, partials, num_partials, stats_mode, std_lo, std_hi, sd, sf);
-  const float mean = st.mean, std = st.std;
+  const Consts cs = stats_mode == kConsts ? *consts : make_consts(stats[0], stats[1], p);
+  const float mean = cs.mean, std = cs.std;
   for (int c = threadIdx.x; c < channels; c += blockDim.x) {
     const float g = gamma[c] == 0.f ? 1.f : gamma[c];
     const float b = beta[c];
@@ -299,7 +451,7 @@ __global__ void smaq_quantize_bn_kernel(
   }
   __syncthreads();
 
-  QuantBN qz{t, range_main, range_outlier, inv_range_main, inv_range_outlier,
+  QuantBN qz{p.t, p.range_main, p.range_outlier, p.inv_range_main, p.inv_range_outlier,
              stochastic != 0, all_positive != 0};
   // 32-bit index arithmetic where it fits (64-bit division is a long
   // software routine); a float4 group lies in one channel when inner % 4 == 0
@@ -333,55 +485,83 @@ __global__ void smaq_quantize_bn_kernel(
         y[e + j] = qz(x[e + j], chan[chan_of(e + j)], rw[j], cnt);
     }
   }
-  write_size(cnt, n, compute_size, bits_main, bits_outlier, counter, size_out, su);
+  write_size(cnt, n, compute_size, p, ws, size_out, su);
+}
+
+QParams qparams(float t, float range_main, float range_outlier, float inv_range_main,
+                float inv_range_outlier, float std_lo, float std_hi, int bits_main,
+                int bits_outlier) {
+  return QParams{t, range_main, range_outlier, inv_range_main, inv_range_outlier,
+                 std_lo, std_hi, bits_main, bits_outlier};
 }
 
 }  // namespace
 
 extern "C" {
 
-// The entry points launch on `stream` and return cudaGetLastError().
+// The entry points launch on `stream` and return cudaGetLastError().  `ws`
+// is the stream's workspace: kCounterWords 64-bit words, zero between calls,
+// then 4 doubles per stats block.  `consts` holds 8 floats, 16-byte aligned.
 
-int smaq_stats(const float* x, long long n, double* partials, int num_blocks,
-               int threads, void* stream) {
+int smaq_stats(const float* x, long long n, int range_std, float t, float range_main,
+               float range_outlier, float inv_range_main, float inv_range_outlier,
+               float std_lo, float std_hi, int bits_main, int bits_outlier,
+               unsigned long long* ws, float* consts, int num_blocks, int threads,
+               void* stream) {
   smaq_stats_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<int64_t>(n), partials);
+      x, static_cast<int64_t>(n), range_std,
+      qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
+              std_hi, bits_main, bits_outlier),
+      ws, reinterpret_cast<Consts*>(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
 int smaq_quantize(const float* x, float* y, long long n, const float* stats,
-                  const double* partials, int num_partials, int stats_mode,
+                  const float* consts, int stats_mode, int range_std,
                   unsigned long long seed, int stochastic, int all_positive,
-                  int compute_size, float t, float range_main,
-                  float range_outlier, float inv_range_main,
-                  float inv_range_outlier, float std_lo, float std_hi,
-                  int bits_main, int bits_outlier, unsigned long long* counter,
-                  float* size_out, int num_blocks, int threads, void* stream) {
+                  int compute_size, int reverse, float t, float range_main,
+                  float range_outlier, float inv_range_main, float inv_range_outlier,
+                  float std_lo, float std_hi, int bits_main, int bits_outlier,
+                  unsigned long long* ws, float* size_out, int num_blocks, int threads,
+                  void* stream) {
   smaq_quantize_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), stats, partials, num_partials, stats_mode,
-      static_cast<uint64_t>(seed), stochastic, all_positive, compute_size, t,
-      range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
-      std_hi, bits_main, bits_outlier, counter, size_out);
+      x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
+      stats_mode, range_std, static_cast<uint64_t>(seed), stochastic, all_positive,
+      compute_size, reverse,
+      qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
+              std_hi, bits_main, bits_outlier),
+      ws, size_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int smaq_quantize_bn(const float* x, float* y, long long n, const float* stats,
-                     const double* partials, int num_partials, int stats_mode,
-                     const float* gamma, const float* beta, int channels,
-                     long long inner, unsigned long long seed, int stochastic,
-                     int all_positive, int compute_size, float t, float range_main,
-                     float range_outlier, float inv_range_main,
-                     float inv_range_outlier, float std_lo, float std_hi,
-                     int bits_main, int bits_outlier, unsigned long long* counter,
-                     float* size_out, int num_blocks, int threads, void* stream) {
+                     const float* consts, int stats_mode, const float* gamma,
+                     const float* beta, int channels, long long inner,
+                     unsigned long long seed, int stochastic, int all_positive,
+                     int compute_size, float t, float range_main, float range_outlier,
+                     float inv_range_main, float inv_range_outlier, float std_lo,
+                     float std_hi, int bits_main, int bits_outlier,
+                     unsigned long long* ws, float* size_out, int num_blocks, int threads,
+                     void* stream) {
   const size_t smem = static_cast<size_t>(channels) * sizeof(float4);
   smaq_quantize_bn_kernel<<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), stats, partials, num_partials, stats_mode, gamma,
-      beta, channels, static_cast<int64_t>(inner), static_cast<uint64_t>(seed),
-      stochastic, all_positive, compute_size, t, range_main, range_outlier,
-      inv_range_main, inv_range_outlier, std_lo, std_hi, bits_main, bits_outlier,
-      counter, size_out);
+      x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
+      stats_mode, gamma, beta, channels, static_cast<int64_t>(inner),
+      static_cast<uint64_t>(seed), stochastic, all_positive, compute_size,
+      qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
+              std_hi, bits_main, bits_outlier),
+      ws, size_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of `threads` threads (and `smem` bytes of dynamic shared memory)
+// resident on one SM: kernel 0 smaq_stats, 1 smaq_quantize, 2 smaq_quantize_bn.
+int smaq_occupancy(int kernel, int threads, long long smem, int* blocks_per_sm) {
+  const void* f = kernel == 0   ? reinterpret_cast<const void*>(smaq_stats_kernel)
+                  : kernel == 1 ? reinterpret_cast<const void*>(smaq_quantize_kernel)
+                                : reinterpret_cast<const void*>(smaq_quantize_bn_kernel);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, f, threads, static_cast<size_t>(smem)));
 }
 
 }  // extern "C"

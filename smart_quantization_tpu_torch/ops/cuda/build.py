@@ -101,18 +101,17 @@ def build() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     u32, u64 = ctypes.c_uint, ctypes.c_ulonglong
-    lib.smaq_stats.argtypes = [p, ll, p, i, i, p]
+    quant = [f, f, f, f, f, f, f, i, i]  # SmaQ's threshold, ranges, clamp and bits
+    lib.smaq_stats.argtypes = [p, ll, i, *quant, p, p, i, i, p]
     lib.smaq_stats.restype = i
-    lib.smaq_quantize.argtypes = [
-        p, p, ll, p, p, i, i, u64, i, i, i,
-        f, f, f, f, f, f, f, i, i, p, p, i, i, p,
-    ]
+    lib.smaq_quantize.argtypes = [p, p, ll, p, p, i, i, u64, i, i, i, i, *quant, p, p, i, i, p]
     lib.smaq_quantize.restype = i
     lib.smaq_quantize_bn.argtypes = [
-        p, p, ll, p, p, i, i, p, p, i, ll, u64, i, i, i,
-        f, f, f, f, f, f, f, i, i, p, p, i, i, p,
+        p, p, ll, p, p, i, p, p, i, ll, u64, i, i, i, *quant, p, p, i, i, p,
     ]
     lib.smaq_quantize_bn.restype = i
+    lib.smaq_occupancy.argtypes = [i, i, ll, p]
+    lib.smaq_occupancy.restype = i
     lib.float_quantize.argtypes = [p, p, ll, i, i, u32, u32, f, f, u64, i, i, i, i, p]
     lib.float_quantize.restype = i
     lib.s2fp8_stats.argtypes = [p, ll, p, i, i, p]

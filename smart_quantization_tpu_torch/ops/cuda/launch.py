@@ -8,8 +8,11 @@ import torch
 from smart_quantization_tpu_torch.ops.rounding import draw_seed
 
 THREADS = 256
-# Partials per stats launch: every quantize block folds all of them, so they
-# are kept few (264 = 2 per SM of an H100).
+# The shapes below serve float_quantize, the S2FP8 pair and
+# smaq_quantize_bn; smaq_stats and smaq_quantize have their own
+# (smaq_kernel.py::smaq_plan).
+# Partials per stats launch: every s2fp8_quantize block folds all of them,
+# so they are kept few (264 = 2 per SM of an H100).
 MAX_STATS_BLOCKS = 264
 # 8 blocks of 256 threads fill an SM; larger tensors loop inside the block.
 MAX_QUANT_BLOCKS = 1056

@@ -9,15 +9,18 @@ its BatchNorm-folded variant ``smaq_fused_bn``.  The source note in
 - ``smaq_stats``, ``smaq_quantize`` and ``smaq_quantize_bn`` launch the
   kernels on PyTorch's current stream and count their launches in
   ``LAUNCHES``;
+- ``smaq_plan`` picks a call's form from its size: one ``smaq_quantize``
+  block that computes its own stats (``SMALL_MAX`` elements or fewer), or
+  ``smaq_stats`` then ``smaq_quantize``;
 - ``smaq_fused`` and ``smaq_fused_bn`` are the kernel paths of one SmaQ
   call on a CUDA tensor, without and with (gamma, beta);
 - ``smaq_fused_reference`` and ``smaq_fused_bn_reference`` are the
   kernels' plain versions: the same arithmetic in PyTorch ops
   (pivot-shifted one-pass stats, folded reciprocals), for any device;
 - ``smaq_fused_or_reference`` sends a CUDA tensor to the kernels and a CPU
-  tensor to ``ops/smaq.py``.  There is no size threshold: on the card every
-  tensor of ``min_size`` or more elements goes to the kernels, and a scalar
-  gamma (``--bn_scalar_params``) to the BN kernel.
+  tensor to ``ops/smaq.py``.  On the card every tensor of ``min_size`` or
+  more elements goes to a kernel, and a scalar gamma
+  (``--bn_scalar_params``) to the BN kernel.
 
 BatchNorm tensors are NCHW: gamma and beta are per channel (dim 1), or 0-d
 for one scalar pair.
@@ -41,7 +44,6 @@ from smart_quantization_tpu_torch.ops.cuda.launch import (
     quant_blocks,
     raise_on,
     seed_for,
-    stats_blocks,
     stream,
 )
 from smart_quantization_tpu_torch.ops.rounding import uniform
@@ -52,9 +54,31 @@ LAUNCHES = {"smaq_stats": 0, "smaq_quantize": 0, "smaq_quantize_bn": 0}
 
 # The TPU kernel's in-kernel sample spans its first block of 512 x 1024.
 _SAMPLE_SPAN = 512 * 1024
-_STATS_GIVEN, _STATS_FULL, _STATS_RANGE = 0, 1, 2
+# stats modes of the quantize kernels: a given (mean, std) pair, the
+# constants smaq_stats wrote, the small form's own stats
+_GIVEN, _CONSTS, _SMALL = 0, 1, 2
 # the BN kernel keeps one float4 per channel in shared memory (48 KB)
 MAX_BN_CHANNELS = 3072
+
+# Launch shapes of the split form: blocks of THREADS threads, each thread
+# with 4 float4 loads in flight per loop step, at most 4 blocks per SM
+# (the kernels are built for 4 resident: 64 registers a thread) on the 132
+# SMs of an H100 SXM.  More blocks than that only queue behind the first.
+SMS, BLOCKS_PER_SM = 132, 4
+MAX_BLOCKS = SMS * BLOCKS_PER_SM
+# The small form: one block of SMALL_THREADS computes the stats and then
+# quantizes, one launch; above SMALL_MAX elements two launches spread over
+# the card are faster (measured: PERF.md).
+SMALL_THREADS = 1024
+SMALL_MAX = 16384
+# The quantize pass walks x from its end, the reverse of the stats pass, so
+# its first loads find what the stats pass left in L2 (measured: PERF.md).
+REVERSE = True
+# The workspace of a (device, stream): the kernels' counters, then 4
+# float64 partials per stats block (csrc/smaq.cu: kCounterWords).
+_COUNTER_WORDS = 4
+_WORKSPACE_WORDS = _COUNTER_WORDS + 4 * MAX_BLOCKS
+_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -62,35 +86,37 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def smaq_stats(xf: torch.Tensor) -> torch.Tensor:
-    """Launch the stats kernel; returns the float64 partials
-    ``[s1, s2, min, max] * blocks + [pivot]``."""
-    check_input(xf)
-    n = xf.numel()
-    blocks = stats_blocks(n)
-    partials = torch.empty(4 * blocks + 1, dtype=torch.float64, device=xf.device)
-    rc = build.library().smaq_stats(
-        xf.data_ptr(), n, partials.data_ptr(), blocks, THREADS, stream(xf)
-    )
-    raise_on(rc, "smaq_stats")
-    LAUNCHES["smaq_stats"] += 1
-    return partials
+def split_blocks(n: int) -> int:
+    """Blocks of a split-form launch: a float4 for each thread, at most
+    MAX_BLOCKS (the loops step over the rest)."""
+    return max(1, min(MAX_BLOCKS, -(-n // (4 * THREADS))))
 
 
-def _stats_args(xf, params, stats, partials):
-    """(stats or None, partials or None, mode, number of partials)."""
-    if (stats is None) == (partials is None):
-        raise ValueError("pass exactly one of stats= and partials=")
-    if stats is not None:
-        if stats.dtype != torch.float32 or stats.numel() != 2 or stats.device != xf.device:
-            raise ValueError("stats must be a float32 (mean, std) pair on the tensor's device")
-        return stats.contiguous(), None, _STATS_GIVEN, 0
-    mode = _STATS_RANGE if params.use_range_std_dev else _STATS_FULL
-    return None, partials, mode, (partials.numel() - 1) // 4
+def smaq_plan(n: int) -> tuple[str, int]:
+    """The form of a full-stats SmaQ call of ``n`` elements: ``("small", 1)``
+    (one ``smaq_quantize`` block of SMALL_THREADS, no stats launch) or
+    ``("split", blocks)`` (``smaq_stats`` then ``smaq_quantize``, each on
+    ``blocks`` blocks of THREADS)."""
+    if n <= SMALL_MAX:
+        return "small", 1
+    return "split", split_blocks(n)
+
+
+def workspace(xf: torch.Tensor) -> torch.Tensor:
+    """The counters and stats partials of ``xf``'s card and current stream:
+    zeroed once, here; each kernel puts the counters it used back to 0, so
+    a call needs no memset.  Launches on one stream run in order, so no two
+    kernels ever share one."""
+    key = (xf.device.index, stream(xf))
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = torch.zeros(_WORKSPACE_WORDS, dtype=torch.int64, device=xf.device)
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def _quant_args(params: SmaQParams) -> tuple:
-    """The scalar arguments both quantize kernels take after the flags."""
+    """The scalar arguments every SmaQ kernel takes."""
     return (
         params.main_std_dev_threshold, params.range_main, params.range_outlier,
         1.0 / params.range_main, 1.0 / params.range_outlier,
@@ -99,32 +125,73 @@ def _quant_args(params: SmaQParams) -> tuple:
     )
 
 
+def smaq_stats(xf: torch.Tensor, params: SmaQParams) -> torch.Tensor:
+    """Launch the stats kernel; returns the per-tensor constants its last
+    block folds, float32 ``[mean, std, a, b, std / range_main,
+    std / range_outlier, t * std, 0]`` (std after the zero-std guard and
+    the clamp; ``consts_reference`` is their plain version)."""
+    check_input(xf)
+    n = xf.numel()
+    consts = torch.empty(8, dtype=torch.float32, device=xf.device)
+    rc = build.library().smaq_stats(
+        xf.data_ptr(), n, int(params.use_range_std_dev), *_quant_args(params),
+        workspace(xf).data_ptr(), consts.data_ptr(), split_blocks(n), THREADS, stream(xf),
+    )
+    raise_on(rc, "smaq_stats")
+    LAUNCHES["smaq_stats"] += 1
+    return consts
+
+
+def read_consts(consts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) from the stats kernel's constants, for reading its
+    result on its own."""
+    return consts[0], consts[1]
+
+
+def _stats_args(xf, stats, consts):
+    """(stats or None, consts or None, mode): neither is the small form."""
+    if stats is not None and consts is not None:
+        raise ValueError("pass at most one of stats= and consts=")
+    if stats is not None:
+        if stats.dtype != torch.float32 or stats.numel() != 2 or stats.device != xf.device:
+            raise ValueError("stats must be a float32 (mean, std) pair on the tensor's device")
+        return stats.contiguous(), None, _GIVEN
+    if consts is not None:
+        if (consts.dtype != torch.float32 or consts.numel() != 8 or consts.device != xf.device
+                or not consts.is_contiguous() or consts.data_ptr() % 16):
+            raise ValueError("consts must be smaq_stats' 8 float32 constants on the tensor's device")
+        return None, consts, _CONSTS
+    return None, None, _SMALL
+
+
 def smaq_quantize(
     xf: torch.Tensor,
     params: SmaQParams,
     *,
     seed: int,
     stats: torch.Tensor | None = None,
-    partials: torch.Tensor | None = None,
+    consts: torch.Tensor | None = None,
     all_positive: bool = False,
     compute_size: bool = True,
+    reverse: bool = REVERSE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the quantize kernel against ``stats`` (a float32 (mean, std)
-    pair on the device) or the stats kernel's ``partials``; returns the
-    flat output and the size in bits as a 0-d float32 device tensor."""
+    pair on the device) or ``smaq_stats``' ``consts``; with neither, the
+    small form: one block computes the full stats itself, then quantizes.
+    ``reverse`` walks x from its end (kept so the two walks can be timed).
+    Returns the flat output and the size in bits as a 0-d float32 device
+    tensor."""
     check_input(xf)
-    stats, partials, mode, num_partials = _stats_args(xf, params, stats, partials)
+    stats, consts, mode = _stats_args(xf, stats, consts)
     n = xf.numel()
     y = torch.empty_like(xf)
     size = torch.empty((), dtype=torch.float32, device=xf.device)
-    counter = torch.zeros(2, dtype=torch.int64, device=xf.device) if compute_size else None
-    blocks = quant_blocks(n)
+    blocks, threads = (1, SMALL_THREADS) if mode == _SMALL else (split_blocks(n), THREADS)
     rc = build.library().smaq_quantize(
-        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(partials),
-        num_partials, mode, seed, int(params.stochastic_rounding),
-        int(all_positive), int(compute_size), *_quant_args(params),
-        ptr(counter), size.data_ptr(),
-        blocks, THREADS, stream(xf),
+        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
+        int(params.use_range_std_dev), seed, int(params.stochastic_rounding),
+        int(all_positive), int(compute_size), int(reverse), *_quant_args(params),
+        workspace(xf).data_ptr(), size.data_ptr(), blocks, threads, stream(xf),
     )
     raise_on(rc, "smaq_quantize")
     LAUNCHES["smaq_quantize"] += 1
@@ -141,13 +208,14 @@ def smaq_quantize_bn(
     *,
     seed: int,
     stats: torch.Tensor | None = None,
-    partials: torch.Tensor | None = None,
+    consts: torch.Tensor | None = None,
     all_positive: bool = False,
     compute_size: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the BN-folded quantize kernel: ``xf`` is the flat NCHW tensor,
     element e in channel ``(e // inner) % channels``, and ``gamma``/``beta``
-    hold ``channels`` float32 values on the device."""
+    hold ``channels`` float32 values on the device; one of ``stats`` and
+    ``consts`` is required."""
     check_input(xf)
     for v in (gamma, beta):
         check_input(v)
@@ -155,18 +223,18 @@ def smaq_quantize_bn(
             raise ValueError(f"gamma and beta need {channels} values, got {v.numel()}")
     if not 1 <= channels <= MAX_BN_CHANNELS:
         raise ValueError(f"the BN kernel takes 1 to {MAX_BN_CHANNELS} channels, got {channels}")
-    stats, partials, mode, num_partials = _stats_args(xf, params, stats, partials)
+    stats, consts, mode = _stats_args(xf, stats, consts)
+    if mode == _SMALL:
+        raise ValueError("the BN kernel needs stats= or consts=")
     n = xf.numel()
     y = torch.empty_like(xf)
     size = torch.empty((), dtype=torch.float32, device=xf.device)
-    counter = torch.zeros(2, dtype=torch.int64, device=xf.device) if compute_size else None
-    blocks = quant_blocks(n)
     rc = build.library().smaq_quantize_bn(
-        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(partials),
-        num_partials, mode, gamma.data_ptr(), beta.data_ptr(), channels, inner,
+        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
+        gamma.data_ptr(), beta.data_ptr(), channels, inner,
         seed, int(params.stochastic_rounding), int(all_positive), int(compute_size),
-        *_quant_args(params), ptr(counter), size.data_ptr(),
-        blocks, THREADS, stream(xf),
+        *_quant_args(params), workspace(xf).data_ptr(), size.data_ptr(),
+        quant_blocks(n), THREADS, stream(xf),
     )
     raise_on(rc, "smaq_quantize_bn")
     LAUNCHES["smaq_quantize_bn"] += 1
@@ -193,9 +261,9 @@ def sample_stats(flat: torch.Tensor, params: SmaQParams) -> torch.Tensor:
 def pivot_stats_reference(
     flat: torch.Tensor, params: SmaQParams
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stats kernel's plain version, folded as the quantize kernel
-    folds it: mean and ddof=1 std from the sums of ``d = x - pivot`` in
-    float64 (pivot = mean of the first 256 elements), or the range std."""
+    """The stats kernel's plain version, before the guard and the clamp:
+    mean and ddof=1 std from the sums of ``d = x - pivot`` in float64
+    (pivot = mean of the first 256 elements), or the range std."""
     n = flat.numel()
     pivot = flat[: min(n, 256)].mean()
     d = (flat - pivot).double()
@@ -209,21 +277,18 @@ def pivot_stats_reference(
     return mean, std
 
 
-def fold_partials(
-    partials: torch.Tensor, n: int, params: SmaQParams
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean and std from the stats kernel's partials, in PyTorch ops (the
-    fold the quantize kernel does first), for reading the stats kernel's
-    result on its own."""
-    p = partials[:-1].view(-1, 4)
-    s1, s2 = p[:, 0].sum(), p[:, 1].sum()
-    mean = (partials[-1] + s1 / n).float()
-    if params.use_range_std_dev:
-        std = ((p[:, 3].max() - p[:, 2].min()) / math.sqrt(2.0 * math.log(n))).float()
-    else:
-        var = ((s2 - s1 * (s1 / n)) / max(n - 1.0, 1.0)).clamp_min(0.0)
-        std = var.sqrt().float()
-    return mean, std
+def consts_reference(mean: torch.Tensor, std: torch.Tensor, params: SmaQParams) -> torch.Tensor:
+    """The constants ``smaq_stats`` writes, from a (mean, std) pair: the
+    zero-std guard, the clamp, then the folded reciprocals of
+    ``smaq_kernel.py:121-130``, as a float32 tensor of 8."""
+    std = torch.where(std == 0.0, torch.ones_like(std), std)
+    std = std.clamp(params.std_clamp_lo, params.std_clamp_hi)
+    a = 1.0 / std
+    return torch.stack([
+        mean, std, a, -mean * a, std * (1.0 / params.range_main),
+        std * (1.0 / params.range_outlier), params.main_std_dev_threshold * std,
+        torch.zeros_like(std),
+    ])
 
 
 def _given_stats(mean, std, device) -> torch.Tensor:
@@ -232,14 +297,17 @@ def _given_stats(mean, std, device) -> torch.Tensor:
     )
 
 
-def _device_stats(xf, params, mean, std):
-    """(stats, partials) for a quantize launch: the caller's (mean, std),
-    the sampled stats, or the stats kernel's partials."""
+def _device_stats(xf, params, mean, std, small_form):
+    """(stats, consts) for a quantize launch: the caller's (mean, std), the
+    sampled stats, (None, None) where ``small_form`` and ``smaq_plan`` let
+    the quantize block compute them, or the stats kernel's constants."""
     if mean is not None and std is not None:
         return _given_stats(mean, std, xf.device), None
     if params.use_sample_stats and xf.numel() > params.num_samples:
         return sample_stats(xf, params), None
-    return None, smaq_stats(xf)
+    if small_form and smaq_plan(xf.numel())[0] == "small":
+        return None, None
+    return None, smaq_stats(xf, params)
 
 
 def smaq_fused(
@@ -262,9 +330,9 @@ def smaq_fused(
         return x, torch.full((), float(n * 32), device=x.device)
     xf = x.reshape(-1).to(torch.float32).contiguous()
     seed = seed_for(gen, params.stochastic_rounding)
-    stats, partials = _device_stats(xf, params, mean, std)
+    stats, consts = _device_stats(xf, params, mean, std, small_form=True)
     y, size = smaq_quantize(
-        xf, params, seed=seed, stats=stats, partials=partials,
+        xf, params, seed=seed, stats=stats, consts=consts,
         all_positive=all_positive, compute_size=compute_size,
     )
     return y.view(x.shape).to(x.dtype), size
@@ -305,27 +373,26 @@ def smaq_fused_bn(
     channels, inner = channel_layout(x, gamma)
     xf = x.reshape(-1).to(torch.float32).contiguous()
     seed = seed_for(gen, params.stochastic_rounding)
-    stats, partials = _device_stats(xf, params, mean, std)
+    stats, consts = _device_stats(xf, params, mean, std, small_form=False)
     y, size = smaq_quantize_bn(
         xf, gamma.reshape(-1).to(torch.float32).contiguous(),
         beta.reshape(-1).to(torch.float32).contiguous(), channels, inner, params,
-        seed=seed, stats=stats, partials=partials,
+        seed=seed, stats=stats, consts=consts,
         all_positive=all_positive, compute_size=compute_size,
     )
     return y.view(x.shape).to(x.dtype), size
 
 
-def _reference_stats(flat, params, mean, std):
-    """The kernels' stats in PyTorch ops, with the zero-std guard and the
-    clamp: the caller's, the sampled, or the pivot-shifted full stats."""
+def _reference_consts(flat, params, mean, std):
+    """The kernels' constants in PyTorch ops (``consts_reference``) from
+    the caller's stats, the sampled ones, or the pivot-shifted full ones."""
     if mean is not None and std is not None:
         mean, std = _given_stats(mean, std, flat.device).unbind()
     elif params.use_sample_stats and flat.numel() > params.num_samples:
         mean, std = sample_stats(flat, params).unbind()
     else:
         mean, std = pivot_stats_reference(flat, params)
-    std = torch.where(std == 0.0, torch.ones_like(std), std)
-    return mean, std.clamp(params.std_clamp_lo, params.std_clamp_hi)
+    return consts_reference(mean, std, params)
 
 
 def _buckets(z, params, gen, u):
@@ -379,14 +446,8 @@ def smaq_fused_reference(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     flat = x.reshape(-1).to(torch.float32)
-    mean, std = _reference_stats(flat, params, mean, std)
-
-    t = params.main_std_dev_threshold
-    a = 1.0 / std
-    b = -mean * a
-    inv_out_std = std * (1.0 / params.range_outlier)
-    inv_main_std = std * (1.0 / params.range_main)
-    t_std = t * std
+    mean, _, a, b, inv_main_std, inv_out_std, t_std, _ = _reference_consts(
+        flat, params, mean, std).unbind()
 
     q, hi, lo, outlier = _buckets(flat * a + b, params, gen, u)
     inv_scale_std = torch.where(outlier, inv_out_std, inv_main_std)
@@ -421,7 +482,7 @@ def smaq_fused_bn_reference(
         return x, torch.full((), float(n * 32), device=x.device)
     channels, inner = channel_layout(x, gamma)
     flat = x.reshape(-1, channels, inner).to(torch.float32)
-    mean, std = _reference_stats(flat.reshape(-1), params, mean, std)
+    mean, std = _reference_consts(flat.reshape(-1), params, mean, std)[:2].unbind()
 
     g = gamma.reshape(1, -1, 1).to(torch.float32)
     g = torch.where(g == 0.0, torch.ones_like(g), g)
