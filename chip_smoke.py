@@ -27,11 +27,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    uncompressed step;
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
-   cast to the same format; the SmaQ call at the main path's sizes, both
-   walk orders of its quantize pass, both forms around the small-form
-   threshold, truncation beside stochastic rounding, the SmaQ kernel time
-   of one ResNet-18 step reckoned from its calls' sizes, and the SmaQ
-   kernels' blocks resident per SM;
+   cast to the same format; the SmaQ call at the main path's sizes,
+   truncation beside stochastic rounding, the SmaQ kernel time of one
+   ResNet-18 step (its calls, at their sizes, in one CUDA graph), and the
+   SmaQ kernels' blocks resident per SM;
 6. the kernel table as one JSON line, then the result as the last line.
 
 Needs the repository beside it and one CUDA card.
@@ -287,12 +286,12 @@ def stochastic_check(name, x, ys, params, quantum, flip_fraction):
 
 
 def check_small_form(device):
-    """SmaQ's one-block small form (``smaq_quantize`` with no stats given)
-    against the plain version, at the main path's small sizes (fc bias, BN
-    leaf, a 1728-element conv weight, a 3x3x64x64 conv weight) and around
-    the threshold, in truncation, stochastic, ``all_positive`` and
-    range-std modes; then ``smaq_fused`` on each side of the threshold
-    launches the form ``smaq_plan`` names."""
+    """SmaQ calls at the main path's small sizes (fc bias, BN leaf, a
+    1728-element conv weight, a 3x3x64x64 conv weight) and around the small
+    form's threshold against the plain version, in truncation, stochastic,
+    ``all_positive`` and range-std modes, each in the form ``smaq_plan``
+    names; ``smaq_fused`` launches that form, and ``smaq_quantize`` refuses
+    the small form above its threshold."""
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
@@ -302,36 +301,39 @@ def check_small_form(device):
     host = torch.Generator().manual_seed(17)
     trunc, stoch = SmaQParams(stochastic_rounding=False), SmaQParams()
     rng = SmaQParams(stochastic_rounding=False, use_range_std_dev=True)
+    sms = K.sm_count(device)
     t = K.SMALL_MAX
     err = 0.0
     for n in (10, 64, 512, 1728, 36864, t - 1, t, t + 1):
         x = torch.randn(n, generator=gen, device=device) * 0.8 + 0.3
-        name = f"small form {n}"
+        form = K.smaq_plan(n, sms)[0]
+        name = f"{form} form {n}"
         quantum = K.pivot_stats_reference(x, trunc)[1] / trunc.range_main
-        y, bits = K.smaq_quantize(x, trunc, seed=0)
+        before = dict(K.LAUNCHES)
+        y, bits = K.smaq_fused(x, host, trunc)
+        got = {k: K.LAUNCHES[k] - before[k] for k in ("smaq_stats", "smaq_quantize")}
+        if got != {"smaq_stats": int(form == "split"), "smaq_quantize": 1}:
+            fail(f"smaq_fused at {n} did not take the {form} form: {got}")
         y_ref, bits_ref = K.smaq_fused_reference(x, None, trunc)
         err = max(err, flip_check(f"{name} trunc", y, y_ref, bits, bits_ref, quantum))
         xp = x - x.mean()
-        y, bits = K.smaq_quantize(xp, trunc, seed=0, all_positive=True)
+        y, bits = K.smaq_fused(xp, host, trunc, all_positive=True)
         y_ref, bits_ref = K.smaq_fused_reference(xp, None, trunc, all_positive=True)
         flip_check(f"{name} all_positive", y, y_ref, bits, bits_ref, quantum)
         if float(y.min()) < 0.0:
             fail(f"all_positive left a negative value: {name}")
-        y, bits = K.smaq_quantize(x, rng, seed=0)
+        y, bits = K.smaq_fused(x, host, rng)
         y_ref, bits_ref = K.smaq_fused_reference(x, None, rng)
         flip_check(f"{name} range std", y, y_ref, bits, bits_ref,
                    K.pivot_stats_reference(x, rng)[1] / rng.range_main)
-        ys, _ = K.smaq_quantize(x, stoch, seed=int(torch.randint(0, 2**62, (), generator=host)))
+        ys, _ = K.smaq_fused(x, host, stoch)
         stochastic_check(name, x, ys, stoch, quantum, FLIP_FRACTION)
-    for n, form in ((t, "small"), (t + 1, "split")):
-        x = torch.randn(n, generator=gen, device=device)
-        before = dict(K.LAUNCHES)
-        K.smaq_fused(x, host, stoch)
-        got = {k: K.LAUNCHES[k] - before[k] for k in ("smaq_stats", "smaq_quantize")}
-        want = {"smaq_stats": int(form == "split"), "smaq_quantize": 1}
-        say(f"  smaq_fused at {n}: {form} form, launches {got} -> {'ok' if got == want else 'MISMATCH'}")
-        if got != want or K.smaq_plan(n)[0] != form:
-            fail(f"smaq_fused at {n} did not take the {form} form")
+    try:
+        K.smaq_quantize(torch.zeros(t + 1, device=device), trunc, seed=0)
+    except ValueError:
+        say(f"  the small form refuses {t + 1} elements -> ok")
+    else:
+        fail(f"smaq_quantize ran the small form on {t + 1} elements")
     return err
 
 
@@ -651,8 +653,11 @@ def expected_launches(args, calls) -> dict:
     ``smaq_plan`` takes the split form (and for every BN-kernel call) and
     one quantize launch per call; under --use_batch_norm the forward taps
     of the BatchNorms go to the BN kernel."""
-    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import smaq_plan
+    import torch
 
+    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import sm_count, smaq_plan
+
+    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
     kernels = path_kernels(args)
     if kernels[0] != "smaq_stats":
         return {k: len(calls) for k in kernels}
@@ -662,7 +667,7 @@ def expected_launches(args, calls) -> dict:
             out["smaq_stats"] += 1
             out["smaq_quantize_bn"] += 1
         else:
-            out["smaq_stats"] += smaq_plan(n)[0] == "split"
+            out["smaq_stats"] += smaq_plan(n, sms)[0] == "split"
             out["smaq_quantize"] += 1
     return out
 
@@ -770,11 +775,12 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
 # ---------------------------------------------------------------- phase 5
 def make_timer(device):
     """``timed(fn)``: the median of 25 CUDA-event timings of ``fn`` after one
-    warm-up call, with 512 MB written before each (that evicts the 50 MB L2)
-    and then a 1 ms spin, so the queue is ahead of the host and the events
-    time the kernels and not the launch.  ``per_call(fn)``: ``fn`` 20 times
-    in a CUDA graph, timed as above and divided by 20: a call's device time
-    in a stream of calls, gaps between kernels included, host excluded."""
+    warm-up call, with 512 MB written before each: that evicts the 50 MB L2
+    and keeps the queue about 0.2 ms ahead of the host, so the events time
+    the kernels and not the launch (PR 2's timer).  ``per_call(fn, reps)``: ``fn``
+    ``reps`` times in a CUDA graph, timed as above and divided by ``reps``:
+    a call's device time in a stream of calls, gaps between kernels
+    included, host excluded."""
     import torch
 
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
@@ -785,7 +791,6 @@ def make_timer(device):
         out = []
         for _ in range(runs):
             flush.zero_()
-            torch.cuda._sleep(1 << 21)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
@@ -889,13 +894,10 @@ def time_kernels(device, timed):
 
 
 CALL_SIZES = (8_388_608, 2_097_152, 147_456, 36_864, 8192, 512, 64)
-# the main path's sizes around the small form's threshold
-FORM_SIZES = (1728, 5120, 8192, 32_768, 36_864, 65_536, 147_456)
 
 
 def time_smaq(device, timed, per_call, calls, card):
     """Phase 5's SmaQ lines; returns them as a dict."""
-    import collections
     import ctypes
 
     import torch
@@ -909,33 +911,24 @@ def time_smaq(device, timed, per_call, calls, card):
     x = torch.randn(math.prod(ACT_SHAPE), device=device,
                     generator=torch.Generator(device=device).manual_seed(4))
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    sms = K.sm_count(device)
     out = {"card": card}
 
     def call(n):
         xn = x[:n]
         return lambda: K.smaq_fused(xn, host, params)
 
-    say("  the SmaQ call (smaq_fused, stochastic, size counted) by size, alone and "
-        "in a stream of 20:")
+    # in a CUDA graph: a lone multi-launch call's events also catch the
+    # host's delays between its launches
+    say("  the SmaQ call (smaq_fused, stochastic, size counted) by size, in a stream "
+        "of 20:")
     out["call_us"] = {}
     for n in CALL_SIZES:
-        alone, stream = timed(call(n)), per_call(call(n))
+        stream = per_call(call(n))
         b = 8 * n / rate
-        out["call_us"][n] = {"alone": alone * 1e3, "in_stream": stream * 1e3}
-        say(f"    {n}: {alone * 1e3:.2f} us alone, {stream * 1e3:.2f} us in a stream "
-            f"({K.smaq_plan(n)[0]} form); bound {b * 1e3:.3f} us (8 B/element), "
-            f"{b / alone:.1%} / {b / stream:.1%} of it")
-
-    out["walk_us"] = {}
-    for n in (8_388_608, 4_194_304):
-        xn = x[:n]
-        ms = {rev: timed(lambda: K.smaq_quantize(xn, params, seed=7, reverse=rev,
-                                                 consts=K.smaq_stats(xn, params)))
-              for rev in (False, True)}
-        out["walk_us"][n] = {"forward": ms[False] * 1e3, "reverse": ms[True] * 1e3}
-        say(f"  stats + quantize at {n}: quantize walking forward {ms[False] * 1e3:.2f} us, "
-            f"back from the end {ms[True] * 1e3:.2f} us (kept: "
-            f"{'back' if K.REVERSE else 'forward'})")
+        out["call_us"][n] = stream * 1e3
+        say(f"    {n}: {stream * 1e3:.2f} us ({K.smaq_plan(n, sms)[0]} form); bound "
+            f"{b * 1e3:.3f} us (8 B/element), {b / stream:.1%} of it")
 
     consts = K.smaq_stats(x, params)
     q = {name: timed(lambda p=p: K.smaq_quantize(x, p, seed=7, consts=consts)) * 1e3
@@ -944,28 +937,15 @@ def time_smaq(device, timed, per_call, calls, card):
     say(f"  smaq_quantize at {x.numel()}: truncation {q['trunc']:.2f} us, "
         f"stochastic {q['stochastic']:.2f} us")
 
-    say(f"  small form (one block) against split (stats + quantize) by size, "
-        f"in a stream of 20 and alone; threshold {K.SMALL_MAX}:")
-    out["forms_us"] = {}
-    for n in FORM_SIZES:
-        xn = x[:n]
-        forms = {"small": lambda: K.smaq_quantize(xn, params, seed=7),
-                 "split": lambda: K.smaq_quantize(xn, params, seed=7,
-                                                  consts=K.smaq_stats(xn, params))}
-        r = {f"{k} {how}": f(fn) * 1e3 for k, fn in forms.items()
-             for how, f in (("in_stream", per_call), ("alone", timed))}
-        out["forms_us"][n] = r
-        say(f"    {n}: small {r['small in_stream']:.2f} / {r['small alone']:.2f} us, "
-            f"split {r['split in_stream']:.2f} / {r['split alone']:.2f} us "
-            f"(plan: {K.smaq_plan(n)[0]})")
-
-    sizes = collections.Counter(n for n, bn in calls if not bn)
-    per_step = sum(k * per_call(call(n)) for n, k in sizes.items())
-    step_bound = sum(8 * n * k for n, k in sizes.items()) / rate
+    # the step's SmaQ calls (the BN kernel's aside) in one CUDA graph
+    sizes = [n for n, bn in calls if not bn]
+    step_fns = [call(n) for n in sizes]
+    per_step = per_call(lambda: [f() for f in step_fns], reps=1)
+    step_bound = sum(8 * n for n in sizes) / rate
     out["per_step_ms"], out["per_step_bound_ms"] = per_step, step_bound
-    say(f"  SmaQ kernels per ResNet-18 step, reckoned from its {sum(sizes.values())} calls' "
-        f"{len(sizes)} sizes (each size's call timed in a stream of 20): {per_step:.3f} ms, "
-        f"bound {step_bound:.3f} ms (8 B/element), {step_bound / per_step:.1%} of it")
+    say(f"  SmaQ kernels per ResNet-18 step, its {len(sizes)} calls in one CUDA graph: "
+        f"{per_step:.3f} ms, bound {step_bound:.3f} ms (8 B/element), "
+        f"{step_bound / per_step:.1%} of it")
 
     lib = build.library()
     out["blocks_per_sm"] = {}

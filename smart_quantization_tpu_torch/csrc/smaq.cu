@@ -345,7 +345,7 @@ __global__ void __launch_bounds__(kSmallThreads)
 smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
                      const float* __restrict__ stats, const Consts* __restrict__ consts,
                      int stats_mode, int range_std, uint64_t seed, int stochastic,
-                     int all_positive, int compute_size, int reverse, QParams p,
+                     int all_positive, int compute_size, QParams p,
                      unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
   __shared__ Sums sm[32];
   __shared__ unsigned long long su[32];
@@ -373,21 +373,21 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
   float4* y4 = reinterpret_cast<float4*>(y);
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
-  // as thread_sums walks x; group i of the walk is group n4 - 1 - i of x
-  // when walking back
+  // as thread_sums walks x, but from its end: group i of the walk is group
+  // n4 - 1 - i of x
   for (int64_t g0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g0 < n4;
        g0 += span * kUnroll) {
     float4 v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t i = g0 + u * span;
-      if (i < n4) v[u] = x4[reverse ? n4 - 1 - i : i];
+      if (i < n4) v[u] = x4[n4 - 1 - i];
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t i = g0 + u * span;
       if (i < n4) {
-        const int64_t g = reverse ? n4 - 1 - i : i;
+        const int64_t g = n4 - 1 - i;
         const uint4 r = qz.stochastic ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
         float4 o;
         o.x = qz(v[u].x, r.x, cnt);
@@ -519,15 +519,14 @@ int smaq_stats(const float* x, long long n, int range_std, float t, float range_
 int smaq_quantize(const float* x, float* y, long long n, const float* stats,
                   const float* consts, int stats_mode, int range_std,
                   unsigned long long seed, int stochastic, int all_positive,
-                  int compute_size, int reverse, float t, float range_main,
-                  float range_outlier, float inv_range_main, float inv_range_outlier,
-                  float std_lo, float std_hi, int bits_main, int bits_outlier,
-                  unsigned long long* ws, float* size_out, int num_blocks, int threads,
-                  void* stream) {
+                  int compute_size, float t, float range_main, float range_outlier,
+                  float inv_range_main, float inv_range_outlier, float std_lo,
+                  float std_hi, int bits_main, int bits_outlier, unsigned long long* ws,
+                  float* size_out, int num_blocks, int threads, void* stream) {
   smaq_quantize_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
       stats_mode, range_std, static_cast<uint64_t>(seed), stochastic, all_positive,
-      compute_size, reverse,
+      compute_size,
       qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
               std_hi, bits_main, bits_outlier),
       ws, size_out);

@@ -104,7 +104,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     quant = [f, f, f, f, f, f, f, i, i]  # SmaQ's threshold, ranges, clamp and bits
     lib.smaq_stats.argtypes = [p, ll, i, *quant, p, p, i, i, p]
     lib.smaq_stats.restype = i
-    lib.smaq_quantize.argtypes = [p, p, ll, p, p, i, i, u64, i, i, i, i, *quant, p, p, i, i, p]
+    lib.smaq_quantize.argtypes = [p, p, ll, p, p, i, i, u64, i, i, i, *quant, p, p, i, i, p]
     lib.smaq_quantize.restype = i
     lib.smaq_quantize_bn.argtypes = [
         p, p, ll, p, p, i, p, p, i, ll, u64, i, i, i, *quant, p, p, i, i, p,

@@ -61,24 +61,20 @@ _GIVEN, _CONSTS, _SMALL = 0, 1, 2
 MAX_BN_CHANNELS = 3072
 
 # Launch shapes of the split form: blocks of THREADS threads, each thread
-# with 4 float4 loads in flight per loop step, at most 4 blocks per SM
-# (the kernels are built for 4 resident: 64 registers a thread) on the 132
-# SMs of an H100 SXM.  More blocks than that only queue behind the first.
-SMS, BLOCKS_PER_SM = 132, 4
-MAX_BLOCKS = SMS * BLOCKS_PER_SM
+# with 4 float4 loads in flight per loop step, at most BLOCKS_PER_SM blocks
+# on each SM of the card (the kernels are built for 4 resident: 64
+# registers a thread).  More blocks than that only queue behind the first.
+BLOCKS_PER_SM = 4
 # The small form: one block of SMALL_THREADS computes the stats and then
 # quantizes, one launch; above SMALL_MAX elements two launches spread over
 # the card are faster (measured: PERF.md).
 SMALL_THREADS = 1024
 SMALL_MAX = 16384
-# The quantize pass walks x from its end, the reverse of the stats pass, so
-# its first loads find what the stats pass left in L2 (measured: PERF.md).
-REVERSE = True
 # The workspace of a (device, stream): the kernels' counters, then 4
 # float64 partials per stats block (csrc/smaq.cu: kCounterWords).
 _COUNTER_WORDS = 4
-_WORKSPACE_WORDS = _COUNTER_WORDS + 4 * MAX_BLOCKS
 _WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
+_SM_COUNTS: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -86,20 +82,34 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def split_blocks(n: int) -> int:
-    """Blocks of a split-form launch: a float4 for each thread, at most
-    MAX_BLOCKS (the loops step over the rest)."""
-    return max(1, min(MAX_BLOCKS, -(-n // (4 * THREADS))))
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA card, read once per card."""
+    if device.index not in _SM_COUNTS:
+        _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SM_COUNTS[device.index]
 
 
-def smaq_plan(n: int) -> tuple[str, int]:
-    """The form of a full-stats SmaQ call of ``n`` elements: ``("small", 1)``
-    (one ``smaq_quantize`` block of SMALL_THREADS, no stats launch) or
-    ``("split", blocks)`` (``smaq_stats`` then ``smaq_quantize``, each on
-    ``blocks`` blocks of THREADS)."""
+def split_blocks(n: int, sms: int) -> int:
+    """Blocks of a split-form launch on a card of ``sms`` SMs: a float4
+    for each thread, at most BLOCKS_PER_SM a SM (the loops step over the
+    rest)."""
+    return max(1, min(sms * BLOCKS_PER_SM, -(-n // (4 * THREADS))))
+
+
+def workspace_words(sms: int) -> int:
+    """64-bit words of a workspace: the counters and the partials of the
+    largest stats launch on a card of ``sms`` SMs."""
+    return _COUNTER_WORDS + 4 * sms * BLOCKS_PER_SM
+
+
+def smaq_plan(n: int, sms: int) -> tuple[str, int]:
+    """The form of a full-stats SmaQ call of ``n`` elements on a card of
+    ``sms`` SMs: ``("small", 1)`` (one ``smaq_quantize`` block of
+    SMALL_THREADS, no stats launch) or ``("split", blocks)`` (``smaq_stats``
+    then ``smaq_quantize``, each on ``blocks`` blocks of THREADS)."""
     if n <= SMALL_MAX:
         return "small", 1
-    return "split", split_blocks(n)
+    return "split", split_blocks(n, sms)
 
 
 def workspace(xf: torch.Tensor) -> torch.Tensor:
@@ -110,7 +120,7 @@ def workspace(xf: torch.Tensor) -> torch.Tensor:
     key = (xf.device.index, stream(xf))
     ws = _WORKSPACES.get(key)
     if ws is None:
-        ws = torch.zeros(_WORKSPACE_WORDS, dtype=torch.int64, device=xf.device)
+        ws = torch.zeros(workspace_words(sm_count(xf.device)), dtype=torch.int64, device=xf.device)
         _WORKSPACES[key] = ws
     return ws
 
@@ -135,7 +145,8 @@ def smaq_stats(xf: torch.Tensor, params: SmaQParams) -> torch.Tensor:
     consts = torch.empty(8, dtype=torch.float32, device=xf.device)
     rc = build.library().smaq_stats(
         xf.data_ptr(), n, int(params.use_range_std_dev), *_quant_args(params),
-        workspace(xf).data_ptr(), consts.data_ptr(), split_blocks(n), THREADS, stream(xf),
+        workspace(xf).data_ptr(), consts.data_ptr(), split_blocks(n, sm_count(xf.device)),
+        THREADS, stream(xf),
     )
     raise_on(rc, "smaq_stats")
     LAUNCHES["smaq_stats"] += 1
@@ -173,24 +184,26 @@ def smaq_quantize(
     consts: torch.Tensor | None = None,
     all_positive: bool = False,
     compute_size: bool = True,
-    reverse: bool = REVERSE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the quantize kernel against ``stats`` (a float32 (mean, std)
     pair on the device) or ``smaq_stats``' ``consts``; with neither, the
-    small form: one block computes the full stats itself, then quantizes.
-    ``reverse`` walks x from its end (kept so the two walks can be timed).
-    Returns the flat output and the size in bits as a 0-d float32 device
-    tensor."""
+    small form (``SMALL_MAX`` elements at most): one block computes the
+    full stats itself, then quantizes.  Returns the flat output and the
+    size in bits as a 0-d float32 device tensor."""
     check_input(xf)
     stats, consts, mode = _stats_args(xf, stats, consts)
     n = xf.numel()
+    if mode == _SMALL and n > SMALL_MAX:
+        raise ValueError(f"the small form takes at most {SMALL_MAX} elements, got {n}: "
+                         "pass stats= or smaq_stats' consts=")
     y = torch.empty_like(xf)
     size = torch.empty((), dtype=torch.float32, device=xf.device)
-    blocks, threads = (1, SMALL_THREADS) if mode == _SMALL else (split_blocks(n), THREADS)
+    blocks, threads = (
+        (1, SMALL_THREADS) if mode == _SMALL else (split_blocks(n, sm_count(xf.device)), THREADS))
     rc = build.library().smaq_quantize(
         xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
         int(params.use_range_std_dev), seed, int(params.stochastic_rounding),
-        int(all_positive), int(compute_size), int(reverse), *_quant_args(params),
+        int(all_positive), int(compute_size), *_quant_args(params),
         workspace(xf).data_ptr(), size.data_ptr(), blocks, threads, stream(xf),
     )
     raise_on(rc, "smaq_quantize")
@@ -305,7 +318,7 @@ def _device_stats(xf, params, mean, std, small_form):
         return _given_stats(mean, std, xf.device), None
     if params.use_sample_stats and xf.numel() > params.num_samples:
         return sample_stats(xf, params), None
-    if small_form and smaq_plan(xf.numel())[0] == "small":
+    if small_form and smaq_plan(xf.numel(), sm_count(xf.device))[0] == "small":
         return None, None
     return None, smaq_stats(xf, params)
 

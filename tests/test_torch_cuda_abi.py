@@ -87,24 +87,23 @@ def test_every_declaration_has_an_entry_point():
     assert set(_declared()) == set(ENTRY_POINTS)
 
 
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe
 @pytest.mark.parametrize(
     "n", [10, K.SMALL_MAX - 1, K.SMALL_MAX, K.SMALL_MAX + 1, 300_001, 8_388_608]
 )
-def test_smaq_plan(n):
+def test_smaq_plan(n, sms):
     """Small tensors take the one-block form; the split form spreads over
     the card with no more blocks than fit on it at once (BLOCKS_PER_SM of
-    THREADS on each of the H100's 132 SMs) and than the workspace holds
-    partials for."""
-    form, blocks = K.smaq_plan(n)
+    THREADS on each SM) and than the workspace holds partials for."""
+    form, blocks = K.smaq_plan(n, sms)
     if n <= K.SMALL_MAX:
         assert (form, blocks) == ("small", 1)
         assert K.SMALL_THREADS <= 1024
         return
     assert form == "split"
-    assert blocks == min(132 * 4, math.ceil(n / (4 * THREADS)))
-    assert blocks <= K.SMS * K.BLOCKS_PER_SM
+    assert blocks == min(sms * K.BLOCKS_PER_SM, math.ceil(n / (4 * THREADS)))
     assert K.BLOCKS_PER_SM * THREADS <= 2048  # threads resident per SM
-    assert K._COUNTER_WORDS + 4 * blocks <= K._WORKSPACE_WORDS
+    assert K._COUNTER_WORDS + 4 * blocks <= K.workspace_words(sms)
 
 
 @pytest.mark.parametrize(
