@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --s2fp8_times_of DIR
 
-Phases, each printing its own lines; any failure exits non-zero:
+With no arguments, phases, each printing its own lines; any failure exits
+non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build the CUDA kernels from ``smart_quantization_tpu_torch/csrc``;
@@ -13,11 +15,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    SmaQ in truncation, stochastic, ``all_positive`` and
    ``compute_size=False`` modes; the float formats (FP8, FP16, BF16)
    bitwise in nearest mode with and without ``check_inf``, on their grid
-   and unbiased in stochastic mode; S2FP8's stats and its output; the
-   BatchNorm-folded SmaQ on NCHW tensors, a scalar pair and a zero gamma;
-   SmaQ's one-block small form at the main path's small sizes and around
-   its threshold, the stats kernel's constants buffer, and the outlier
-   size after 1000 back-to-back calls (the self-resetting counters);
+   and unbiased in stochastic mode; S2FP8's stats kernel's constants
+   (mu, max, alpha, beta, 1/alpha and the unsqueeze table) and its output
+   in both forms, around the small form's threshold and on constant
+   tensors; the BatchNorm-folded SmaQ on NCHW tensors, a scalar pair and
+   a zero gamma; SmaQ's one-block small form at the main path's small
+   sizes and around its threshold, the stats kernel's constants buffer,
+   and the outlier size after 1000 back-to-back calls (the self-resetting
+   counters); 1000 back-to-back calls of both S2FP8 forms and SmaQ;
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -30,10 +35,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    cast to the same format; the SmaQ call at the main path's sizes,
    truncation beside stochastic rounding, the SmaQ kernel time of one
    ResNet-18 step (its calls, at their sizes, in one CUDA graph), and the
-   SmaQ kernels' blocks resident per SM;
+   SmaQ kernels' blocks resident per SM; the same for S2FP8, with both of
+   its forms at its threshold and at 8192 elements;
 6. the kernel table as one JSON line, then the result as the last line.
 
-Needs the repository beside it and one CUDA card.
+``--s2fp8_times_of DIR`` times only the S2FP8 call of the port in DIR
+(``s2fp8_fused`` by size, alone at 8 388 608 elements and in streams of 20,
+and a ResNet-18 step's calls in one CUDA graph) with this script's timer
+and prints them as one JSON line: one chip call can run it on two trees in
+turns.
+
+Needs the repository beside it (or in DIR) and one CUDA card.
 """
 
 from __future__ import annotations
@@ -463,49 +475,85 @@ def e5m2_steps(a, b):
     return (a - b).abs() / step
 
 
+def ulps_apart(a, b):
+    """The largest distance in float32 units in the last place between two
+    tensors of positive values (NaN beside NaN counts as equal)."""
+    import torch
+
+    d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return int(torch.where(same, torch.zeros_like(d), d).max())
+
+
 def check_s2fp8_kernels(device):
-    """The stats against their plain version within 1e-6 relative; the
-    output (nearest) equal to ``s2fp8_fused_reference`` except for at most
-    1e-3 of the elements, each at most one e5m2 step away in the squeezed
-    domain (exp2f/log2f and torch's differ in the last ulp); stochastic
-    outputs on one of the plain version's two roundings but for as few."""
+    """The stats kernel's constants: mu and max against their plain version
+    within 1e-6 relative, alpha, beta and 1/alpha bitwise equal to
+    ``squeeze_coefs`` of the kernel's own (mu, max), the unsqueeze table
+    within 1 ulp of ``unsqueeze_table_reference``.  The call, in the form
+    ``s2fp8_plan`` names (its launches counted): the output (nearest) equal
+    to ``s2fp8_fused_reference`` except for at most 1e-3 of the elements,
+    each at most one e5m2 step away in the squeezed domain (exp2f/log2f and
+    torch's may differ in the last ulp), and bitwise for the signed-zero
+    and constant cases; stochastic outputs on one of the plain version's
+    two roundings but for as few.  The small form refuses more than
+    ``SMALL_MAX`` elements."""
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda.launch import sm_count
     from smart_quantization_tpu_torch.ops.s2fp8 import squeeze_coefs
 
     S.reset_launch_counts()
     host = torch.Generator().manual_seed(12)
     gen = torch.Generator(device=device).manual_seed(13)
+    sms = sm_count(device)
+    t = S.SMALL_MAX
     cases = [
         ("act 128x64x32x32", torch.randn(ACT_SHAPE, generator=gen, device=device) * 1.7),
         ("ragged 300001", torch.randn(300_001, generator=gen, device=device) * 2.5e-3 - 1e-3),
         ("fc bias 10", torch.randn(10, generator=gen, device=device) * 0.01),
+        (f"at threshold {t}", torch.randn(t, generator=gen, device=device) * 0.5 + 0.1),
+        (f"past threshold {t + 1}", torch.randn(t + 1, generator=gen, device=device) * 0.5 + 0.1),
         ("signed zeros 4096", torch.cat([torch.zeros(2048, device=device),
                                          -torch.zeros(2048, device=device)])),
         ("constant 4096", torch.full((4096,), 2.0, device=device)),
+        # log2(0.375) is inexact: only an exact mean keeps alpha finite
+        ("constant -0.375 4096", torch.full((4096,), -0.375, device=device)),
+        ("constant -0.375 300001", torch.full((300_001,), -0.375, device=device)),
     ]
     cases[0][1].reshape(-1)[:4] = torch.tensor([0.0, -0.0, 1e-30, -3e4], device=device)
     errs = {"s2fp8_stats": 0.0, "s2fp8_quantize": 0.0}
     for name, x in cases:
         flat = x.reshape(-1)
         n = flat.numel()
-        mu_k, m_k = S.fold_partials(S.s2fp8_stats(flat), n)
+        c = S.read_consts(S.s2fp8_stats(flat))
         mu_r, m_r = S.stats_reference(flat)
-        d_mu, d_m = float((mu_k - mu_r).abs()), float((m_k - m_r).abs())
-        ok = d_mu <= 1e-6 * max(1.0, abs(float(mu_r))) and d_m <= 1e-6 * max(1.0, abs(float(m_r)))
-        say(f"  {name}: stats |d mu|={d_mu:.2e} |d max|={d_m:.2e} -> {'ok' if ok else 'MISMATCH'}")
+        d_mu, d_m = float((c["mu"] - mu_r).abs()), float((c["m"] - m_r).abs())
+        alpha, beta = squeeze_coefs(c["mu"], c["m"])
+        coefs_bitwise = all(
+            bool((a.view(torch.int32) == b.view(torch.int32)).all())
+            for a, b in ((c["alpha"], alpha), (c["beta"], beta), (c["inv_alpha"], 1.0 / alpha)))
+        table_ulps = ulps_apart(c["table"], S.unsqueeze_table_reference(c["alpha"], c["beta"]))
+        ok = (d_mu <= 1e-6 * max(1.0, abs(float(mu_r))) and d_m <= 1e-6 * max(1.0, abs(float(m_r)))
+              and coefs_bitwise and table_ulps <= 1)
+        say(f"  {name}: stats |d mu|={d_mu:.2e} |d max|={d_m:.2e}; alpha, beta, 1/alpha bitwise "
+            f"{coefs_bitwise}; table within {table_ulps} ulp -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"s2fp8_stats disagrees with its plain version: {name}")
         errs["s2fp8_stats"] = max(errs["s2fp8_stats"], d_mu, d_m)
 
-        alpha, beta = (c.double() for c in squeeze_coefs(mu_r, m_r))
+        alpha, beta = (v.double() for v in squeeze_coefs(mu_r, m_r))
 
         def squeezed(y):
             a = y.reshape(-1).double().abs()
             return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
 
+        form = S.s2fp8_plan(n, sms)[0]
+        before = dict(S.LAUNCHES)
         y = S.s2fp8_fused(x, None, stochastic=False)
+        got = {k: S.LAUNCHES[k] - before[k] for k in S.LAUNCHES}
+        if got != {"s2fp8_stats": int(form == "split"), "s2fp8_quantize": 1}:
+            fail(f"s2fp8_fused at {n} did not take the {form} form: {got}")
         y_ref = S.s2fp8_fused_reference(x, stochastic=False)
         diff = y.view(torch.int32) != y_ref.view(torch.int32)
         n_diff = int(diff.sum())
@@ -514,8 +562,8 @@ def check_s2fp8_kernels(device):
         ok = n_diff <= max(1e-3 * n, 1) and steps <= 1.01 and bool(torch.isfinite(y).all())
         if name.startswith(("signed", "constant")):
             ok = ok and n_diff == 0
-        say(f"  {name} nearest: {n_diff} of {n} differ, at most {steps:.3f} e5m2 steps "
-            f"-> {'ok' if ok else 'MISMATCH'}")
+        say(f"  {name} nearest ({form} form): {n_diff} of {n} differ, at most {steps:.3f} e5m2 "
+            f"steps -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"s2fp8_quantize disagrees with its plain version: {name}")
         errs["s2fp8_quantize"] = max(errs["s2fp8_quantize"], float((y - y_ref).abs().max()))
@@ -531,10 +579,63 @@ def check_s2fp8_kernels(device):
         say(f"  {name} stochastic: {off} outputs off the two roundings -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"stochastic S2FP8 off its grid: {name}")
+    try:
+        S.s2fp8_quantize(torch.zeros(t + 1, device=device), seed=0, stochastic=False,
+                         check_inf=True)
+    except ValueError:
+        say(f"  the small form refuses {t + 1} elements -> ok")
+    else:
+        fail(f"s2fp8_quantize ran the small form on {t + 1} elements")
     say(f"  launches during the checks: {dict(S.LAUNCHES)}")
     if min(S.LAUNCHES.values()) == 0:
         fail("an S2FP8 kernel was never launched by the checks")
     return errs
+
+
+def check_s2fp8_back_to_back(device):
+    """1000 back-to-back calls on one stream, alternating S2FP8's split form,
+    SmaQ's split form, S2FP8's small form and SmaQ's small form.  The first
+    S2FP8 output of each form agrees with the plain version by phase 3's
+    rule; every later output and SmaQ size is bitwise the first of its
+    kind, which it would not be if a counter kept its count or a call read
+    another's constants."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    trunc = SmaQParams(stochastic_rounding=False)
+    xs = {"s2fp8 split 300001": torch.randn(300_001, generator=gen, device=device) * 2.5 - 0.7,
+          "smaq split 300001": torch.randn(300_001, generator=gen, device=device) * 1.5 + 0.2,
+          "s2fp8 small 1728": torch.randn(1728, generator=gen, device=device) * 0.1,
+          "smaq small 1728": torch.randn(1728, generator=gen, device=device)}
+    calls = {}
+    for name, x in xs.items():
+        if name.startswith("s2fp8"):
+            calls[name] = lambda x=x: (S.s2fp8_fused(x, None, stochastic=False),)
+        else:
+            calls[name] = lambda x=x: K.smaq_fused(x, None, trunc)
+    firsts = {name: fn() for name, fn in calls.items()}
+    for name, x in xs.items():
+        if name.startswith("s2fp8"):
+            y_ref = S.s2fp8_fused_reference(x, stochastic=False)
+            n_diff = int((firsts[name][0].view(torch.int32) != y_ref.view(torch.int32)).sum())
+            say(f"  {name}: first call {n_diff} of {x.numel()} differ from the plain version")
+            if n_diff > 1e-3 * x.numel():
+                fail(f"s2fp8_quantize disagrees with its plain version: {name}")
+    bad = {name: torch.zeros((), dtype=torch.int64, device=device) for name in calls}
+    names = list(calls)
+    for i in range(1000 - len(names)):
+        name = names[i % len(names)]
+        for out, first in zip(calls[name](), firsts[name]):
+            bad[name] += (out.view(torch.int32) != first.view(torch.int32)).sum()
+    bad = {name: int(v) for name, v in bad.items()}
+    say(f"  1000 back-to-back calls, outputs and sizes apart from the first: {bad} -> "
+        f"{'ok' if not any(bad.values()) else 'MISMATCH'}")
+    if any(bad.values()):
+        fail("a call's output changed over back-to-back calls")
 
 
 def check_bn_kernel(device):
@@ -649,16 +750,22 @@ def step_calls(trainer, batch_size: int) -> list[tuple[int, bool]]:
 
 def expected_launches(args, calls) -> dict:
     """Launches of each kernel in one training step: one per encoder call
-    for the float formats, two for S2FP8; for SmaQ, a stats launch where
-    ``smaq_plan`` takes the split form (and for every BN-kernel call) and
-    one quantize launch per call; under --use_batch_norm the forward taps
-    of the BatchNorms go to the BN kernel."""
+    for the float formats; for S2FP8 and SmaQ, a stats launch where
+    ``s2fp8_plan`` or ``smaq_plan`` takes the split form (and for every
+    BN-kernel call) and one quantize launch per call; under
+    --use_batch_norm the forward taps of the BatchNorms go to the BN
+    kernel."""
     import torch
 
-    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import sm_count, smaq_plan
+    from smart_quantization_tpu_torch.ops.cuda.launch import sm_count
+    from smart_quantization_tpu_torch.ops.cuda.s2fp8_kernel import s2fp8_plan
+    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import smaq_plan
 
     sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
     kernels = path_kernels(args)
+    if kernels[0] == "s2fp8_stats":
+        return {"s2fp8_stats": sum(s2fp8_plan(n, sms)[0] == "split" for n, _ in calls),
+                "s2fp8_quantize": len(calls)}
     if kernels[0] != "smaq_stats":
         return {k: len(calls) for k in kernels}
     out = dict.fromkeys(kernels, 0)
@@ -835,7 +942,7 @@ def time_kernels(device, timed):
     n = x.numel()
     consts = K.smaq_stats(x, params)
     mean, std = K.pivot_stats_reference(x, params)
-    s2_partials = S.s2fp8_stats(x)
+    s2_consts = S.s2fp8_stats(x)
     xb = x.view(BN_SHAPE)
     channels = BN_SHAPE[1]
     gamma = torch.randn(channels, generator=gen, device=device) * 0.3 + 1.0
@@ -863,7 +970,7 @@ def time_kernels(device, timed):
         "library_bf16": timed(lambda: x.bfloat16().float()),
         "s2fp8_stats": timed(lambda: S.s2fp8_stats(x)),
         "s2fp8_quantize": timed(lambda: S.s2fp8_quantize(
-            x, s2_partials, seed=7, stochastic=True, check_inf=True)),
+            x, s2_consts, seed=7, stochastic=True, check_inf=True)),
         "s2fp8_pair": timed(lambda: S.s2fp8_fused(x, host)),
         "plain_s2fp8_stats": timed(lambda: S.stats_reference(x)),
         "plain_s2fp8": timed(lambda: S.s2fp8_fused_reference(x, host)),
@@ -967,6 +1074,142 @@ def time_smaq(device, timed, per_call, calls, card):
     return out
 
 
+def s2fp8_call_times(device, timed, per_call, calls) -> dict:
+    """The S2FP8 call (``s2fp8_fused``, stochastic) alone at 8 388 608
+    elements, by size in a stream of 20 (CUDA graph), and ``calls``' sizes
+    (a ResNet-18 step's) in one CUDA graph, and a digest of its output at
+    8 388 608 elements in both modes (the stochastic one from a fixed
+    seed); through the port's public call only, so it times and digests
+    any tree of the port the same way."""
+    import hashlib
+
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+
+    host = torch.Generator().manual_seed(6)
+    x = torch.randn(math.prod(ACT_SHAPE), device=device,
+                    generator=torch.Generator(device=device).manual_seed(7))
+
+    def call(n):
+        xn = x[:n]
+        return lambda: S.s2fp8_fused(xn, host)
+
+    def digest(gen):
+        y = S.s2fp8_fused(x, gen, stochastic=gen is not None)
+        return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    step_fns = [call(n) for n, _ in calls]
+    return {
+        "output_sha256": {"nearest": digest(None),
+                          "stochastic": digest(torch.Generator().manual_seed(9))},
+        "pair_alone_us": timed(call(x.numel())) * 1e3,
+        "call_us": {n: per_call(call(n)) * 1e3 for n in CALL_SIZES},
+        "per_step_ms": per_call(lambda: [f() for f in step_fns], reps=1),
+        "per_step_bound_ms": sum(8 * n for n, _ in calls) / (HBM_BYTES_PER_S / 1e3),
+        "per_step_calls": len(calls),
+    }
+
+
+def time_s2fp8(device, timed, per_call, calls, card):
+    """Phase 5's S2FP8 lines; returns them as a dict."""
+    import ctypes
+
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import build
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda.launch import (
+        BLOCKS_PER_SM,
+        THREADS,
+        raise_on,
+        sm_count,
+    )
+
+    rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    sms = sm_count(device)
+    out = {"card": card, **s2fp8_call_times(device, timed, per_call, calls)}
+    say("  the S2FP8 call (s2fp8_fused, stochastic) by size, in a stream of 20:")
+    for n, us in out["call_us"].items():
+        b = 8 * n / rate * 1e3
+        say(f"    {n}: {us:.2f} us ({S.s2fp8_plan(n, sms)[0]} form); bound {b:.3f} us "
+            f"(8 B/element), {b / us:.1%} of it")
+    say(f"  the call alone at 8388608: {out['pair_alone_us']:.2f} us; output digests "
+        f"{out['output_sha256']}")
+
+    lib = build.library()
+    x = torch.randn(math.prod(ACT_SHAPE), device=device,
+                    generator=torch.Generator(device=device).manual_seed(8))
+    out["forms_us"] = {}
+    for n in (S.SMALL_MAX, 8192):
+        xn = x[:n]
+        yn = torch.empty_like(xn)
+
+        # the small form through the C entry point: the wrapper refuses it
+        # above SMALL_MAX
+        def small(xn=xn, yn=yn, n=n):
+            raise_on(lib.s2fp8_quantize(xn.data_ptr(), yn.data_ptr(), n, None, 7, 1, 1, 1,
+                                        S.SMALL_THREADS, torch.cuda.current_stream(device).cuda_stream),
+                     "s2fp8_quantize")
+
+        def split(xn=xn):
+            S.s2fp8_quantize(xn, S.s2fp8_stats(xn), seed=7, stochastic=True, check_inf=True)
+
+        forms = {"small": per_call(small) * 1e3, "split": per_call(split) * 1e3}
+        out["forms_us"][n] = forms
+        say(f"  both forms at {n}, in a stream of 20: small {forms['small']:.2f} us, "
+            f"split {forms['split']:.2f} us ({S.s2fp8_plan(n, sms)[0]} form planned)")
+
+    consts = S.s2fp8_stats(x)
+    q = {name: timed(lambda s=s: S.s2fp8_quantize(x, consts, seed=7, stochastic=s,
+                                                  check_inf=True)) * 1e3
+         for name, s in (("nearest", False), ("stochastic", True))}
+    out["quantize_us"] = q
+    say(f"  s2fp8_quantize at {x.numel()}: nearest {q['nearest']:.2f} us, "
+        f"stochastic {q['stochastic']:.2f} us")
+    say(f"  S2FP8 kernels per ResNet-18 step, its {out['per_step_calls']} calls in one CUDA "
+        f"graph: {out['per_step_ms']:.3f} ms, bound {out['per_step_bound_ms']:.3f} ms "
+        f"(8 B/element), {out['per_step_bound_ms'] / out['per_step_ms']:.1%} of it")
+
+    out["blocks_per_sm"] = {}
+    for kernel, label, threads, stoch, ci in (
+            (0, "s2fp8_stats", THREADS, 0, 0),
+            (1, "s2fp8_quantize stochastic", THREADS, 1, 1),
+            (1, "s2fp8_quantize nearest", THREADS, 0, 1),
+            (1, "s2fp8_quantize small form stochastic", S.SMALL_THREADS, 1, 1)):
+        c = ctypes.c_int(0)
+        rc = lib.s2fp8_occupancy(kernel, stoch, ci, threads, ctypes.addressof(c))
+        if rc:
+            fail(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: {rc}")
+        out["blocks_per_sm"][label] = c.value
+        say(f"  {label}: {c.value} blocks of {threads} threads resident per SM")
+    if min(v for k, v in out["blocks_per_sm"].items() if "small" not in k) < BLOCKS_PER_SM:
+        fail(f"an S2FP8 kernel fits fewer than the planned {BLOCKS_PER_SM} blocks per SM")
+    with open(os.path.join(OUT, "s2fp8_times.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def s2fp8_times_of(root: str) -> int:
+    """``--s2fp8_times_of DIR``: build the port in DIR and print its
+    ``s2fp8_call_times`` as one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from smart_quantization_tpu_torch.ops.cuda import build
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    build.library()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    trainer = build_trainer(parse_args(MAIN_ARGV + ["--compress", "s2fp8", "--logdir", ""]))
+    timed, per_call = make_timer(device)
+    times = s2fp8_call_times(device, timed, per_call, step_calls(trainer, 128))
+    say(json.dumps({"tree": os.path.abspath(root), "card": card_line(), **times}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -974,6 +1217,10 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available")
+    if len(sys.argv) == 3 and sys.argv[1] == "--s2fp8_times_of":
+        return s2fp8_times_of(sys.argv[2])
+    if len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--s2fp8_times_of DIR]")
     sys.path.insert(0, ROOT)
     try:
         from smart_quantization_tpu_torch.ops.cuda import build
@@ -1006,6 +1253,7 @@ def main() -> int:
     check_counter_reset(device)
     errs.update(check_float_kernels(device))
     errs.update(check_s2fp8_kernels(device))
+    check_s2fp8_back_to_back(device)
     errs.update(check_bn_kernel(device))
 
     say("[4] training: ResNet-18, batch 128, full coverage")
@@ -1053,6 +1301,7 @@ def main() -> int:
         f"smaq_stats), y.copy_(x) {t['torch_copy'] * 1e3:.1f} us (a read and a write, as "
         f"smaq_quantize)")
     time_smaq(device, timed, per_call, calls, card)
+    time_s2fp8(device, timed, per_call, calls, card)
 
     def row(kname, source, replaces, plain, lib=None):
         return {"name": kname, "route": "cuda", "source": f"{CSRC}/{source}",

@@ -36,4 +36,10 @@ __device__ __forceinline__ uint4 philox_group(int64_t g, uint2 key) {
   return philox4x32_10(make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32), 0u, 0u), key);
 }
 
+// Element e's word of philox_group(e >> 2, key).
+__device__ __forceinline__ uint32_t philox_word(uint4 r, int64_t e) {
+  const int j = static_cast<int>(e & 3);
+  return j == 0 ? r.x : (j == 1 ? r.y : (j == 2 ? r.z : r.w));
+}
+
 }  // namespace smaq

@@ -308,11 +308,6 @@ struct Quant {
   }
 };
 
-__device__ __forceinline__ uint32_t word(uint4 r, int64_t e) {
-  const int j = static_cast<int>(e & 3);
-  return j == 0 ? r.x : (j == 1 ? r.y : (j == 2 ? r.z : r.w));
-}
-
 // The size in bits from the block's outlier count.  One block writes it
 // directly; otherwise each block adds (1 ticket, its count) to the quantize
 // word in one 64-bit atomicAdd, and the block that draws the last ticket
@@ -401,7 +396,7 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) {
     const uint4 r = qz.stochastic ? smaq::philox_group(e >> 2, key) : make_uint4(0u, 0u, 0u, 0u);
-    y[e] = qz(x[e], word(r, e), cnt);
+    y[e] = qz(x[e], smaq::philox_word(r, e), cnt);
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su);
 }

@@ -116,8 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.float_quantize.restype = i
     lib.s2fp8_stats.argtypes = [p, ll, p, i, i, p]
     lib.s2fp8_stats.restype = i
-    lib.s2fp8_quantize.argtypes = [p, p, ll, p, i, i, i, u32, u32, f, f, u64, i, i, i, i, p]
+    lib.s2fp8_quantize.argtypes = [p, p, ll, p, u64, i, i, i, i, p]
     lib.s2fp8_quantize.restype = i
+    lib.s2fp8_occupancy.argtypes = [i, i, i, i, p]
+    lib.s2fp8_occupancy.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -1,5 +1,6 @@
-"""What every kernel wrapper of the port shares: the launch shape, the input
-checks, the stream and the error check after a launch."""
+"""What every kernel wrapper of the port shares: the launch shapes, the SM
+count, the per-stream workspaces, the input checks, the stream and the
+error check after a launch."""
 
 from __future__ import annotations
 
@@ -8,28 +9,52 @@ import torch
 from smart_quantization_tpu_torch.ops.rounding import draw_seed
 
 THREADS = 256
-# The shapes below serve float_quantize, the S2FP8 pair and
-# smaq_quantize_bn; smaq_stats and smaq_quantize have their own
-# (smaq_kernel.py::smaq_plan).
-# Partials per stats launch: every s2fp8_quantize block folds all of them,
-# so they are kept few (264 = 2 per SM of an H100).
-MAX_STATS_BLOCKS = 264
-# 8 blocks of 256 threads fill an SM; larger tensors loop inside the block.
+# float_quantize and smaq_quantize_bn: a float4 for each thread per loop
+# step, at most 1056 blocks (8 blocks of 256 threads fill an SM); larger
+# tensors loop inside the block.
 MAX_QUANT_BLOCKS = 1056
+# The split forms of SmaQ and S2FP8 (smaq_kernel.py::smaq_plan,
+# s2fp8_kernel.py::s2fp8_plan): blocks of THREADS threads, each thread with
+# 4 float4 loads in flight per loop step, at most BLOCKS_PER_SM blocks on
+# each SM of the card (the kernels are built for 4 resident: 64 registers
+# a thread).  More blocks than that only queue behind the first.
+BLOCKS_PER_SM = 4
 
-
-def blocks(n: int, per_block: int, cap: int) -> int:
-    return max(1, min(cap, -(-n // per_block)))
-
-
-def stats_blocks(n: int) -> int:
-    """Blocks of a stats pass: 16 elements a thread, at most 264 partials."""
-    return blocks(n, THREADS * 16, MAX_STATS_BLOCKS)
+_SM_COUNTS: dict[int, int] = {}
+_WORKSPACES: dict[tuple[str, int, int], torch.Tensor] = {}
 
 
 def quant_blocks(n: int) -> int:
     """Blocks of an elementwise pass: 4 elements a thread per loop step."""
-    return blocks(n, THREADS * 4, MAX_QUANT_BLOCKS)
+    return max(1, min(MAX_QUANT_BLOCKS, -(-n // (THREADS * 4))))
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA card, read once per card."""
+    if device.index not in _SM_COUNTS:
+        _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SM_COUNTS[device.index]
+
+
+def split_blocks(n: int, sms: int) -> int:
+    """Blocks of a split-form launch on a card of ``sms`` SMs: a float4
+    for each thread, at most BLOCKS_PER_SM a SM (the loops step over the
+    rest)."""
+    return max(1, min(sms * BLOCKS_PER_SM, -(-n // (4 * THREADS))))
+
+
+def workspace(xf: torch.Tensor, kind: str, words: int) -> torch.Tensor:
+    """The ``kind`` kernels' workspace on ``xf``'s card and current stream:
+    ``words`` 64-bit words, zeroed once, here; each kernel puts the counters
+    it used back to 0, so a call needs no memset.  Launches on one stream
+    run in order, so no two kernels ever use one at once; each encoder has
+    its own, so no kernel of one overwrites what another's reads later."""
+    key = (kind, xf.device.index, stream(xf))
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = torch.zeros(words, dtype=torch.int64, device=xf.device)
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def seed_for(gen: torch.Generator | None, stochastic: bool) -> int:

@@ -2,17 +2,21 @@
 version, and the dispatcher.
 
 The port of ``smart_quantization_tpu/ops/pallas/s2fp8_kernel.py::
-s2fp8_fused`` (its default ``intrinsic`` form) and of the statistics its
+s2fp8_fused`` (its default ``intrinsic`` squeeze) and of the statistics its
 wrapper computes first.  The source note in ``csrc/s2fp8.cu`` gives the
 design.  Here:
 
 - ``s2fp8_stats`` and ``s2fp8_quantize`` launch the two kernels on
   PyTorch's current stream and count their launches in ``LAUNCHES``;
+- ``s2fp8_plan`` picks a call's form from its size: one ``s2fp8_quantize``
+  block that computes its own stats (``SMALL_MAX`` elements or fewer), or
+  ``s2fp8_stats`` then ``s2fp8_quantize``;
 - ``s2fp8_fused`` is the kernel path of one S2FP8 call on a CUDA tensor;
 - ``s2fp8_fused_reference`` is the kernels' plain version, for any device:
   the stats summed in float64, the squeeze as ``exp2(alpha * log2|x| +
   beta)`` and its inverse as ``exp2((log2 t - beta) / alpha)``, as the
-  kernel computes them;
+  kernel computes them; ``unsqueeze_table_reference`` is the inverse as
+  the kernels read it, a table over the e5m2 grid;
 - ``s2fp8_fused_or_reference`` sends a CUDA tensor to the kernels and a CPU
   tensor to ``ops/s2fp8.py``.  There is no size threshold.
 """
@@ -21,15 +25,16 @@ from __future__ import annotations
 
 import torch
 
-from smart_quantization_tpu_torch.ops.cuda import build
-from smart_quantization_tpu_torch.ops.cuda.float_kernel import format_args
+from smart_quantization_tpu_torch.ops.cuda import build, launch
 from smart_quantization_tpu_torch.ops.cuda.launch import (
+    BLOCKS_PER_SM,
     THREADS,
     check_input,
-    quant_blocks,
+    ptr,
     raise_on,
     seed_for,
-    stats_blocks,
+    sm_count,
+    split_blocks,
     stream,
 )
 from smart_quantization_tpu_torch.ops.float_format import (
@@ -43,50 +48,115 @@ from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize, sq
 # Launches of each kernel since the last reset (one per launch, nowhere else).
 LAUNCHES = {"s2fp8_stats": 0, "s2fp8_quantize": 0}
 
+# The small form: one block of SMALL_THREADS computes the stats, the
+# constants and the table, then quantizes, one launch.  It is one SM's
+# work, so two launches spread over the card are faster from about 6000
+# elements on (measured: PERF.md); SMALL_MAX is the largest main-path call
+# size below that.
+SMALL_THREADS = 1024
+SMALL_MAX = 5120
+# The unsqueeze table: entry k is the e5m2 value t whose float32 bits are
+# (k + TABLE_BASE) << 21 (csrc/s2fp8.cu: kTableSize, kTableBase).
+TABLE_SIZE = 128
+TABLE_BASE = 444
+# The workspace of a (device, stream), in 64-bit words: the stats ticket,
+# the constants (mu, m, alpha, beta, 1/alpha, 3 unused, then the table:
+# 136 float32), then 2 float64 partials per stats block (kCounterWords,
+# kConstWords).
+_COUNTER_WORDS = 2
+_CONST_WORDS = 68
+_CONST_FLOATS = 2 * _CONST_WORDS
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
+def s2fp8_plan(n: int, sms: int) -> tuple[str, int]:
+    """The form of an S2FP8 call of ``n`` elements on a card of ``sms``
+    SMs: ``("small", 1)`` (one ``s2fp8_quantize`` block of SMALL_THREADS,
+    no stats launch) or ``("split", blocks)`` (``s2fp8_stats`` then
+    ``s2fp8_quantize``, each on ``blocks`` blocks of THREADS)."""
+    if n <= SMALL_MAX:
+        return "small", 1
+    return "split", split_blocks(n, sms)
+
+
+def workspace_words(sms: int) -> int:
+    """64-bit words of a workspace: the ticket, the constants and the
+    partials of the largest stats launch on a card of ``sms`` SMs."""
+    return _COUNTER_WORDS + _CONST_WORDS + 2 * sms * BLOCKS_PER_SM
+
+
+def workspace(xf: torch.Tensor) -> torch.Tensor:
+    """The S2FP8 kernels' workspace on ``xf``'s card and current stream
+    (``launch.workspace``)."""
+    return launch.workspace(xf, "s2fp8", workspace_words(sm_count(xf.device)))
+
+
 def s2fp8_stats(xf: torch.Tensor) -> torch.Tensor:
-    """Launch the stats kernel; returns the float64 partials
-    ``[sum log2|x|, max log2|x|] * blocks``."""
+    """Launch the stats kernel; returns the constants its last block
+    writes, float32 ``[mu, m, alpha, beta, 1/alpha, 0, 0, 0, table[128]]``
+    (``read_consts`` names them).  They live in the stream's workspace: the
+    next stats launch on the stream overwrites them."""
     check_input(xf)
     n = xf.numel()
-    blocks = stats_blocks(n)
-    partials = torch.empty(2 * blocks, dtype=torch.float64, device=xf.device)
+    if n == 0:
+        raise ValueError("s2fp8_stats takes a non-empty tensor")
+    ws = workspace(xf)
     rc = build.library().s2fp8_stats(
-        xf.data_ptr(), n, partials.data_ptr(), blocks, THREADS, stream(xf)
+        xf.data_ptr(), n, ws.data_ptr(), split_blocks(n, sm_count(xf.device)), THREADS,
+        stream(xf),
     )
     raise_on(rc, "s2fp8_stats")
     LAUNCHES["s2fp8_stats"] += 1
-    return partials
+    return ws[_COUNTER_WORDS:_COUNTER_WORDS + _CONST_WORDS].view(torch.float32)
+
+
+def read_consts(consts: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``s2fp8_stats``' constants by name (copies, so a later call does not
+    change them): 0-d mu, m, alpha, beta, inv_alpha and the 128-entry
+    unsqueeze table."""
+    c = consts.clone()
+    out = dict(zip(("mu", "m", "alpha", "beta", "inv_alpha"), c[:5].unbind()))
+    out["table"] = c[8:]
+    return out
 
 
 def s2fp8_quantize(
-    xf: torch.Tensor, partials: torch.Tensor, *, seed: int, stochastic: bool, check_inf: bool
+    xf: torch.Tensor,
+    consts: torch.Tensor | None = None,
+    *,
+    seed: int,
+    stochastic: bool,
+    check_inf: bool,
 ) -> torch.Tensor:
-    """Launch the fused kernel against the stats kernel's ``partials``;
-    returns the flat output."""
+    """Launch the quantize kernel against ``s2fp8_stats``' ``consts``;
+    without them, the small form (``SMALL_MAX`` elements at most): one
+    block computes the stats itself, then quantizes.  Returns the flat
+    output."""
     check_input(xf)
     n = xf.numel()
+    if consts is None:
+        if not 0 < n <= SMALL_MAX:
+            raise ValueError(f"the small form takes 1 to {SMALL_MAX} elements, got {n}: "
+                             "pass s2fp8_stats' consts")
+        blocks, threads = 1, SMALL_THREADS
+    else:
+        if (consts.dtype != torch.float32 or consts.numel() != _CONST_FLOATS
+                or consts.device != xf.device or not consts.is_contiguous()
+                or consts.data_ptr() % 16):
+            raise ValueError("consts must be s2fp8_stats' constants on the tensor's device")
+        blocks, threads = split_blocks(n, sm_count(xf.device)), THREADS
     y = torch.empty_like(xf)
     rc = build.library().s2fp8_quantize(
-        xf.data_ptr(), y.data_ptr(), n, partials.data_ptr(), partials.numel() // 2,
-        *format_args(FP8_FORMAT), seed, int(stochastic), int(check_inf),
-        quant_blocks(n), THREADS, stream(xf),
+        xf.data_ptr(), y.data_ptr(), n, ptr(consts), seed, int(stochastic), int(check_inf),
+        blocks, threads, stream(xf),
     )
     raise_on(rc, "s2fp8_quantize")
     LAUNCHES["s2fp8_quantize"] += 1
     return y
-
-
-def fold_partials(partials: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mu, max) of ``log2|x|`` from the stats kernel's partials, in PyTorch
-    ops (the fold the fused kernel does first)."""
-    p = partials.view(-1, 2)
-    return (p[:, 0].sum() / n).float(), p[:, 1].max().float()
 
 
 def stats_reference(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -97,6 +167,21 @@ def stats_reference(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (lg.double().sum() / flat.numel()).float(), lg.max()
 
 
+def unsqueeze_reference(t: torch.Tensor, beta: torch.Tensor, inv_alpha: torch.Tensor) -> torch.Tensor:
+    """The inverse squeeze of positive finite ``t``:
+    ``exp2((log2 t - beta) * inv_alpha)``."""
+    return torch.exp2((torch.log2(t) - beta) * inv_alpha)
+
+
+def unsqueeze_table_reference(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """The 128-entry table the kernels read for the unsqueeze, in PyTorch
+    ops: ``unsqueeze_reference`` at the float32 of bits
+    ``(k + TABLE_BASE) << 21`` for k < 128 (the entries that are no e5m2
+    value are never read)."""
+    k = torch.arange(TABLE_SIZE, dtype=torch.int64, device=alpha.device)
+    return unsqueeze_reference(from_bits((k + TABLE_BASE) << 21), beta, 1.0 / alpha)
+
+
 def s2fp8_fused(
     x: torch.Tensor,
     gen: torch.Generator | None = None,
@@ -104,15 +189,16 @@ def s2fp8_fused(
     stochastic: bool = True,
     check_inf: bool = True,
 ) -> torch.Tensor:
-    """S2FP8 of a CUDA tensor through the kernels; same contract as
-    ``s2fp8_quantize_dequantize``."""
+    """S2FP8 of a CUDA tensor through the kernels, in the form
+    ``s2fp8_plan`` names; same contract as ``s2fp8_quantize_dequantize``."""
     if not x.is_cuda:
         raise ValueError(f"s2fp8_fused takes CUDA tensors, got {x.device}")
     if x.numel() == 0:
         return x
     xf = x.reshape(-1).to(torch.float32).contiguous()
+    small = s2fp8_plan(xf.numel(), sm_count(xf.device))[0] == "small"
     y = s2fp8_quantize(
-        xf, s2fp8_stats(xf), seed=seed_for(gen, stochastic),
+        xf, None if small else s2fp8_stats(xf), seed=seed_for(gen, stochastic),
         stochastic=stochastic, check_inf=check_inf,
     )
     return y.view(x.shape).to(x.dtype)
@@ -144,7 +230,7 @@ def s2fp8_fused_reference(
         sq, FP8_FORMAT, gen, stochastic=stochastic, check_inf=check_inf, rand=rand
     )
     t_zero, t_nonfinite = t == 0.0, t >= float("inf")
-    out = torch.exp2((torch.log2(torch.where(t_zero | t_nonfinite, one, t)) - beta) * inv_alpha)
+    out = unsqueeze_reference(torch.where(t_zero | t_nonfinite, one, t), beta, inv_alpha)
     out = torch.where(t_nonfinite, t, torch.where(t_zero, 0.0, out))
     y = from_bits(to_bits(out) | sign)
     return y.view(x.shape).to(x.dtype)

@@ -37,13 +37,17 @@ import math
 import torch
 
 from smart_quantization_tpu_torch.ops.cuda import build
+from smart_quantization_tpu_torch.ops.cuda import launch
 from smart_quantization_tpu_torch.ops.cuda.launch import (
+    BLOCKS_PER_SM,
     THREADS,
     check_input,
     ptr,
     quant_blocks,
     raise_on,
     seed_for,
+    sm_count,
+    split_blocks,
     stream,
 )
 from smart_quantization_tpu_torch.ops.rounding import uniform
@@ -60,40 +64,20 @@ _GIVEN, _CONSTS, _SMALL = 0, 1, 2
 # the BN kernel keeps one float4 per channel in shared memory (48 KB)
 MAX_BN_CHANNELS = 3072
 
-# Launch shapes of the split form: blocks of THREADS threads, each thread
-# with 4 float4 loads in flight per loop step, at most BLOCKS_PER_SM blocks
-# on each SM of the card (the kernels are built for 4 resident: 64
-# registers a thread).  More blocks than that only queue behind the first.
-BLOCKS_PER_SM = 4
-# The small form: one block of SMALL_THREADS computes the stats and then
-# quantizes, one launch; above SMALL_MAX elements two launches spread over
-# the card are faster (measured: PERF.md).
+# The split form's launch shape is launch.py's (split_blocks).  The small
+# form: one block of SMALL_THREADS computes the stats and then quantizes,
+# one launch; above SMALL_MAX elements two launches spread over the card
+# are faster (measured: PERF.md).
 SMALL_THREADS = 1024
 SMALL_MAX = 16384
 # The workspace of a (device, stream): the kernels' counters, then 4
 # float64 partials per stats block (csrc/smaq.cu: kCounterWords).
 _COUNTER_WORDS = 4
-_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
-_SM_COUNTS: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def sm_count(device: torch.device) -> int:
-    """The SMs of a CUDA card, read once per card."""
-    if device.index not in _SM_COUNTS:
-        _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _SM_COUNTS[device.index]
-
-
-def split_blocks(n: int, sms: int) -> int:
-    """Blocks of a split-form launch on a card of ``sms`` SMs: a float4
-    for each thread, at most BLOCKS_PER_SM a SM (the loops step over the
-    rest)."""
-    return max(1, min(sms * BLOCKS_PER_SM, -(-n // (4 * THREADS))))
 
 
 def workspace_words(sms: int) -> int:
@@ -113,16 +97,9 @@ def smaq_plan(n: int, sms: int) -> tuple[str, int]:
 
 
 def workspace(xf: torch.Tensor) -> torch.Tensor:
-    """The counters and stats partials of ``xf``'s card and current stream:
-    zeroed once, here; each kernel puts the counters it used back to 0, so
-    a call needs no memset.  Launches on one stream run in order, so no two
-    kernels ever share one."""
-    key = (xf.device.index, stream(xf))
-    ws = _WORKSPACES.get(key)
-    if ws is None:
-        ws = torch.zeros(workspace_words(sm_count(xf.device)), dtype=torch.int64, device=xf.device)
-        _WORKSPACES[key] = ws
-    return ws
+    """The SmaQ kernels' counters and stats partials on ``xf``'s card and
+    current stream (``launch.workspace``)."""
+    return launch.workspace(xf, "smaq", workspace_words(sm_count(xf.device)))
 
 
 def _quant_args(params: SmaQParams) -> tuple:

@@ -5,8 +5,9 @@ declared with the wrong type (a pointer as a 32-bit int, a 64-bit seed as
 an int) is cut or misread without any error on the CPU, and only a chip run
 would show it.  So every ``extern "C"`` entry point's C signature is parsed
 here and held against the ``argtypes`` that ``build._declare`` sets on a
-stand-in library.  ``smaq_plan`` and the launch constants that the wrapper
-and ``csrc/smaq.cu`` both state are pinned too.
+stand-in library.  ``smaq_plan`` and ``s2fp8_plan``, and the launch
+constants and workspace layouts that the wrappers and ``csrc/smaq.cu`` or
+``csrc/s2fp8.cu`` both state, are pinned too.
 """
 
 import ctypes
@@ -16,8 +17,11 @@ import re
 import pytest
 
 from smart_quantization_tpu_torch.ops.cuda import build
+from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
 from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
-from smart_quantization_tpu_torch.ops.cuda.launch import THREADS
+from smart_quantization_tpu_torch.ops.cuda.float_kernel import format_args
+from smart_quantization_tpu_torch.ops.cuda.launch import BLOCKS_PER_SM, THREADS
+from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT
 
 _SCALARS = {
     "int": ctypes.c_int,
@@ -83,7 +87,8 @@ def test_ctypes_declaration_matches_c_signature(name):
 
 def test_every_declaration_has_an_entry_point():
     assert {"smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_occupancy",
-            "float_quantize", "s2fp8_stats", "s2fp8_quantize"} <= set(ENTRY_POINTS)
+            "float_quantize", "s2fp8_stats", "s2fp8_quantize",
+            "s2fp8_occupancy"} <= set(ENTRY_POINTS)
     assert set(_declared()) == set(ENTRY_POINTS)
 
 
@@ -116,3 +121,61 @@ def test_launch_constants_match_smaq_cu(c_name, value):
     src = _read(f"{build.CSRC}/smaq.cu")
     m = re.search(rf"\b{c_name} = (\d+)", src)
     assert m is not None and int(m.group(1)) == value
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe
+@pytest.mark.parametrize(
+    "n", [10, S.SMALL_MAX - 1, S.SMALL_MAX, S.SMALL_MAX + 1, 300_001, 8_388_608]
+)
+def test_s2fp8_plan(n, sms):
+    """S2FP8 takes SmaQ's two forms: one block up to SMALL_MAX, else the
+    split form on at most BLOCKS_PER_SM blocks of THREADS per SM, with a
+    partial for each in the workspace after the ticket and the constants."""
+    form, blocks = S.s2fp8_plan(n, sms)
+    if n <= S.SMALL_MAX:
+        assert (form, blocks) == ("small", 1)
+        assert S.SMALL_THREADS <= 1024
+        return
+    assert form == "split"
+    assert blocks == min(sms * BLOCKS_PER_SM, math.ceil(n / (4 * THREADS)))
+    assert S._COUNTER_WORDS + S._CONST_WORDS + 2 * blocks <= S.workspace_words(sms)
+    assert S.workspace_words(sms) == 2 + 68 + 2 * 4 * sms
+
+
+@pytest.mark.parametrize(
+    "c_name, value",
+    [("kThreads", THREADS), ("kMinBlocks", BLOCKS_PER_SM),
+     ("kSmallThreads", S.SMALL_THREADS), ("kCounterWords", S._COUNTER_WORDS),
+     ("kConstWords", S._CONST_WORDS), ("kTableSize", S.TABLE_SIZE),
+     ("kTableBase", S.TABLE_BASE)],
+)
+def test_launch_constants_match_s2fp8_cu(c_name, value):
+    src = _read(f"{build.CSRC}/s2fp8.cu")
+    m = re.search(rf"\b{c_name} = (\d+)", src)
+    assert m is not None and int(m.group(1)) == value
+
+
+def test_s2fp8_e5m2_constants_match_fp8_format():
+    """s2fp8.cu rounds onto e5m2 with compile-time constants; they are the
+    arguments the float kernel takes for FP8_FORMAT."""
+    src = _read(f"{build.CSRC}/s2fp8.cu")
+
+    def const(name):
+        m = re.search(rf"\b{name} = (-?(?:0x[0-9A-Fa-f]+|[0-9.]+))[uf]?;", src)
+        assert m is not None, name
+        return float(int(m.group(1), 0)) if "x" in m.group(1) else float(m.group(1))
+
+    man, emin, max_bits, quantum_bits, c1, c2 = format_args(FP8_FORMAT)
+    assert (const("kMan"), const("kEmin")) == (man, emin)
+    assert (const("kMaxBits"), const("kQuantumBits")) == (max_bits, quantum_bits)
+    assert (const("kQuantumScale"), 1.0) == (c1, c2)
+    assert "FloatFmt e5m2{kMan, kEmin, kMaxBits, kQuantumBits, kQuantumScale, 1.f};" in src
+
+
+def test_s2fp8_consts_layout_matches_read_consts():
+    """``read_consts`` names the floats of csrc/s2fp8.cu's Consts in order:
+    five scalars, three unused, then the table."""
+    src = _read(f"{build.CSRC}/s2fp8.cu")
+    assert "float mu, m, alpha, beta, inv_alpha, unused[3];" in src
+    assert "float table[kTableSize];" in src
+    assert S._CONST_FLOATS == 8 + S.TABLE_SIZE

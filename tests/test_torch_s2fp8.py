@@ -18,7 +18,12 @@ from smart_quantization_tpu.ops.pallas.s2fp8_kernel import s2fp8_fused
 from smart_quantization_tpu.ops.s2fp8 import s2fp8_quantize_dequantize as jax_s2fp8
 from smart_quantization_tpu_torch.compress import build_compressor
 from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
-from smart_quantization_tpu_torch.ops.s2fp8 import OVERHEAD_BITS, s2fp8_quantize_dequantize
+from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT, float_quantize, to_bits
+from smart_quantization_tpu_torch.ops.s2fp8 import (
+    OVERHEAD_BITS,
+    s2fp8_quantize_dequantize,
+    squeeze_coefs,
+)
 
 
 def assert_rule(y, y_ref):
@@ -93,6 +98,81 @@ def test_kernel_plain_version_stats_and_stochastic_grid():
     lo = S.s2fp8_fused_reference(x, rand=torch.zeros(x.shape, dtype=torch.int64))
     hi = S.s2fp8_fused_reference(x, rand=torch.full(x.shape, 2**32 - 1))
     assert bool(((y == lo) | (y == hi)).all())
+
+
+def _e5m2_grid() -> torch.Tensor:
+    """Every finite positive e5m2 value: the subnormals 1-3 x 2^-16, then
+    (1 + m/4) x 2^e for e in -14..15 (123 values)."""
+    sub = [k * 2.0**-16 for k in (1, 2, 3)]
+    normal = [(1 + m / 4) * 2.0**e for e in range(-14, 16) for m in range(4)]
+    return torch.tensor(sub + normal, dtype=torch.float32)
+
+
+def _table_index(t: torch.Tensor) -> torch.Tensor:
+    """The kernels' table index of positive float32 values on the e5m2
+    grid: ``(bits >> 21) - TABLE_BASE``."""
+    return (to_bits(t) >> 21) - S.TABLE_BASE
+
+
+def test_unsqueeze_table_index_covers_the_e5m2_grid():
+    """The kernels' table index ``(bits >> 21) - 444`` puts the 123 values
+    the e5m2 round can return (its fixed points, 2^-16 to 57344) in 0..127,
+    each at its own index."""
+    grid = _e5m2_grid()
+    assert grid.numel() == 123 and float(grid.max()) == 57344.0
+    assert torch.equal(float_quantize(grid, FP8_FORMAT, stochastic=False, check_inf=False), grid)
+    k = _table_index(grid)
+    assert int(k.min()) == 0 and int(k.max()) == S.TABLE_SIZE - 1
+    assert k.unique().numel() == grid.numel()
+
+
+def _coefs(x):
+    return squeeze_coefs(*S.stats_reference(torch.from_numpy(x).reshape(-1)))
+
+
+# (alpha, beta) of two test tensors and of the constant-tensor guard (alpha = 1)
+COEFS = {
+    "normal": lambda: _coefs(CASES["normal"]),
+    "wide_range": lambda: _coefs(CASES["wide_range"]),
+    "constant_guard": lambda: _coefs(np.full((64,), 2.0, np.float32)),
+}
+
+
+@pytest.mark.parametrize("coefs", sorted(COEFS))
+def test_unsqueeze_table_matches_per_element_unsqueeze(coefs):
+    """The table looked up at a grid value is, bitwise, what the plain
+    version's per-element unsqueeze gives that value (here each grid value
+    four times or more in a shuffled tensor, so the two go through other
+    positions), and every nonzero output of the plain version is a table
+    entry.  The tensor is 512 elements: torch's CPU exp2 runs its SIMD
+    path in blocks of 32 and a scalar one on what is left, which may
+    differ in the last bit (on the card every element takes the same
+    path)."""
+    alpha, beta = COEFS[coefs]()
+    if coefs == "constant_guard":
+        assert float(alpha) == 1.0
+    table = S.unsqueeze_table_reference(alpha, beta)
+    assert table.shape == (S.TABLE_SIZE,) and table.dtype == torch.float32
+    grid = _e5m2_grid()
+    t = grid[torch.from_numpy(np.random.RandomState(3).permutation(512) % grid.numel())]
+    per_element = S.unsqueeze_reference(t, beta, 1.0 / alpha)
+    assert torch.equal(table[_table_index(t)].view(torch.int32), per_element.view(torch.int32))
+    if coefs != "constant_guard":
+        y = S.s2fp8_fused_reference(torch.from_numpy(CASES[coefs]), stochastic=False).abs()
+        assert bool(torch.isin(y[y != 0], table).all())
+
+
+@pytest.mark.parametrize("n", [4096, 16385])
+def test_constant_inexact_log2_stays_finite(n):
+    """A constant -0.375 (log2 inexact): the float64 mean is exactly the
+    max, so the guard takes alpha = 1 and the output stays finite, on each
+    side of the small form's threshold."""
+    x = torch.full((n,), -0.375)
+    mu, m = S.stats_reference(x)
+    assert float(mu) == float(m)
+    y = S.s2fp8_fused_reference(x, stochastic=False)
+    assert bool(torch.isfinite(y).all())
+    assert float((y + 0.375).abs().max()) <= 1e-6
 
 
 def test_encoder_sizes_and_cpu_dispatch():
