@@ -10,8 +10,9 @@ non-zero:
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build the CUDA kernels from ``smart_quantization_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (the largest ResNet-18 batch-128 activation, a ragged
-   tensor, a BatchNorm leaf, the fc bias, an ill-conditioned tensor):
+   paths' shapes (the largest ResNet-18 batch-128 activation, bert-base's
+   largest activation and its word-embedding table, a ragged tensor, a
+   BatchNorm leaf, the fc bias, an ill-conditioned tensor):
    SmaQ in truncation, stochastic, ``all_positive`` and
    ``compute_size=False`` modes; the float formats (FP8, FP16, BF16)
    bitwise in nearest mode with and without ``check_inf``, on their grid
@@ -26,15 +27,18 @@ non-zero:
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
-   with ``--use_batch_norm`` (and ``--bn_scalar_params``), launch counts
-   read around each; then single steps of each: launches per step, no host
-   sync between logging points, and the median step time beside the
-   uncompressed step;
+   with ``--use_batch_norm`` (and ``--bn_scalar_params``), and on bert-base,
+   batch 32 x 512 tokens, synthetic GLUE STSB, SmaQ 6/8 on every structure,
+   AdamW at lr 2e-5 and weight decay 0.01, launch counts read around each;
+   then single steps of each: launches per step, no host sync between
+   logging points, and the median step time beside the uncompressed step
+   (for BERT with the peak device memory of each);
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
    cast to the same format; the SmaQ call at the main path's sizes,
    truncation beside stochastic rounding, the SmaQ kernel time of one
-   ResNet-18 step (its calls, at their sizes, in one CUDA graph), and the
+   ResNet-18 step and of one bert-base step (their calls, at their sizes,
+   in one CUDA graph each), and the
    SmaQ kernels' blocks resident per SM; the same for S2FP8, with both of
    its forms at its threshold and at 8192 elements;
 6. the kernel table as one JSON line, then the result as the last line.
@@ -72,6 +76,18 @@ MAIN_ARGV = [
     "--dataset", "cifar10", "--compress", "smart", "--measure_compression_ratio",
     "--batch_size", "128", "--log_every", "5",
 ]
+# bert-base at batch 32 x 512: the STSB configuration of
+# scripts/train_bert_stsb.sh (SmaQ 6/8, AdamW, lr 2e-5, weight decay 0.01)
+BERT_ARGV = [
+    "--device", "cuda", "--model", "bert", "--dataset", "glue", "--glue_task", "stsb",
+    "--bert_size", "base", "--batch_size", "32", "--max_input_length", "512",
+    "--compress", "smart", "--optimizer_type", "adamw", "--learning_rate", "2e-5",
+    "--weight_decay", "0.01", "--measure_compression_ratio", "--log_every", "5",
+]
+# its largest activation (the FFN's intermediate, 32 x 512 x 3072) and the
+# word-embedding table (30522 x 768; its gradient, mu and nu alike)
+BERT_SIZES = (("bert intermediate 50331648", 32 * 512 * 3072),
+              ("bert word embeddings 23440896", 30522 * 768))
 BN_SHAPE = (128, 64, 32, 32)  # the largest BatchNorm output, NCHW
 RAGGED_BN_SHAPE = (3, 10, 7, 5)
 TPU = "smart_quantization_tpu/ops/pallas"
@@ -198,6 +214,8 @@ def check_kernels(device):
         ("bn leaf 64", torch.randn(64, generator=gen, device=device) * 0.1 + 1.0),
         ("fc bias 10", torch.randn(10, generator=gen, device=device) * 0.01),
         ("ill-conditioned 65536", torch.randn(65536, generator=gen, device=device) * 1e-2 + 1e3),
+        *((name, torch.randn(n, generator=gen, device=device) * 0.05 - 0.01)
+          for name, n in BERT_SIZES),
     ]
     errs = {"smaq_stats": 0.0, "smaq_quantize": 0.0}
     for name, x in cases:
@@ -692,14 +710,19 @@ def check_bn_kernel(device):
 
 
 # ---------------------------------------------------------------- phase 4
-def per_step_launches(model) -> int:
+def per_step_calls(trainer, model_name: str) -> int:
     """Encoder calls per training step: every tap forward and backward, every
-    gradient, every non-BN weight and every momentum buffer."""
+    gradient, every non-exempt weight and every momentum buffer (SGD's
+    trace, or Adam's mu and nu)."""
     from smart_quantization_tpu_torch.optim.compressed import norm_param_mask
 
-    names = [n for n, _ in model.named_parameters()]
-    non_bn = sum(not v for v in norm_param_mask(names).values())
-    return 2 * RESNET18_TAPS + len(names) + non_bn + len(names)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    kept = sum(not v for v in norm_param_mask(names).values())
+    # BERT: 8 a layer, the embeddings' norm, the pooler's tanh, the
+    # classifier (99 in bert-base)
+    taps = (8 * trainer.model.cfg.num_layers + 3 if model_name == "bert"
+            else RESNET18_TAPS)
+    return 2 * taps + len(names) + kept + len(names) * len(trainer.spec.momentum_buffers)
 
 
 def path_kernels(args) -> tuple[str, ...]:
@@ -713,12 +736,12 @@ def path_kernels(args) -> tuple[str, ...]:
     return ("smaq_stats", "smaq_quantize")
 
 
-def step_calls(trainer, batch_size: int) -> list[tuple[int, bool]]:
+def step_calls(trainer, model_args) -> list[tuple[int, bool]]:
     """Every encoder call of one training step as (elements, goes to the BN
     kernel): each tap site forward and backward (the sites read off one
-    forward pass of the model with the taps recording instead of
-    compressing), every gradient, every non-BN weight and every momentum
-    buffer."""
+    forward pass of the model on ``model_args``, a batch's arguments, with
+    the taps recording instead of compressing), every gradient, every
+    non-exempt weight and every momentum buffer."""
     import torch
 
     from smart_quantization_tpu_torch.compress.base import SizeStats
@@ -736,23 +759,24 @@ def step_calls(trainer, batch_size: int) -> list[tuple[int, bool]]:
     try:
         model.eval()
         with torch.no_grad():
-            model(torch.zeros(batch_size, 3, 32, 32, device=trainer.device),
-                  tap.TapContext(torch.Generator()))
+            model(*model_args, tap.TapContext(torch.Generator()))
     finally:
         tap.compression_tap = real
     named = dict(model.named_parameters())
-    is_bn = norm_param_mask(list(named))
+    exempt = norm_param_mask(list(named))
     params = [p.numel() for p in named.values()]
-    weights = [p.numel() for k, p in named.items() if not is_bn[k]]
+    weights = [p.numel() for k, p in named.items() if not exempt[k]]
     return (taps + [(n, False) for n, _ in taps]
-            + [(n, False) for n in params + weights + params])
+            + [(n, False) for n in params + weights
+               + params * len(trainer.spec.momentum_buffers)])
 
 
 def expected_launches(args, calls) -> dict:
     """Launches of each kernel in one training step: one per encoder call
     for the float formats; for S2FP8 and SmaQ, a stats launch where
     ``s2fp8_plan`` or ``smaq_plan`` takes the split form (and for every
-    BN-kernel call) and one quantize launch per call; under
+    BN-kernel call) and one quantize launch per call, none for a SmaQ call
+    below ``--min_size`` elements (it passes through); under
     --use_batch_norm the forward taps of the BatchNorms go to the BN
     kernel."""
     import torch
@@ -770,6 +794,8 @@ def expected_launches(args, calls) -> dict:
         return {k: len(calls) for k in kernels}
     out = dict.fromkeys(kernels, 0)
     for n, bn in calls:
+        if n < args.min_size:
+            continue
         if bn:
             out["smaq_stats"] += 1
             out["smaq_quantize_bn"] += 1
@@ -780,12 +806,12 @@ def expected_launches(args, calls) -> dict:
 
 
 def run_main_path(extra_argv=(), ratio_range=(4.5, 5.5), finite_loss=True,
-                  train_batches=10, label="smart"):
+                  train_batches=10, label="smart", base_argv=MAIN_ARGV):
     """The user's entry point, with the launch counts read around it."""
     from smart_quantization_tpu_torch.train.__main__ import main
     from smart_quantization_tpu_torch.utils.config import parse_args
 
-    argv = MAIN_ARGV + list(extra_argv) + [
+    argv = base_argv + list(extra_argv) + [
         "--limit_train_batches", str(train_batches), "--limit_val_batches", "2",
         "--logdir", os.path.join(OUT, "smoke_logs")]
     kernels = path_kernels(parse_args(argv))
@@ -813,10 +839,17 @@ def run_main_path(extra_argv=(), ratio_range=(4.5, 5.5), finite_loss=True,
         fail(f"[{label}] overall compression ratio {ratio} outside {lo}-{hi}")
     if finite_loss and not math.isfinite(loss):
         fail(f"[{label}] non-finite validation loss")
-    return {k: counts[k] for k in kernels}
+    return {k: counts[k] for k in kernels}, final
 
 
-def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
+def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
+               base_argv=MAIN_ARGV):
+    """Steps of the trainer a command line builds: 2 warm-up steps, then
+    (with ``check_launches``) 5 steps whose launches must equal the plan
+    and which must not sync with the host, then 10 timed steps.  Returns
+    the median step (ms), the last loss, the launches of a step, the
+    step's encoder calls and the peak device memory of the timed steps
+    (GB)."""
     import torch
 
     from smart_quantization_tpu_torch.train.__main__ import build_trainer
@@ -824,7 +857,7 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
 
     torch.manual_seed(0)
     # no logdir: these steps are timed, not logged
-    args = parse_args(MAIN_ARGV + list(extra_argv) + ["--logdir", ""])
+    args = parse_args(base_argv + list(extra_argv) + ["--logdir", ""])
     trainer = build_trainer(args)
     state = trainer.init_state()
     # slice every batch first: an epoch's start uploads its order, which is
@@ -837,14 +870,16 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
     batches = iter(batches)
     calls, expected = [], {}
     if check_launches:
-        calls = step_calls(trainer, args.batch_size)
-        if len(calls) != per_step_launches(trainer.model):
-            fail(f"{len(calls)} encoder calls per step, not {per_step_launches(trainer.model)}")
+        inputs, _ = next(iter(trainer.data.device_train_batches(0, trainer.device)))
+        calls = step_calls(trainer, trainer.task.model_args(trainer.task.prepare_eval(inputs)))
+        want_calls = per_step_calls(trainer, args.model)
+        if len(calls) != want_calls:
+            fail(f"{len(calls)} encoder calls per step, not {want_calls}")
         expected = expected_launches(args, calls)
 
     def step():
-        images, labels = next(batches)
-        x = trainer.task.prepare_train(images, trainer.data_gen)
+        inputs, labels = next(batches)
+        x = trainer.task.prepare_train(inputs, trainer.data_gen)
         return trainer.train_step(state, x, labels)
 
     for _ in range(2):  # warm-up: cuDNN autotuning, the allocator
@@ -863,9 +898,11 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
                     fail(f"a step launched {got}; expected {want}")
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        say(f"  launches on every step: {expected}; no host sync in 5 non-logging steps")
+        say(f"  launches on every step: {expected} for {len(calls)} encoder calls; "
+            "no host sync in 5 non-logging steps")
         if finite_loss and not math.isfinite(float(metrics["train_loss"])):
             fail("non-finite training loss")
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -873,10 +910,11 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True):
         metrics = step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss = float(metrics["train_loss"])
     if finite_loss and not math.isfinite(loss):
         fail("non-finite training loss")
-    return statistics.median(times), loss, expected, calls
+    return statistics.median(times), loss, expected, calls, peak_gb
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1003,8 +1041,9 @@ def time_kernels(device, timed):
 CALL_SIZES = (8_388_608, 2_097_152, 147_456, 36_864, 8192, 512, 64)
 
 
-def time_smaq(device, timed, per_call, calls, card):
-    """Phase 5's SmaQ lines; returns them as a dict."""
+def time_smaq(device, timed, per_call, step_calls_of, card):
+    """Phase 5's SmaQ lines; returns them as a dict.  ``step_calls_of``
+    maps a model's name to one training step's encoder calls."""
     import ctypes
 
     import torch
@@ -1015,8 +1054,10 @@ def time_smaq(device, timed, per_call, calls, card):
 
     params, trunc = SmaQParams(), SmaQParams(stochastic_rounding=False)
     host = torch.Generator().manual_seed(5)
-    x = torch.randn(math.prod(ACT_SHAPE), device=device,
+    largest = max(n for calls in step_calls_of.values() for n, _ in calls)
+    x = torch.randn(max(largest, math.prod(ACT_SHAPE)), device=device,
                     generator=torch.Generator(device=device).manual_seed(4))
+    x8m = x[:math.prod(ACT_SHAPE)]
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
     sms = K.sm_count(device)
     out = {"card": card}
@@ -1037,22 +1078,40 @@ def time_smaq(device, timed, per_call, calls, card):
         say(f"    {n}: {stream * 1e3:.2f} us ({K.smaq_plan(n, sms)[0]} form); bound "
             f"{b * 1e3:.3f} us (8 B/element), {b / stream:.1%} of it")
 
-    consts = K.smaq_stats(x, params)
-    q = {name: timed(lambda p=p: K.smaq_quantize(x, p, seed=7, consts=consts)) * 1e3
+    consts = K.smaq_stats(x8m, params)
+    q = {name: timed(lambda p=p: K.smaq_quantize(x8m, p, seed=7, consts=consts)) * 1e3
          for name, p in (("trunc", trunc), ("stochastic", params))}
     out["quantize_us"] = q
-    say(f"  smaq_quantize at {x.numel()}: truncation {q['trunc']:.2f} us, "
+    say(f"  smaq_quantize at {x8m.numel()}: truncation {q['trunc']:.2f} us, "
         f"stochastic {q['stochastic']:.2f} us")
 
-    # the step's SmaQ calls (the BN kernel's aside) in one CUDA graph
-    sizes = [n for n, bn in calls if not bn]
-    step_fns = [call(n) for n in sizes]
-    per_step = per_call(lambda: [f() for f in step_fns], reps=1)
-    step_bound = sum(8 * n for n in sizes) / rate
-    out["per_step_ms"], out["per_step_bound_ms"] = per_step, step_bound
-    say(f"  SmaQ kernels per ResNet-18 step, its {len(sizes)} calls in one CUDA graph: "
-        f"{per_step:.3f} ms, bound {step_bound:.3f} ms (8 B/element), "
-        f"{step_bound / per_step:.1%} of it")
+    # each step's SmaQ calls (the BN kernel's aside; those under min_size
+    # pass through) in one CUDA graph
+    out["per_step_ms"], out["per_step_bound_ms"], out["per_step_calls"] = {}, {}, {}
+    for model, calls in step_calls_of.items():
+        sizes = [n for n, bn in calls if not bn and n >= params.min_size]
+        step_fns = [call(n) for n in sizes]
+        per_step = per_call(lambda: [f() for f in step_fns], reps=1)
+        step_bound = sum(8 * n for n in sizes) / rate
+        # the host's time to enqueue the same calls (no graph): what a step's
+        # encoder calls cost the host before any tap or optimizer Python
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for f in step_fns:
+                f()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize(device)
+        enqueue_ms = statistics.median(enqueue)
+        out["per_step_ms"][model], out["per_step_bound_ms"][model] = per_step, step_bound
+        out["per_step_calls"][model] = len(sizes)
+        out.setdefault("per_step_enqueue_ms", {})[model] = enqueue_ms
+        out.setdefault("step_sizes", {})[model] = sizes
+        say(f"  SmaQ kernels per {model} step, its {len(sizes)} calls in one CUDA graph: "
+            f"{per_step:.3f} ms, bound {step_bound:.3f} ms (8 B/element), "
+            f"{step_bound / per_step:.1%} of it; the host enqueues them in {enqueue_ms:.3f} ms "
+            f"({enqueue_ms / len(sizes) * 1e3:.1f} us a call)")
 
     lib = build.library()
     out["blocks_per_sm"] = {}
@@ -1205,7 +1264,8 @@ def s2fp8_times_of(root: str) -> int:
     torch.cuda.set_device(device)
     trainer = build_trainer(parse_args(MAIN_ARGV + ["--compress", "s2fp8", "--logdir", ""]))
     timed, per_call = make_timer(device)
-    times = s2fp8_call_times(device, timed, per_call, step_calls(trainer, 128))
+    calls = step_calls(trainer, (torch.zeros(128, 3, 32, 32, device=device),))
+    times = s2fp8_call_times(device, timed, per_call, calls)
     say(json.dumps({"tree": os.path.abspath(root), "card": card_line(), **times}))
     return 0
 
@@ -1257,20 +1317,35 @@ def main() -> int:
     errs.update(check_bn_kernel(device))
 
     say("[4] training: ResNet-18, batch 128, full coverage")
-    launches = run_main_path()
-    step_ms, loss, per_step, calls = time_steps([], check_launches=True)
-    plain_ms, plain_loss, _, _ = time_steps(["--no_compress"], check_launches=False)
+    launches, _ = run_main_path()
+    step_ms, loss, per_step, calls, _ = time_steps([], check_launches=True)
+    plain_ms, plain_loss, _, _, _ = time_steps(["--no_compress"], check_launches=False)
     say(f"  median step: {step_ms:.2f} ms compressed (loss {loss:.4f}), "
         f"{plain_ms:.2f} ms --no_compress (loss {plain_loss:.4f}) on {card}")
     steps = {"smart": step_ms, "no_compress": plain_ms}
     for label, extra, ratio_range, finite in PATHS:
-        got = run_main_path(extra, ratio_range, finite, train_batches=5, label=label)
+        got, _ = run_main_path(extra, ratio_range, finite, train_batches=5, label=label)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        ms, loss, _, _ = time_steps(extra, check_launches=True, finite_loss=finite)
+        ms, loss, _, _, _ = time_steps(extra, check_launches=True, finite_loss=finite)
         steps[label] = ms
         say(f"  [{label}] median step: {ms:.2f} ms (loss {loss:.4f}, finite: "
             f"{math.isfinite(loss)}) on {card}")
+
+    say("  bert-base, batch 32 x 512, synthetic GLUE STSB, SmaQ 6/8 full coverage, AdamW")
+    got, final = run_main_path([], train_batches=5, label="bert stsb", base_argv=BERT_ARGV)
+    for k, v in got.items():
+        launches[k] += v
+    say(f"  [bert stsb] val_pearson={final.get('val_pearson')!r} "
+        f"val_spearmanr={final.get('val_spearmanr')!r}")
+    bert_ms, bert_loss, bert_per_step, bert_calls, bert_gb = time_steps(
+        [], check_launches=True, base_argv=BERT_ARGV)
+    bert_plain_ms, bert_plain_loss, _, _, bert_plain_gb = time_steps(
+        ["--no_compress"], check_launches=False, base_argv=BERT_ARGV)
+    say(f"  [bert stsb] median step: {bert_ms:.2f} ms compressed (loss {bert_loss:.4f}, peak "
+        f"memory {bert_gb:.2f} GB), {bert_plain_ms:.2f} ms --no_compress (loss "
+        f"{bert_plain_loss:.4f}, peak memory {bert_plain_gb:.2f} GB) on {card}")
+    steps.update({"bert stsb": bert_ms, "bert stsb no_compress": bert_plain_ms})
     say("  median steps (ms): " + json.dumps(steps))
 
     say("[5] kernel times at 8388608 elements (median of 25, L2 flushed)")
@@ -1300,7 +1375,7 @@ def main() -> int:
     say(f"  PyTorch moving the same bytes: x.sum() {t['torch_sum'] * 1e3:.1f} us (a read, as "
         f"smaq_stats), y.copy_(x) {t['torch_copy'] * 1e3:.1f} us (a read and a write, as "
         f"smaq_quantize)")
-    time_smaq(device, timed, per_call, calls, card)
+    time_smaq(device, timed, per_call, {"ResNet-18": calls, "bert-base": bert_calls}, card)
     time_s2fp8(device, timed, per_call, calls, card)
 
     def row(kname, source, replaces, plain, lib=None):
@@ -1320,7 +1395,8 @@ def main() -> int:
         # the plain version computes its own stats: its time is the pair's
         row("s2fp8_quantize", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8"),
     ]
-    say(f"  per step: {per_step} (smart); launches summed over the main-path runs; "
+    say(f"  per step: {per_step} (ResNet-18 smart), {bert_per_step} (bert-base); launches "
+        "summed over the main-path runs; "
         f"whole run {time.perf_counter() - t_start:.0f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

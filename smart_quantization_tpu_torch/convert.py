@@ -1,15 +1,22 @@
-"""Carry flax parameter trees over to the port's ``state_dict`` layout.
+"""Carry parameter trees over to the port's ``state_dict`` layout.
 
-The JAX package's trees arrive as nested dicts of numpy arrays:
+The JAX package's flax trees arrive as nested dicts of numpy arrays:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
-- BatchNorm ``bn/{scale, bias}`` -> ``{weight, bias}`` of the port's
-  ``TappedBatchNorm`` (the flax ``bn`` submodule level folds away), and
-  ``batch_stats`` ``bn/{mean, var}`` -> ``{running_mean, running_var}``.
+- Embed ``embedding`` -> ``weight``, as it is;
+- LayerNorm ``scale`` -> ``weight``;
+- the flax submodule levels the port's tapped modules hold as their own
+  parameters fold away: ``bn`` (``TappedBatchNorm``), ``dense``
+  (``TappedDense``) and ``norm`` (``TappedLayerNorm``);
+- ``batch_stats`` ``bn/{mean, var}`` -> ``{running_mean, running_var}``.
 
 Optimizer trees shaped like the params (SGD's trace, Adam's mu and nu) map
 the same way with :func:`tree_from_jax`.
+
+:func:`load_pretrained` maps a locally cached HF ``BertModel`` onto the
+port's BERT (the counterpart of JAX ``models/bert.py::
+load_pretrained_params`` and ``convert_torch_state_dict``).
 """
 
 from __future__ import annotations
@@ -20,10 +27,13 @@ import torch
 _LEAF_NAMES = {
     "kernel": "weight",
     "scale": "weight",
+    "embedding": "weight",
     "bias": "bias",
     "mean": "running_mean",
     "var": "running_var",
 }
+# flax submodules whose parameters the port's module holds itself
+_FOLDED = ("bn", "dense", "norm")
 
 
 def _flatten(tree, prefix=()):
@@ -36,7 +46,7 @@ def _flatten(tree, prefix=()):
 
 def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, torch.Tensor]:
     *mods, leaf = path
-    if mods and mods[-1] == "bn":  # TappedBatchNorm's inner flax BatchNorm
+    if mods and mods[-1] in _FOLDED:
         mods = mods[:-1]
     arr = np.asarray(value, np.float32)
     if leaf == "kernel" and arr.ndim == 4:
@@ -59,3 +69,60 @@ def params_from_jax(params_np, batch_stats_np=None) -> dict[str, torch.Tensor]:
     if batch_stats_np:
         out.update(tree_from_jax(batch_stats_np))
     return out
+
+
+def bert_state_dict_from_hf(sd, num_layers: int, num_labels: int) -> dict[str, torch.Tensor]:
+    """An HF ``BertModel.state_dict()`` (``embeddings.*``,
+    ``encoder.layer.N.*``, ``pooler.dense.*``) as the port's BERT
+    ``state_dict``.  torch Linear weights are (out, in) on both sides; the
+    classifier is fresh zeros, as the JAX package's import leaves it."""
+
+    def t(k):
+        return torch.as_tensor(np.asarray(sd[k], np.float32)).clone()
+
+    out = {
+        "word_embeddings.weight": t("embeddings.word_embeddings.weight"),
+        "position_embeddings.weight": t("embeddings.position_embeddings.weight"),
+        "token_type_embeddings.weight": t("embeddings.token_type_embeddings.weight"),
+        "embeddings_norm.weight": t("embeddings.LayerNorm.weight"),
+        "embeddings_norm.bias": t("embeddings.LayerNorm.bias"),
+        "pooler.weight": t("pooler.dense.weight"),
+        "pooler.bias": t("pooler.dense.bias"),
+    }
+    hidden = out["pooler.weight"].shape[0]
+    out["classifier.weight"] = torch.zeros(num_labels, hidden)
+    out["classifier.bias"] = torch.zeros(num_labels)
+    for i in range(num_layers):
+        e = f"encoder.layer.{i}"
+        for ours, theirs in (
+            ("attention.query", "attention.self.query"),
+            ("attention.key", "attention.self.key"),
+            ("attention.value", "attention.self.value"),
+            ("attention.output", "attention.output.dense"),
+            ("attention.output_norm", "attention.output.LayerNorm"),
+            ("intermediate", "intermediate.dense"),
+            ("ffn_output", "output.dense"),
+            ("ffn_norm", "output.LayerNorm"),
+        ):
+            for leaf in ("weight", "bias"):
+                out[f"layer_{i}.{ours}.{leaf}"] = t(f"{e}.{theirs}.{leaf}")
+    return out
+
+
+def load_pretrained(model_name: str, num_layers: int, num_labels: int):
+    """The port's BERT ``state_dict`` from a locally cached HF
+    ``BertModel``, or None (fresh init) when ``transformers`` or the local
+    copy is missing.  Nothing is downloaded."""
+    from smart_quantization_tpu_torch.data.text import hub_cached
+
+    try:
+        if not hub_cached(model_name):
+            raise FileNotFoundError(model_name)
+        from transformers import BertModel
+
+        hf = BertModel.from_pretrained(model_name, local_files_only=True)
+    except (ImportError, OSError, ValueError) as e:
+        print(f"pretrained {model_name!r} unavailable offline ({type(e).__name__}); "
+              "using fresh init")
+        return None
+    return bert_state_dict_from_hf(hf.state_dict(), num_layers, num_labels)

@@ -31,10 +31,13 @@ from smart_quantization_tpu_torch.inject.policy import DEFAULT_POLICY, LayerKind
 @dataclasses.dataclass
 class TapContext:
     """What one forward pass of a tapped model needs: the host generator the
-    taps draw their seeds from, and where sizes go (None: not recorded)."""
+    taps draw their seeds from, where sizes go (None: not recorded), and,
+    for a model with dropout in training mode, the generator its masks are
+    drawn from (on the model's device)."""
 
     gen: torch.Generator
     sizes: SizeTotals | None = None
+    dropout_gen: torch.Generator | None = None
 
 
 def _generator(seed: int) -> torch.Generator:

@@ -1,16 +1,20 @@
 """Where a training step's time goes on the card.
 
-    python -m smart_quantization_tpu_torch.profile_step [--no_compress]
-        [--compress smart|fp8|fp16|bf16|s2fp8|fp32] [--use_batch_norm]
+    python -m smart_quantization_tpu_torch.profile_step [--model resnet|bert]
+        [--no_compress] [--compress smart|fp8|fp16|bf16|s2fp8|fp32]
+        [--use_batch_norm]
 
-Runs 3 warm-up steps of a main path (ResNet-18, batch 128, synthetic
-CIFAR-10, every structure compressed by the chosen encoder, SmaQ 6/8 by
-default, or ``--no_compress``), times 10
-steps on the host clock, then 10 more under ``torch.profiler``, and prints: the median step time of each, the device's
-busy time per step (the sum of its kernel times; one stream, so kernels do
-not overlap), its idle share of the unprofiled step, kernel launches per
-step, and the kernels by device time.  The last line is one JSON object
-with the same numbers.
+Runs 3 warm-up steps of a main path, with every structure compressed by the
+chosen encoder (SmaQ 6/8 by default) or ``--no_compress``: ResNet-18, batch
+128, synthetic CIFAR-10, SGD (``--model resnet``, the default), or
+bert-base, batch 32 x 512 tokens, synthetic GLUE STSB, AdamW at lr 2e-5 and
+weight decay 0.01 (``--model bert``).  Times 10 steps on the host clock,
+then 10 more under ``torch.profiler``, and prints: the median step time of
+each, the device's busy time per step (the sum of its kernel times; one
+stream, so kernels do not overlap), its idle share of the unprofiled step,
+kernel launches per step, the encoder kernels' time per step, the peak
+device memory, and the kernels by device time.  The last line is one JSON
+object with the same numbers.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ def main(argv=None) -> dict:
     from smart_quantization_tpu_torch.utils.config import parse_args
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="resnet", choices=("resnet", "bert"))
     ap.add_argument("--no_compress", action="store_true")
     ap.add_argument("--compress", default="smart",
                     choices=("smart", "fp8", "fp16", "bf16", "s2fp8", "fp32"))
@@ -46,12 +51,18 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
 
-    cli = ["--device", "cuda", "--resnet_model", "resnet18", "--compress", args.compress,
-           "--measure_compression_ratio", "--batch_size", "128", "--logdir", ""]
+    what = ["--model", args.model, "--compress", args.compress]
     if args.no_compress:
-        cli.append("--no_compress")
+        what.append("--no_compress")
     if args.use_batch_norm:
-        cli.append("--use_batch_norm")
+        what.append("--use_batch_norm")
+    model_cli = {
+        "resnet": ["--resnet_model", "resnet18", "--batch_size", "128"],
+        "bert": ["--dataset", "glue", "--glue_task", "stsb", "--batch_size", "32",
+                 "--max_input_length", "512", "--optimizer_type", "adamw",
+                 "--learning_rate", "2e-5", "--weight_decay", "0.01"],
+    }[args.model]
+    cli = ["--device", "cuda", *what, *model_cli, "--measure_compression_ratio", "--logdir", ""]
     torch.manual_seed(0)
     trainer = build_trainer(parse_args(cli))
     state = trainer.init_state()
@@ -62,8 +73,8 @@ def main(argv=None) -> dict:
     batches = iter(batches)
 
     def step():
-        images, labels = next(batches)
-        trainer.train_step(state, trainer.task.prepare_train(images, trainer.data_gen), labels)
+        inputs, labels = next(batches)
+        trainer.train_step(state, trainer.task.prepare_train(inputs, trainer.data_gen), labels)
 
     def timed_steps():
         times = []
@@ -77,7 +88,10 @@ def main(argv=None) -> dict:
 
     for _ in range(warmup):
         step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = timed_steps()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_times = timed_steps()
 
@@ -95,21 +109,22 @@ def main(argv=None) -> dict:
         if any(k in e.key for k in ("smaq_", "float_quantize", "s2fp8_"))
     ) / 1e3 / steps
     card = torch.cuda.get_device_name(0)
-    what = " ".join(cli[4:6] + cli[11:])
-    print(f"{card} [{what}]: step {step_ms:.2f} ms (median of {steps}; "
+    print(f"{card} [{' '.join(what)}]: step {step_ms:.2f} ms (median of {steps}; "
           f"{statistics.median(profiled_times):.2f} ms profiled), device busy "
           f"{busy_ms:.2f} ms/step, idle {1 - busy_ms / step_ms:.1%}, "
-          f"{launches:.0f} kernel launches/step, encoder kernels {encoder_ms:.2f} ms/step")
+          f"{launches:.0f} kernel launches/step, encoder kernels {encoder_ms:.2f} ms/step, "
+          f"peak memory {peak_gb:.2f} GB")
     for e in top:
         print(f"  {_device_time_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count / steps:6.0f}/step  {e.key[:90]}")
     result = {
-        "device": card, "compress": None if args.no_compress else args.compress,
+        "device": card, "model": args.model,
+        "compress": None if args.no_compress else args.compress,
         "use_batch_norm": args.use_batch_norm, "step_ms": step_ms,
         "step_ms_all": times, "profiled_step_ms": statistics.median(profiled_times),
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / step_ms, "launches_per_step": launches,
-        "encoder_kernel_ms": encoder_ms,
+        "encoder_kernel_ms": encoder_ms, "peak_memory_gb": peak_gb,
         "top": [{"kernel": e.key, "ms_per_step": _device_time_us(e) / 1e3 / steps,
                  "per_step": e.count / steps} for e in top],
     }

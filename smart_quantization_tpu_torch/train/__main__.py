@@ -4,17 +4,22 @@ Examples:
   python -m smart_quantization_tpu_torch.train --model resnet \\
       --resnet_model resnet18 --dataset cifar10 --compress smart \\
       --measure_compression_ratio --max_epochs 5 --batch_size 128
+  python -m smart_quantization_tpu_torch.train --model bert --dataset glue \\
+      --glue_task stsb --compress smart --optimizer_type adamw \\
+      --learning_rate 2e-5 --weight_decay 0.01 --measure_compression_ratio
   python -m smart_quantization_tpu_torch.train --device cpu --compress fp32 \\
       --limit_train_batches 10
 """
 
 from __future__ import annotations
 
-import json
-
 
 def build_trainer(args):
     """The trainer a parsed command line asks for."""
+    if args.model == "bert":
+        from smart_quantization_tpu_torch.train.bert_loop import build_bert_trainer
+
+        return build_bert_trainer(args)
     from smart_quantization_tpu_torch.data.cifar import CIFAR10Data, CIFAR100Data
     from smart_quantization_tpu_torch.models.resnet import resnet18, resnet34, resnet50
     from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
@@ -32,16 +37,7 @@ def build_trainer(args):
         args.resnet_model
     ]
     model = model_fn(num_classes=data.num_classes, tap=comps["tap_cfg"])
-    cfg = TrainConfig(
-        epochs=args.max_epochs,
-        log_every=args.log_every,
-        terminate_on_nan=args.terminate_on_nan,
-        measure_compression_ratio=args.measure_compression_ratio,
-        limit_train_batches=args.limit_train_batches,
-        limit_val_batches=args.limit_val_batches,
-        max_time_s=args.max_time,
-        seed=args.seed,
-    )
+    cfg = TrainConfig.from_args(args)
     return Trainer(
         model,
         data,
@@ -56,21 +52,16 @@ def build_trainer(args):
 def main(argv=None) -> dict:
     import torch
 
+    from smart_quantization_tpu_torch.train.bert_loop import run_bert
+    from smart_quantization_tpu_torch.train.loop import run
     from smart_quantization_tpu_torch.utils.config import parse_args
 
     args = parse_args(argv)
     print(f"run name: {args.name}")
+    if args.model == "bert":
+        return run_bert(args)  # its weights come from a generator of --seed
     torch.manual_seed(args.seed)  # the model's initial weights
-    trainer = build_trainer(args)
-    if trainer.device.type == "cuda":
-        print("NOTE: TF32 is off for convolutions and matmuls; the card trains "
-              "in float32.")
-    trainer.fit()
-    final = trainer.evaluate()
-    final.update(trainer.ratio_acc.summary())
-    trainer.logger.close()
-    print("final:", json.dumps(final))
-    return final
+    return run(build_trainer(args))
 
 
 if __name__ == "__main__":

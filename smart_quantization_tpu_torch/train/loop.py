@@ -2,18 +2,24 @@
 
 Counterpart of ``smart_quantization_tpu/train/loop.py::Trainer`` without
 its mesh, K-step and checkpoint branches (still to be ported, ROADMAP
-Queue 1 items 11, 12 and 15):
+Queue 1 items 11, 12 and 15).  A task (``train/task.py``) supplies what
+varies by model family: batch preparation, the model's arguments, the loss
+and the eval reduction.
 
 - ``train_step`` runs one step on a batch already prepared on the device:
   tapped forward and backward, the compressed optimizer step, and the
   step's metrics as device tensors;
 - ``fit`` drives epochs of device-side batches with NaN termination,
   ``limit_{train,val}_batches``, ``max_time`` and ``log_every``;
-- ``evaluate`` reduces the validation split with one host read at the end.
+- ``evaluate`` reduces the validation split with one host read at the end;
+- ``run`` is what the CLI does with a trainer: fit, evaluate, report.
 
 Between logging points a training step makes no device-to-host sync: every
-random seed comes from host generators, every size stays on the device, and
-metrics are read only when ``_drain`` logs them.
+random seed comes from host generators (the dropout masks' from a
+generator on the device seeded on the host), every size stays on the
+device, and metrics are read only when ``_drain`` logs them.  A parameter
+that gets no gradient (BERT's encoder under ``freeze_encoder``) steps with
+a zero gradient, as JAX's ``stop_gradient`` gives.
 
 On CUDA the trainer turns TF32 off for cuDNN convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.
@@ -23,6 +29,7 @@ allow_tf32``), so the card trains in full float32 like the reference.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -59,6 +66,20 @@ class TrainConfig:
     max_time_s: float | None = None
     seed: int = 0
 
+    @staticmethod
+    def from_args(args) -> "TrainConfig":
+        """The loop's settings from a parsed command line."""
+        return TrainConfig(
+            epochs=args.max_epochs,
+            log_every=args.log_every,
+            terminate_on_nan=args.terminate_on_nan,
+            measure_compression_ratio=args.measure_compression_ratio,
+            limit_train_batches=args.limit_train_batches,
+            limit_val_batches=args.limit_val_batches,
+            max_time_s=args.max_time,
+            seed=args.seed,
+        )
+
 
 def _generator(seed: int, device: torch.device | str = "cpu") -> torch.Generator:
     gen = torch.Generator(device=device)
@@ -67,7 +88,7 @@ def _generator(seed: int, device: torch.device | str = "cpu") -> torch.Generator
 
 
 class Trainer:
-    """Single-device trainer for the image-classification task."""
+    """Single-device trainer of a task (image classification by default)."""
 
     def __init__(
         self,
@@ -79,15 +100,18 @@ class Trainer:
         config: TrainConfig = TrainConfig(),
         logger: MetricLogger | None = None,
         device: str | torch.device | None = None,
+        task=None,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            print("NOTE: TF32 is off for convolutions and matmuls; the card trains "
+                  "in float32.")
         self.model = model.to(self.device)
         self.data = data
         self.spec = spec
-        self.task = ImageClassificationTask()
+        self.task = task or ImageClassificationTask()
         self.optim_comp = optim_comp or OptimizerCompression()
         self.cfg = config
         self.logger = logger or MetricLogger(None)
@@ -101,22 +125,25 @@ class Trainer:
         params = {n: p.detach() for n, p in self.model.named_parameters()}
         return TrainState(0, self.spec.init(params))
 
-    def _step_generators(self, step: int) -> tuple[torch.Generator, torch.Generator]:
-        """Host generators for the taps and the optimizer, derived from
-        (seed, step): the host never waits on the card for them."""
-        s_fwd, s_opt = np.random.SeedSequence([self.cfg.seed, step]).generate_state(2, np.uint64)
-        return _generator(int(s_fwd)), _generator(int(s_opt))
+    def _step_generators(self, step: int) -> tuple[torch.Generator, ...]:
+        """Host generators for the taps and the optimizer, and a generator
+        on the device for the dropout masks, derived from (seed, step): the
+        host never waits on the card for them."""
+        s_fwd, s_opt, s_drop = np.random.SeedSequence([self.cfg.seed, step]).generate_state(
+            3, np.uint64)
+        return _generator(int(s_fwd)), _generator(int(s_opt)), _generator(int(s_drop), self.device)
 
     # ------------------------------------------------------------- steps
-    def train_step(self, state: TrainState, x: torch.Tensor, labels: torch.Tensor) -> dict:
-        """One step on a prepared NCHW batch; updates the model and
-        ``state`` in place and returns the step's metrics (device tensors;
-        ``_ratio/{tag}`` entries hold ``[orig_bits, new_bits]``)."""
-        gen_fwd, gen_opt = self._step_generators(state.step)
+    def train_step(self, state: TrainState, inputs, labels: torch.Tensor) -> dict:
+        """One step on a prepared batch (``task.prepare_train``'s output);
+        updates the model and ``state`` in place and returns the step's
+        metrics (device tensors; ``_ratio/{tag}`` entries hold
+        ``[orig_bits, new_bits]``)."""
+        gen_fwd, gen_opt, gen_drop = self._step_generators(state.step)
         sizes = SizeTotals() if self.cfg.measure_compression_ratio else None
         model = self.model
         model.train()
-        logits = model(x, TapContext(gen_fwd, sizes))
+        logits = model(*self.task.model_args(inputs), TapContext(gen_fwd, sizes, gen_drop))
         loss = self.task.loss(logits, labels)
         named = list(model.named_parameters())
         for _, p in named:
@@ -124,7 +151,7 @@ class Trainer:
         loss.backward()
 
         params = {n: p.detach() for n, p in named}
-        grads = {n: p.grad for n, p in named}
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in named}
         new_params, state.opt_state, opt_metrics = compressed_optimizer_step(
             self.spec, params, grads, state.opt_state, gen_opt, self.optim_comp,
             weight_exempt=self.weight_exempt,
@@ -142,11 +169,11 @@ class Trainer:
         return metrics
 
     @torch.no_grad()
-    def eval_step(self, x: torch.Tensor, labels: torch.Tensor) -> dict:
+    def eval_step(self, inputs, labels: torch.Tensor) -> dict:
         self.model.eval()
         # a constant generator per batch, as the JAX package's constant
         # eval key: the eval rounding noise is the same every epoch
-        logits = self.model(x, TapContext(_generator(0)))
+        logits = self.model(*self.task.model_args(inputs), TapContext(_generator(0)))
         return self.task.eval_outputs(logits, labels)
 
     @staticmethod
@@ -185,10 +212,10 @@ class Trainer:
             t0 = time.time()
             pending = []  # (step, metrics) not yet read on the host
             batches = self.data.device_train_batches(self.cfg.seed + epoch, self.device)
-            for bi, (images, labels) in enumerate(batches):
+            for bi, (inputs, labels) in enumerate(batches):
                 if lim_train is not None and bi >= lim_train:
                     break
-                x = self.task.prepare_train(images, self.data_gen)
+                x = self.task.prepare_train(inputs, self.data_gen)
                 pending.append((state.step + 1, self.train_step(state, x, labels)))
                 if state.step % self.cfg.log_every == 0:
                     if self._drain(pending):
@@ -227,17 +254,29 @@ class Trainer:
         return False
 
     def evaluate(self) -> dict[str, float]:
-        """Validation loss and accuracy; one host read at the end."""
-        outs, count = [], 0
+        """The task's validation metrics; one host read at the end."""
+        outs, labels_dev = [], []
         lim_val = self._resolve_limit(
             self.cfg.limit_val_batches, self.data.val_steps_per_epoch
         )
-        for bi, (images, labels) in enumerate(self.data.device_val_batches(self.device)):
+        for bi, (inputs, labels) in enumerate(self.data.device_val_batches(self.device)):
             if lim_val is not None and bi >= lim_val:
                 break
-            outs.append(self.eval_step(self.task.prepare_eval(images), labels))
-            count += len(labels)
-        if count == 0:
+            outs.append(self.eval_step(self.task.prepare_eval(inputs), labels))
+            labels_dev.append(labels)
+        if not outs:
             return {}
         host = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
-        return self.task.eval_summary(host, count)
+        labels_host = torch.cat(labels_dev).cpu().numpy()
+        return self.task.eval_summary(host, labels_host, len(labels_host))
+
+
+def run(trainer: Trainer) -> dict:
+    """Fit, evaluate, and print the final metrics with the compression
+    ratios as one ``final: {...}`` JSON line."""
+    trainer.fit()
+    final = trainer.evaluate()
+    final.update(trainer.ratio_acc.summary())
+    trainer.logger.close()
+    print("final:", json.dumps(final))
+    return final

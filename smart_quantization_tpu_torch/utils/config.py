@@ -1,12 +1,14 @@
 """Two-phase CLI composition + experiment wiring.
 
 Counterpart of ``smart_quantization_tpu/utils/config.py`` (``parse_args``
-and ``build_components``) for the path ported so far: ResNet on
-CIFAR-10/100 with any of the six encoders.  Phase 1 parses the class
-selectors and the per-structure toggles; phase 2 re-parses with the
-selected components' own flags.  Flags of paths not yet ported are
-accepted and raise ``NotImplementedError`` naming their ROADMAP item;
-``--no_pallas`` is gone (the port has no Pallas) and ``--device`` is new.
+and ``build_components``) for the paths ported so far: ResNet on
+CIFAR-10/100 and BERT on GLUE and IMDB, with any of the six encoders.
+Phase 1 parses the class selectors and the per-structure toggles; phase 2
+re-parses with the selected encoder's, model's and dataset's own flags
+(the JAX package's defaults: batch 8 on CIFAR, 32 and length 512 on text).
+Flags of paths not yet ported are accepted and raise
+``NotImplementedError`` naming their ROADMAP item; ``--no_pallas`` is gone
+(the port has no Pallas) and ``--device`` is new.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def add_float_args(parser: argparse.ArgumentParser) -> None:
     )
 
 
-def add_resnet_args(parser: argparse.ArgumentParser) -> None:
+def add_model_base_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--optimizer_type", choices=("sgd", "adam", "adamw"), default="sgd")
     parser.add_argument("--scheduler_type", choices=("multi_step", "none"), default="none")
     parser.add_argument("--scheduler_gamma", type=float, default=0.1)
@@ -67,14 +69,39 @@ def add_resnet_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--beta1", type=float)
     parser.add_argument("--beta2", type=float)
     parser.add_argument("--epsilon", type=float)
+
+
+def add_resnet_args(parser: argparse.ArgumentParser) -> None:
+    add_model_base_args(parser)
     parser.add_argument(
         "--resnet_model", choices=("resnet18", "resnet34", "resnet50"), default="resnet34"
     )
 
 
+def add_bert_args(parser: argparse.ArgumentParser) -> None:
+    add_model_base_args(parser)
+    parser.add_argument("--bert_model", type=str, default="bert-base-uncased",
+                        help="HF name of the pretrained weights and tokenizer (local cache only)")
+    parser.add_argument("--no_pretrained", action="store_false", dest="pretrained")
+    parser.add_argument("--freeze_bert_encoder", action="store_true")
+    parser.add_argument("--bert_size", choices=("base", "tiny"), default="base",
+                        help="tiny = the 2-layer test config")
+
+
 def add_cifar_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--val_batch_size", type=int)
+
+
+def add_imdb_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--val_batch_size", type=int)
+    parser.add_argument("--max_input_length", type=int, default=512)
+
+
+def add_glue_args(parser: argparse.ArgumentParser) -> None:
+    add_imdb_args(parser)
+    parser.add_argument("--glue_task", type=str, default="stsb")
 
 
 def add_trainer_args(parser: argparse.ArgumentParser) -> None:
@@ -108,14 +135,17 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
 
 COMPRESSORS = ("bf16", "fp16", "fp32", "fp8", "s2fp8", "smart")
 FLOAT_COMPRESSORS = ("fp8", "s2fp8", "fp16", "bf16")
-MODELS = ("bert", "inception", "resnet")
-DATASETS = ("cifar10", "cifar100", "glue", "imdb")
+# the inception model's flags are the base ones
+MODEL_ARGS = {"bert": add_bert_args, "inception": add_model_base_args,
+              "resnet": add_resnet_args}
+DATASET_ARGS = {"cifar10": add_cifar_args, "cifar100": add_cifar_args,
+                "glue": add_glue_args, "imdb": add_imdb_args}
+MODEL_DATASETS = {"bert": ("glue", "imdb"), "inception": ("cifar10", "cifar100"),
+                  "resnet": ("cifar10", "cifar100")}
 
 # (is it asked for?, what, ROADMAP Queue 1 item)
 _NOT_YET_PORTED = (
     (lambda a: a.model == "inception", "--model inception", 13),
-    (lambda a: a.model == "bert", "--model bert", 14),
-    (lambda a: a.dataset in ("glue", "imdb"), "--dataset glue/imdb", 14),
     (lambda a: a.compress_loss, "--compress_loss", 12),
     (lambda a: a.compute_dtype != "float32", "--compute_dtype bfloat16", 12),
     (lambda a: a.steps_per_call != 1, "--steps_per_call", 12),
@@ -144,8 +174,8 @@ def parse_args(argv: list[str] | str | None = None) -> argparse.Namespace:
         argv = argv.split(" ")
 
     phase1 = argparse.ArgumentParser(add_help=False)
-    phase1.add_argument("--model", choices=MODELS, default="resnet")
-    phase1.add_argument("--dataset", choices=DATASETS, default="cifar10")
+    phase1.add_argument("--model", choices=sorted(MODEL_ARGS), default="resnet")
+    phase1.add_argument("--dataset", choices=sorted(DATASET_ARGS), default="cifar10")
     phase1.add_argument("--no_compress", action="store_false", dest="compress_enabled")
     phase1.add_argument("--compress", choices=COMPRESSORS, default="fp32")
     phase1.add_argument(
@@ -166,6 +196,8 @@ def parse_args(argv: list[str] | str | None = None) -> argparse.Namespace:
     phase1.add_argument("--logdir", type=str, default="lightning_logs")
     phase1.add_argument("--tags", type=str)
     args1, _ = phase1.parse_known_args(argv)
+    if args1.dataset not in MODEL_DATASETS[args1.model]:
+        raise SystemExit(f"--model {args1.model} is incompatible with --dataset {args1.dataset}")
 
     phase2 = argparse.ArgumentParser(parents=[phase1])
     if args1.compress == "smart":
@@ -174,8 +206,8 @@ def parse_args(argv: list[str] | str | None = None) -> argparse.Namespace:
         add_float_args(phase2)
     else:
         add_compression_args(phase2)
-    add_resnet_args(phase2)
-    add_cifar_args(phase2)
+    MODEL_ARGS[args1.model](phase2)
+    DATASET_ARGS[args1.dataset](phase2)
     add_trainer_args(phase2)
     args = phase2.parse_args(argv)
 

@@ -240,3 +240,60 @@ def test_cli_reports_every_tag(tmp_path):
     assert 4.5 <= final["compression_ratio"] <= 5.5
     assert np.isfinite(final["val_loss"])
     assert list(tmp_path.glob("*.metrics.jsonl"))
+
+
+def test_bert_flags_take_the_jax_defaults():
+    """``--model bert`` with GLUE or IMDB: batch 32, length 512, STSB,
+    bert-base with pretrained weights asked for; a model and a dataset that
+    do not go together exit."""
+    from smart_quantization_tpu_torch.utils.config import check_ported, parse_args
+
+    for dataset in ("glue", "imdb"):
+        args = parse_args(f"--device cpu --model bert --dataset {dataset}")
+        check_ported(args)
+        assert (args.batch_size, args.max_input_length, args.bert_size) == (32, 512, "base")
+        assert args.pretrained and not args.freeze_bert_encoder
+        assert args.bert_model == "bert-base-uncased"
+    assert parse_args("--device cpu --model bert --dataset glue").glue_task == "stsb"
+    assert parse_args("--device cpu").batch_size == 8  # CIFAR's stays
+    for argv in ("--model bert --dataset cifar10", "--model resnet --dataset glue"):
+        with pytest.raises(SystemExit):
+            parse_args(f"--device cpu {argv}")
+
+
+@pytest.mark.parametrize("dataset,metrics", [
+    ("glue", ("val_pearson", "val_spearmanr")), ("imdb", ("val_accuracy",))])
+def test_bert_cli_runs_on_cpu(tmp_path, dataset, metrics):
+    """``--model bert --bert_size tiny`` through the CLI with SmaQ on every
+    structure and AdamW: the task's metrics, the five ratio tags, an
+    overall ratio of 4.5-5.5 and a finite loss."""
+    out = subprocess.run(
+        [sys.executable, "-m", "smart_quantization_tpu_torch.train", "--device", "cpu",
+         "--model", "bert", "--bert_size", "tiny", "--dataset", dataset, "--compress", "smart",
+         "--optimizer_type", "adamw", "--learning_rate", "2e-5", "--max_input_length", "32",
+         "--measure_compression_ratio", "--limit_train_batches", "2", "--limit_val_batches", "4",
+         "--batch_size", "8", "--logdir", str(tmp_path)],
+        cwd=ROOT, env=dict(os.environ, SMAQ_DISABLE_TB="1"), capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    final = json.loads(out.stdout.split("final:", 1)[1])
+    for key in metrics:
+        assert np.isfinite(final[key]), key
+    for tag in TAGS:
+        assert f"compression_ratio_{tag}" in final, tag
+    assert 4.5 <= final["compression_ratio"] <= 5.5
+    assert np.isfinite(final["val_loss"])
+
+
+def test_step_generators_keep_their_seeds():
+    """The dropout generator is a third word of the step's seed sequence:
+    the taps' and the optimizer's seeds are the two words they were before
+    it, so a ResNet step draws what it drew without dropout."""
+    trainer = Trainer(torch.nn.Linear(2, 2), None, build_optimizer("sgd", 0.1),
+                      config=TrainConfig(seed=3), device="cpu")
+    want = np.random.SeedSequence([3, 5]).generate_state(2, np.uint64)
+    g_fwd, g_opt, g_drop = trainer._step_generators(5)
+    assert (g_fwd.initial_seed(), g_opt.initial_seed()) == tuple(int(w) for w in want)
+    assert g_drop.device == torch.device("cpu")
+    assert g_drop.initial_seed() not in (g_fwd.initial_seed(), g_opt.initial_seed())
