@@ -23,16 +23,23 @@ non-zero:
    a zero gamma; SmaQ's one-block small form at the main path's small
    sizes and around its threshold, the stats kernel's constants buffer,
    and the outlier size after 1000 back-to-back calls (the self-resetting
-   counters); 1000 back-to-back calls of both S2FP8 forms and SmaQ;
+   counters); 1000 back-to-back calls of both S2FP8 forms and SmaQ; the
+   packed state's codebook against the kernels' fake path and its CPU
+   version by the flip rule, and the dense packer's round trip;
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
-   with ``--use_batch_norm`` (and ``--bn_scalar_params``), and on bert-base,
-   batch 32 x 512 tokens, synthetic GLUE STSB, SmaQ 6/8 on every structure,
-   AdamW at lr 2e-5 and weight decay 0.01, launch counts read around each;
-   then single steps of each: launches per step, no host sync between
-   logging points, and the median step time beside the uncompressed step
-   (for BERT with the peak device memory of each);
+   with ``--use_batch_norm`` (and ``--bn_scalar_params``), with the master
+   weights and with packed SGD momentum, and on bert-base, batch 32 x 512
+   tokens, synthetic GLUE STSB, SmaQ 6/8 on every structure, AdamW at lr
+   2e-5 and weight decay 0.01 (z-score, and ``--momentum_rowwise
+   --momentum_log_nu``), launch counts read around each; then 17 steps of
+   each: launches per step, no host sync between logging points, and the
+   median step time beside the uncompressed step (for BERT with the peak
+   device memory and the memory held between steps, and with packed
+   state as well); the loss after 17 steps of the codecs against the plain
+   run's; each cell's seeded command twice, bitwise, and the step under
+   PyTorch's default kernels (determinism's cost);
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
    cast to the same format; the SmaQ call at the main path's sizes,
@@ -54,6 +61,7 @@ Needs the repository beside it (or in DIR) and one CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -88,6 +96,9 @@ BERT_ARGV = [
 # word-embedding table (30522 x 768; its gradient, mu and nu alike)
 BERT_SIZES = (("bert intermediate 50331648", 32 * 512 * 3072),
               ("bert word embeddings 23440896", 30522 * 768))
+# the stable momentum codecs and the packed state on bert-base
+CODEC_ARGV = ["--momentum_rowwise", "--momentum_log_nu"]
+PACKED_ARGV = ["--packed_momentum", "--packed_weights"]
 BN_SHAPE = (128, 64, 32, 32)  # the largest BatchNorm output, NCHW
 RAGGED_BN_SHAPE = (3, 10, 7, 5)
 TPU = "smart_quantization_tpu/ops/pallas"
@@ -107,6 +118,29 @@ PATHS = [
     ("smart bn", ["--use_batch_norm"], (4.5, 5.5), True),
     ("smart bn scalar", ["--use_batch_norm", "--bn_scalar_params"], (4.5, 5.5), True),
 ]
+
+
+def param_sizes(model: str) -> list[int]:
+    """The parameter sizes of ResNet-18 or bert-base, built on the CPU."""
+    from smart_quantization_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
+    from smart_quantization_tpu_torch.models.resnet import resnet18
+
+    m = resnet18(num_classes=10) if model == "resnet" else BertForSequenceClassification(
+        BertConfig(), num_labels=1)
+    return [p.numel() for p in m.parameters()]
+
+
+def check_packed_ratio(label, sizes, param_sizes_, buffers, min_size=8):
+    """Packed momentum's sizes ``[orig_bits, new_bits]`` are the real ones:
+    8 n + 64 bits a leaf of ``min_size`` elements or more, 32 n a smaller
+    one, for each of ``buffers`` buffers."""
+    orig = 32 * sum(param_sizes_) * buffers
+    new = sum(8 * n + 64 if n >= min_size else 32 * n for n in param_sizes_) * buffers
+    say(f"  [{label}] optimizer_momentum real ratio {sizes[0] / sizes[1]!r}; from the shapes "
+        f"{orig / new!r}")
+    if abs(sizes[1] / sizes[0] - new / orig) > 1e-6:
+        fail(f"[{label}] optimizer_momentum ratio {sizes[0] / sizes[1]} is not the real "
+             f"sizes' {orig / new}")
 
 
 def fail(msg: str) -> None:
@@ -282,6 +316,43 @@ def check_kernels(device):
     if min(counts.values()) == 0:
         fail("a kernel was never launched by the checks")
     return errs
+
+
+def check_codebook(device):
+    """Packed state's codebook on the card (the ``smaq_stats`` kernel's
+    stats, tensor ops for the codes), in truncation: its decode against the
+    card's fake path (the kernels) and against its own plain version on the
+    CPU, by the flip rule, wherever |z| is within the storage range (the
+    fake path never clamps); and the dense packer's words round-trip."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops import codebook as cb
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.pack import pack_bits, unpack_bits
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    trunc = SmaQParams(stochastic_rounding=False)
+    gen = torch.Generator(device=device).manual_seed(11)
+    name, n = BERT_SIZES[1]
+    cases = [("act 128x64x32x32", torch.randn(ACT_SHAPE, generator=gen, device=device) * 1.7 + 0.3),
+             (name, torch.randn(n, generator=gen, device=device) * 0.05 - 0.01),
+             ("bias 768", torch.randn(768, generator=gen, device=device) * 0.02)]
+    for name, x in cases:
+        enc = cb.smaq_encode(x, None, trunc)
+        y = cb.smaq_decode(enc, trunc)
+        y_fake, _ = K.smaq_fused(x, None, trunc)
+        y_cpu = cb.smaq_decode(cb.smaq_encode(x.cpu(), None, trunc), trunc).to(device)
+        ok = ((x - enc.mean) / enc.std).abs() <= cb.storage_z_limit(trunc)
+        quantum = enc.std / trunc.range_main
+        say(f"  {name}: {int((~ok).sum())} of {x.numel()} elements beyond the codebook's "
+            f"{cb.storage_z_limit(trunc):.3f} sigma")
+        flip_check(f"{name} codebook against the kernels", y[ok], y_fake[ok], 0, 0, quantum)
+        flip_check(f"{name} codebook against its CPU version", y[ok], y_cpu[ok], 0, 0, quantum)
+    for bits in (1, 6, 13, 32):
+        v = torch.randint(0, 2**bits, (1_000_003,), generator=gen, device=device)
+        if not torch.equal(unpack_bits(pack_bits(v, bits), bits, v.numel()), v):
+            fail(f"pack_bits/unpack_bits do not round-trip at {bits} bits on the card")
+    say("  pack_bits/unpack_bits round-trip 1 000 003 values at 1, 6, 13 and 32 bits")
 
 
 def stochastic_check(name, x, ys, params, quantum, flip_fraction):
@@ -736,22 +807,27 @@ def path_kernels(args) -> tuple[str, ...]:
     return ("smaq_stats", "smaq_quantize")
 
 
-def step_calls(trainer, model_args) -> list[tuple[int, bool]]:
-    """Every encoder call of one training step as (elements, goes to the BN
-    kernel): each tap site forward and backward (the sites read off one
-    forward pass of the model on ``model_args``, a batch's arguments, with
-    the taps recording instead of compressing), every gradient, every
-    non-exempt weight and every momentum buffer."""
+def step_calls(trainer, model_args) -> list[tuple[int, str]]:
+    """Every encoder call of one training step as (elements, form): each
+    tap site forward and backward (the sites read off one forward pass of
+    the model on ``model_args``, a batch's arguments, with the taps
+    recording instead of compressing), every gradient, every non-exempt
+    weight and every momentum buffer.  The form says what a SmaQ call
+    launches: ``plain`` (``smaq_plan``'s form), ``bn`` (the BN kernel),
+    ``given`` (the log2 codec's per-tensor call with its own stats: the
+    quantize kernel alone), ``rows`` (the row-wise codecs: tensor ops, no
+    kernel) or ``encode`` (packed state: the stats kernel, then tensor
+    ops)."""
     import torch
 
     from smart_quantization_tpu_torch.compress.base import SizeStats
     from smart_quantization_tpu_torch.inject import tap
-    from smart_quantization_tpu_torch.optim.compressed import norm_param_mask
+    from smart_quantization_tpu_torch.optim.compressed import by_rows, norm_param_mask
 
     taps = []
 
     def record(x, gen, compressor, *, gamma=None, **_):
-        taps.append((x.numel(), gamma is not None))
+        taps.append((x.numel(), "bn" if gamma is not None else "plain"))
         return x, SizeStats.of(x.numel(), 32, 32, x.device)
 
     model, real = trainer.model, tap.compression_tap
@@ -762,23 +838,36 @@ def step_calls(trainer, model_args) -> list[tuple[int, bool]]:
             model(*model_args, tap.TapContext(torch.Generator()))
     finally:
         tap.compression_tap = real
+    comp, spec = trainer.optim_comp, trainer.spec
     named = dict(model.named_parameters())
     exempt = norm_param_mask(list(named))
-    params = [p.numel() for p in named.values()]
-    weights = [p.numel() for k, p in named.items() if not exempt[k]]
-    return (taps + [(n, False) for n, _ in taps]
-            + [(n, False) for n in params + weights
-               + params * len(trainer.spec.momentum_buffers)])
+    weights = [(p.numel(), "encode" if comp.packed_weights else "plain")
+               for k, p in named.items() if not exempt[k]]
+    momentum = []
+    for _, all_positive in spec.momentum_buffers:
+        log_nu = all_positive and comp.momentum_log_nu
+        rows = comp.momentum_log_nu_rowwise if log_nu else comp.momentum_rowwise
+        for k, p in named.items():
+            if comp.packed_momentum:
+                form = "encode"
+            elif rows and by_rows(k, p):
+                form = "rows"
+            else:
+                form = "given" if log_nu else "plain"
+            momentum.append((p.numel(), form))
+    return (taps + [(n, "plain") for n, _ in taps]
+            + [(p.numel(), "plain") for p in named.values()] + weights + momentum)
 
 
 def expected_launches(args, calls) -> dict:
     """Launches of each kernel in one training step: one per encoder call
     for the float formats; for S2FP8 and SmaQ, a stats launch where
     ``s2fp8_plan`` or ``smaq_plan`` takes the split form (and for every
-    BN-kernel call) and one quantize launch per call, none for a SmaQ call
-    below ``--min_size`` elements (it passes through); under
-    --use_batch_norm the forward taps of the BatchNorms go to the BN
-    kernel."""
+    BN-kernel call) and one quantize launch per call; for SmaQ's other
+    forms (``step_calls``) the quantize alone (``given``), the stats alone
+    (``encode``) or nothing (``rows``); none for a SmaQ call below
+    ``--min_size`` elements (it passes through); under --use_batch_norm
+    the forward taps of the BatchNorms go to the BN kernel."""
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda.launch import sm_count
@@ -793,12 +882,16 @@ def expected_launches(args, calls) -> dict:
     if kernels[0] != "smaq_stats":
         return {k: len(calls) for k in kernels}
     out = dict.fromkeys(kernels, 0)
-    for n, bn in calls:
-        if n < args.min_size:
+    for n, form in calls:
+        if n < args.min_size or form == "rows":
             continue
-        if bn:
+        if form == "bn":
             out["smaq_stats"] += 1
             out["smaq_quantize_bn"] += 1
+        elif form == "encode":
+            out["smaq_stats"] += 1
+        elif form == "given":
+            out["smaq_quantize"] += 1
         else:
             out["smaq_stats"] += smaq_plan(n, sms)[0] == "split"
             out["smaq_quantize"] += 1
@@ -842,19 +935,46 @@ def run_main_path(extra_argv=(), ratio_range=(4.5, 5.5), finite_loss=True,
     return {k: counts[k] for k in kernels}, final
 
 
+def nondeterministic() -> None:
+    """PyTorch's default kernels (the trainer's ``make_reproducible``
+    undone)."""
+    import torch
+
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def default_kernels():
+    """Trainers built inside keep PyTorch's default kernels: the control of
+    the seeded-run check and the determinism cost only."""
+    from smart_quantization_tpu_torch.train import loop
+
+    real, loop.make_reproducible = loop.make_reproducible, nondeterministic
+    try:
+        yield
+    finally:
+        loop.make_reproducible = real
+        real()
+
+
 def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
                base_argv=MAIN_ARGV):
     """Steps of the trainer a command line builds: 2 warm-up steps, then
     (with ``check_launches``) 5 steps whose launches must equal the plan
     and which must not sync with the host, then 10 timed steps.  Returns
-    the median step (ms), the last loss, the launches of a step, the
-    step's encoder calls and the peak device memory of the timed steps
-    (GB)."""
+    the median step (ms), the loss after the 17 steps, the launches of a
+    step, the step's encoder calls, the peak device memory of the timed
+    steps and the memory held between steps (GB), and the last step's
+    compression sizes by tag."""
+    import gc
+
     import torch
 
     from smart_quantization_tpu_torch.train.__main__ import build_trainer
     from smart_quantization_tpu_torch.utils.config import parse_args
 
+    gc.collect()  # the last run's trainer, before this one's peak is read
     torch.manual_seed(0)
     # no logdir: these steps are timed, not logged
     args = parse_args(base_argv + list(extra_argv) + ["--logdir", ""])
@@ -902,6 +1022,9 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
             "no host sync in 5 non-logging steps")
         if finite_loss and not math.isfinite(float(metrics["train_loss"])):
             fail("non-finite training loss")
+    else:
+        for _ in range(5):
+            step()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(10):
@@ -910,11 +1033,76 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
         metrics = step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss = float(metrics["train_loss"])
     if finite_loss and not math.isfinite(loss):
         fail("non-finite training loss")
-    return statistics.median(times), loss, expected, calls, peak_gb
+    return {"ms": statistics.median(times), "loss": loss, "launches": expected,
+            "calls": calls, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "resident_gb": torch.cuda.memory_allocated() / 1e9,
+            "sizes": {k.split("/", 1)[1]: v.tolist() for k, v in metrics.items()
+                      if k.startswith("_ratio/")}}
+
+
+def seeded_run(base_argv, extra, steps, out_dir):
+    """The CLI's ``main`` for ``steps`` steps with every loss logged and a
+    checkpoint at the epoch's end; returns the logged losses by step and
+    the checkpoint's tensors."""
+    import torch
+
+    from smart_quantization_tpu_torch.train.__main__ import main
+
+    main(base_argv + list(extra) + [
+        "--limit_train_batches", str(steps), "--limit_val_batches", "2", "--log_every", "1",
+        "--logdir", out_dir, "--name", "run", "--checkpoint_dir", out_dir])
+    with open(os.path.join(out_dir, "run.metrics.jsonl")) as f:
+        losses = {r["step"]: r["train_loss"] for r in map(json.loads, f) if "train_loss" in r}
+    flat = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(tree, torch.Tensor):
+            flat[prefix] = tree
+        else:
+            flat[prefix] = torch.tensor(tree)
+
+    walk("", torch.load(os.path.join(out_dir, "epoch_0000.pt"), map_location="cpu",
+                        weights_only=True))
+    return losses, flat
+
+
+def seeded_twice(label, base_argv, extra=(), steps=5, control=False):
+    """The same seeded command twice in this process; returns whether the
+    losses at every step and every tensor of the checkpoints agree bit for
+    bit, and a line that says how.  ``control`` keeps PyTorch's default
+    kernels."""
+    import shutil
+
+    runs = []
+    for i in range(2):
+        out_dir = os.path.join(ROOT, "tmp_chip_smoke", f"{label}_{int(control)}_{i}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        with default_kernels() if control else contextlib.nullcontext():
+            runs.append(seeded_run(base_argv, extra, steps, out_dir))
+        shutil.rmtree(os.path.dirname(out_dir), ignore_errors=True)
+    (la, ta), (lb, tb) = runs
+    if len(la) != steps or set(ta) != set(tb):
+        fail(f"[{label}] seeded runs logged {len(la)} and {len(lb)} losses")
+    diff_steps = [s for s in sorted(la) if la[s] != lb.get(s)]
+    diff_tensors = [k for k in ta if not torch_equal(ta[k], tb[k])]
+    line = (f"losses at steps {sorted(la)} {'equal' if not diff_steps else 'differ from step ' + str(diff_steps[0])}"
+            f" ({la[min(la)]!r} .. {la[max(la)]!r} / {lb[max(lb)]!r}); "
+            f"{len(ta) - len(diff_tensors)} of {len(ta)} checkpoint tensors bitwise equal")
+    if diff_tensors:
+        line += f" (first differing: {diff_tensors[:3]})"
+    return not diff_steps and not diff_tensors, line
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1089,7 +1277,7 @@ def time_smaq(device, timed, per_call, step_calls_of, card):
     # pass through) in one CUDA graph
     out["per_step_ms"], out["per_step_bound_ms"], out["per_step_calls"] = {}, {}, {}
     for model, calls in step_calls_of.items():
-        sizes = [n for n, bn in calls if not bn and n >= params.min_size]
+        sizes = [n for n, form in calls if form == "plain" and n >= params.min_size]
         step_fns = [call(n) for n in sizes]
         per_step = per_call(lambda: [f() for f in step_fns], reps=1)
         step_bound = sum(8 * n for n in sizes) / rate
@@ -1271,6 +1459,8 @@ def s2fp8_times_of(root: str) -> int:
 
 
 def main() -> int:
+    # cuBLAS reads this at its first call: before torch touches the card
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1315,22 +1505,33 @@ def main() -> int:
     errs.update(check_s2fp8_kernels(device))
     check_s2fp8_back_to_back(device)
     errs.update(check_bn_kernel(device))
+    check_codebook(device)
 
     say("[4] training: ResNet-18, batch 128, full coverage")
     launches, _ = run_main_path()
-    step_ms, loss, per_step, calls, _ = time_steps([], check_launches=True)
-    plain_ms, plain_loss, _, _, _ = time_steps(["--no_compress"], check_launches=False)
-    say(f"  median step: {step_ms:.2f} ms compressed (loss {loss:.4f}), "
-        f"{plain_ms:.2f} ms --no_compress (loss {plain_loss:.4f}) on {card}")
-    steps = {"smart": step_ms, "no_compress": plain_ms}
+    res = time_steps([], check_launches=True)
+    res_plain = time_steps(["--no_compress"], check_launches=False)
+    per_step, calls = res["launches"], res["calls"]
+    say(f"  median step: {res['ms']:.2f} ms compressed (loss {res['loss']:.4f}), "
+        f"{res_plain['ms']:.2f} ms --no_compress (loss {res_plain['loss']:.4f}) on {card}")
+    steps = {"smart": res["ms"], "no_compress": res_plain["ms"]}
     for label, extra, ratio_range, finite in PATHS:
         got, _ = run_main_path(extra, ratio_range, finite, train_batches=5, label=label)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        ms, loss, _, _, _ = time_steps(extra, check_launches=True, finite_loss=finite)
-        steps[label] = ms
-        say(f"  [{label}] median step: {ms:.2f} ms (loss {loss:.4f}, finite: "
-            f"{math.isfinite(loss)}) on {card}")
+        run = time_steps(extra, check_launches=True, finite_loss=finite)
+        steps[label] = run["ms"]
+        say(f"  [{label}] median step: {run['ms']:.2f} ms (loss {run['loss']:.4f}, finite: "
+            f"{math.isfinite(run['loss'])}) on {card}")
+    resnet_sizes = param_sizes("resnet")
+    for label, extra in (("smart accumulator", ["--use_weight_accumulator"]),
+                         ("smart packed momentum", ["--packed_momentum"])):
+        got, final = run_main_path(extra, train_batches=5, label=label)
+        for k, v in got.items():
+            launches[k] += v
+        if "packed" in label:
+            check_packed_ratio(label, [final["orig_size_optimizer_momentum"],
+                                       final["new_size_optimizer_momentum"]], resnet_sizes, 1)
 
     say("  bert-base, batch 32 x 512, synthetic GLUE STSB, SmaQ 6/8 full coverage, AdamW")
     got, final = run_main_path([], train_batches=5, label="bert stsb", base_argv=BERT_ARGV)
@@ -1338,15 +1539,57 @@ def main() -> int:
         launches[k] += v
     say(f"  [bert stsb] val_pearson={final.get('val_pearson')!r} "
         f"val_spearmanr={final.get('val_spearmanr')!r}")
-    bert_ms, bert_loss, bert_per_step, bert_calls, bert_gb = time_steps(
-        [], check_launches=True, base_argv=BERT_ARGV)
-    bert_plain_ms, bert_plain_loss, _, _, bert_plain_gb = time_steps(
-        ["--no_compress"], check_launches=False, base_argv=BERT_ARGV)
-    say(f"  [bert stsb] median step: {bert_ms:.2f} ms compressed (loss {bert_loss:.4f}, peak "
-        f"memory {bert_gb:.2f} GB), {bert_plain_ms:.2f} ms --no_compress (loss "
-        f"{bert_plain_loss:.4f}, peak memory {bert_plain_gb:.2f} GB) on {card}")
-    steps.update({"bert stsb": bert_ms, "bert stsb no_compress": bert_plain_ms})
+    bert = time_steps([], check_launches=True, base_argv=BERT_ARGV)
+    bert_plain = time_steps(["--no_compress"], check_launches=False, base_argv=BERT_ARGV)
+    bert_per_step, bert_calls = bert["launches"], bert["calls"]
+    say(f"  [bert stsb] median step: {bert['ms']:.2f} ms compressed (loss {bert['loss']:.4f}, "
+        f"peak memory {bert['peak_gb']:.2f} GB), {bert_plain['ms']:.2f} ms --no_compress (loss "
+        f"{bert_plain['loss']:.4f}, peak memory {bert_plain['peak_gb']:.2f} GB) on {card}")
+    steps.update({"bert stsb": bert["ms"], "bert stsb no_compress": bert_plain["ms"]})
+
+    say(f"  bert-base with the stable momentum codecs ({' '.join(CODEC_ARGV)})")
+    got, final = run_main_path(CODEC_ARGV, train_batches=5, label="bert codecs",
+                               base_argv=BERT_ARGV)
+    for k, v in got.items():
+        launches[k] += v
+    codec = time_steps(CODEC_ARGV, check_launches=True, base_argv=BERT_ARGV)
+    say(f"  [bert codecs] train loss after 17 steps: {codec['loss']!r} with the codecs, "
+        f"{bert['loss']!r} z-score, {bert_plain['loss']!r} --no_compress; median step "
+        f"{codec['ms']:.2f} ms, peak memory {codec['peak_gb']:.2f} GB on {card}")
+    if not math.isfinite(codec["loss"]) or codec["loss"] > 1.25 * bert_plain["loss"]:
+        fail(f"[bert codecs] loss {codec['loss']} is not finite or above 1.25x the plain "
+             f"loss {bert_plain['loss']}")
+    steps["bert stsb codecs"] = codec["ms"]
+
+    say(f"  bert-base with packed state ({' '.join(PACKED_ARGV)})")
+    packed = time_steps(PACKED_ARGV, check_launches=True, base_argv=BERT_ARGV)
+    check_packed_ratio("bert packed", packed["sizes"]["optimizer_momentum"],
+                       param_sizes("bert"), 2)
+    say(f"  [bert packed] peak memory {packed['peak_gb']:.2f} GB against {bert['peak_gb']:.2f} GB "
+        f"unpacked; held between steps {packed['resident_gb']:.2f} GB against "
+        f"{bert['resident_gb']:.2f} GB; median step {packed['ms']:.2f} ms (loss "
+        f"{packed['loss']:.4f}) on {card}")
+    if not packed["peak_gb"] < bert["peak_gb"]:
+        fail("[bert packed] the packed run's peak memory is not below the unpacked run's")
+    steps["bert stsb packed"] = packed["ms"]
+
+    say("  the same seeded command twice (5 steps, a checkpoint each, every loss logged)")
+    for label, base, extra in (("resnet18", MAIN_ARGV, []), ("bert stsb", BERT_ARGV, [])):
+        same, line = seeded_twice(label, base, extra)
+        say(f"  [{label}] deterministic kernels: {line}")
+        if not same:
+            fail(f"[{label}] two runs of one seeded command differ")
+        _, line = seeded_twice(label, base, extra, control=True)
+        say(f"  [{label}] PyTorch's default kernels: {line}")
+    with default_kernels():
+        before = {"smart": time_steps([], check_launches=False)["ms"],
+                  "bert stsb": time_steps([], check_launches=False, base_argv=BERT_ARGV)["ms"]}
+    say(f"  determinism's cost, median step: ResNet-18 {before['smart']:.2f} -> "
+        f"{steps['smart']:.2f} ms, bert-base {before['bert stsb']:.2f} -> "
+        f"{steps['bert stsb']:.2f} ms (default kernels -> deterministic) on {card}")
     say("  median steps (ms): " + json.dumps(steps))
+    # phase 5 times kernels under PyTorch's defaults, as before
+    nondeterministic()
 
     say("[5] kernel times at 8388608 elements (median of 25, L2 flushed)")
     timed, per_call = make_timer(device)
@@ -1395,7 +1638,8 @@ def main() -> int:
         # the plain version computes its own stats: its time is the pair's
         row("s2fp8_quantize", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8"),
     ]
-    say(f"  per step: {per_step} (ResNet-18 smart), {bert_per_step} (bert-base); launches "
+    say(f"  per step: {per_step} (ResNet-18 smart), {bert_per_step} (bert-base), "
+        f"{codec['launches']} (bert-base codecs), {packed['launches']} (bert-base packed); launches "
         "summed over the main-path runs; "
         f"whole run {time.perf_counter() - t_start:.0f} s")
     say(card)

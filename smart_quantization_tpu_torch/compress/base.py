@@ -77,3 +77,18 @@ class CompressorBase:
         std: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, SizeStats]:
         raise NotImplementedError
+
+    def rowwise(
+        self,
+        rows: torch.Tensor,
+        gen: torch.Generator | None,
+        *,
+        all_positive: bool = False,
+        mean: torch.Tensor | None = None,
+        std: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, SizeStats]:
+        """Each row of the 2-D ``rows`` as a tensor of its own (the JAX
+        package ``vmap``s the call over rows), with the sizes summed over
+        the rows; ``mean``/``std`` hold one value per row.  An elementwise
+        encoder's rows are its call on the whole tensor."""
+        return self(rows, gen, all_positive=all_positive)

@@ -21,8 +21,8 @@ from smart_quantization_tpu_torch.ops.float_format import (
     FP16_FORMAT,
     FloatFormat,
 )
-from smart_quantization_tpu_torch.ops.s2fp8 import OVERHEAD_BITS
-from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+from smart_quantization_tpu_torch.ops.s2fp8 import OVERHEAD_BITS, s2fp8_quantize_dequantize
+from smart_quantization_tpu_torch.ops.smaq import SmaQParams, smaq_quantize_dequantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +50,12 @@ class SmaQ(CompressorBase):
         )
         orig = torch.full((), float(x.numel() * 32), device=x.device)
         return x_hat, SizeStats(orig, new_bits)
+
+    def rowwise(self, rows, gen, *, all_positive=False, mean=None, std=None):
+        # the plain path on every device, as the JAX package's vmap takes it
+        y, new_bits = smaq_quantize_dequantize(
+            rows, gen, self.params, all_positive=all_positive, mean=mean, std=std, rows=True)
+        return y, SizeStats(torch.full((), float(rows.numel() * 32), device=rows.device), new_bits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +112,13 @@ class S2FP8(CompressorBase):
             x, gen, stochastic=self.stochastic, check_inf=self.check_inf
         )
         stats = SizeStats.of(x.numel(), 32, 8, x.device, overhead=OVERHEAD_BITS)
+        return y, stats
+
+    def rowwise(self, rows, gen, *, all_positive=False, mean=None, std=None):
+        y = s2fp8_quantize_dequantize(
+            rows, gen, stochastic=self.stochastic, check_inf=self.check_inf, rows=True)
+        stats = SizeStats.of(rows.numel(), 32, 8, rows.device,
+                             overhead=OVERHEAD_BITS * rows.shape[0])
         return y, stats
 
 

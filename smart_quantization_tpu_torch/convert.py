@@ -12,7 +12,10 @@ The JAX package's flax trees arrive as nested dicts of numpy arrays:
 - ``batch_stats`` ``bn/{mean, var}`` -> ``{running_mean, running_var}``.
 
 Optimizer trees shaped like the params (SGD's trace, Adam's mu and nu) map
-the same way with :func:`tree_from_jax`.
+the same way with :func:`tree_from_jax`.  :func:`jax_axes` is the way
+back for one leaf: the permutation that lays a port leaf out as the JAX
+package's (the optimizer's row-wise codecs take rows on JAX's leading
+axis).
 
 :func:`load_pretrained` maps a locally cached HF ``BertModel`` onto the
 port's BERT (the counterpart of JAX ``models/bert.py::
@@ -55,6 +58,20 @@ def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, torch.Tensor]:
         arr = arr.T
     name = ".".join([*mods, _LEAF_NAMES[leaf]])
     return name, torch.from_numpy(np.array(arr, copy=True))
+
+
+def jax_axes(name: str, ndim: int) -> tuple[int, ...]:
+    """The permutation that lays the port's leaf ``name`` out as the JAX
+    package's leaf (``leaf.permute(jax_axes(name, leaf.dim()))``), the
+    inverse of :func:`_convert_leaf`'s transposes: a 4-D conv weight OIHW
+    -> HWIO, a 2-D Dense weight (out, in) -> (in, out); an embedding table
+    (a 2-D leaf of a module named ``*embeddings``) and every other leaf
+    keep their axes."""
+    if ndim == 4:
+        return (2, 3, 1, 0)
+    if ndim == 2 and not name.rsplit(".", 1)[0].endswith("embeddings"):
+        return (1, 0)
+    return tuple(range(ndim))
 
 
 def tree_from_jax(tree) -> dict[str, torch.Tensor]:

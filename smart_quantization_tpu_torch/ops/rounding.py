@@ -33,6 +33,13 @@ def uniform(shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
 
 
+def randint(high: int, shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    """Integers in ``[0, high)`` of ``shape`` on ``device`` from ``gen``."""
+    if gen.device.type != torch.device(device).type:
+        gen = child_generator(gen, device)
+    return torch.randint(0, high, shape, generator=gen, device=device)
+
+
 def random_bits(shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     """Uniform 32-bit words (int64 in ``[0, 2^32)``) of ``shape`` on
     ``device`` from ``gen``."""

@@ -38,12 +38,17 @@ def s2fp8_quantize_dequantize(
     stochastic: bool = True,
     check_inf: bool = True,
     rand: torch.Tensor | None = None,
+    rows: bool = False,
 ) -> torch.Tensor:
-    """S2FP8 of ``x``; ``rand`` is passed on to ``float_quantize``."""
+    """S2FP8 of ``x``; ``rand`` is passed on to ``float_quantize``.
+    ``rows``: ``x`` is 2-D and each row takes its own (alpha, beta)."""
     xf = x.to(torch.float32)
     x_abs = xf.abs()
     lg = torch.where(x_abs == 0.0, x_abs, torch.log2(x_abs))
-    alpha, beta = squeeze_coefs(lg.mean(), lg.max())
+    if rows:
+        alpha, beta = squeeze_coefs(lg.mean(1, keepdim=True), lg.amax(1, keepdim=True))
+    else:
+        alpha, beta = squeeze_coefs(lg.mean(), lg.max())
     beta_pow2 = torch.exp2(beta)
     squeezed = torch.pow(x_abs, alpha) * beta_pow2
     t = float_quantize(

@@ -15,6 +15,11 @@ with the same math:
 6. optional ``all_positive`` clamp at zero (Adam's second moment);
 7. data-dependent size: ``outliers * b_out + rest * b_main`` bits.
 
+With ``rows=True`` a 2-D tensor is quantized row by row, each row with its
+own stats (and its own ``min_size`` pass-through), in one vectorized pass:
+the row-wise momentum codec, which the JAX package runs by ``vmap`` over
+rows of its jnp path (``optim/compressed.py:250-328``).
+
 With BatchNorm's ``gamma``/``beta`` (``--use_batch_norm``) the quantizer
 works on the unfolded ``(x - beta) / gamma`` and folds the result back;
 the stats still come from the raw tensor (the reference quirk).  The fold
@@ -33,7 +38,7 @@ import math
 
 import torch
 
-from smart_quantization_tpu_torch.ops.rounding import round_to_grid
+from smart_quantization_tpu_torch.ops.rounding import randint, round_to_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +106,30 @@ def compute_stats(
     return mean, std
 
 
+def row_stats(
+    rows: torch.Tensor, params: SmaQParams, gen: torch.Generator | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``compute_stats`` of each row of a 2-D float32 tensor, as (R, 1)
+    tensors; sampled stats draw one offset per row from ``gen``."""
+    n_rows, n = rows.shape
+    if params.use_sample_stats and n > params.num_samples:
+        if gen is None:
+            raise ValueError("sampled stats require a torch.Generator")
+        k = params.num_samples
+        m = n // k
+        j = randint(m, (n_rows, 1, 1), gen, rows.device).expand(n_rows, k, 1)
+        sample = rows[:, : k * m].reshape(n_rows, k, m).gather(2, j).squeeze(2)
+        n, rows = k, sample
+        correction = 0
+    else:
+        correction = 1 if n > 1 else 0
+    mean = rows.mean(1, keepdim=True)
+    if params.use_range_std_dev:
+        rng = rows.amax(1, keepdim=True) - rows.amin(1, keepdim=True)
+        return mean, rng / math.sqrt(2.0 * math.log(float(n)))
+    return mean, rows.std(1, correction=correction, keepdim=True)
+
+
 def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``v`` (0-d, or one value per channel of dim 1) broadcastable to ``x``."""
     v = v.to(torch.float32)
@@ -124,21 +153,29 @@ def smaq_quantize_dequantize(
     std: torch.Tensor | None = None,
     gamma: torch.Tensor | None = None,
     beta: torch.Tensor | None = None,
+    rows: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fake-quantize ``x`` with SmaQ; returns ``(x_hat, new_size_bits)``.
 
     ``new_size_bits`` is a 0-d float32 tensor on ``x``'s device (the
     original size is the static ``x.numel() * 32``).  Given ``mean``/``std``
-    skip the stats pass; ``gamma``/``beta`` fold BatchNorm's affine in."""
+    skip the stats pass; ``gamma``/``beta`` fold BatchNorm's affine in.
+    ``rows``: ``x`` is 2-D and each row is quantized as a tensor of its
+    own (given stats then hold one value per row); the size is the rows'
+    total."""
     n = x.numel()
-    if n < params.min_size:
+    if (x.shape[1] if rows else n) < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
 
     xf = x.float()
     if mean is None or std is None:
-        mean, std = compute_stats(xf, params, gen)
+        mean, std = row_stats(xf, params, gen) if rows else compute_stats(xf, params, gen)
+    elif rows:
+        mean, std = mean.reshape(-1, 1), std.reshape(-1, 1)
 
     use_bn = gamma is not None and beta is not None
+    if use_bn and rows:
+        raise ValueError("the row-wise codec folds no BatchNorm parameters")
     if use_bn:
         gamma, beta = _per_channel(gamma, xf), _per_channel(beta, xf)
         gamma = torch.where(gamma == 0.0, torch.ones_like(gamma), gamma)

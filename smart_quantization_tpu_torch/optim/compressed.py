@@ -1,15 +1,28 @@
 """Low-precision optimizer step: quantize gradients, weights and momentum
 around the real (fp32) optimizer math.
 
-Counterpart of the per-tensor core of
-``smart_quantization_tpu/optim/compressed.py``:
+Counterpart of ``smart_quantization_tpu/optim/compressed.py`` (its
+single-device forms; the FSDP layouts of packed state wait for the
+distributed paths):
 
 - gradients are quantized (tag ``optimizer_grad``) before the update, after
   the optional ``grad_scaling``;
 - the updated weights are quantized (tag ``optimizer_weight``) except the
   BatchNorm leaves (:func:`norm_param_mask`);
 - the momentum buffers are quantized (tag ``optimizer_momentum``): SGD's
-  trace, Adam's ``mu`` and, with ``all_positive``, ``nu``.
+  trace, Adam's ``mu`` and, with ``all_positive``, ``nu``;
+- ``use_weight_accumulator`` keeps a float32 master copy of the weights in
+  the state (:class:`CompressedOptState`): the optimizer steps the master
+  and the exposed parameters are its quantized view;
+- ``momentum_rowwise`` quantizes each momentum leaf by rows (64 bits of
+  stats a row, counted), ``momentum_log_nu`` quantizes Adam's ``nu`` as
+  ``log2`` of its positive entries (``momentum_log_nu_rowwise`` by rows):
+  both run on plain tensor ops, as the JAX package runs them on its jnp
+  path; rows are the JAX leaf's leading axis (``convert.jax_axes``), not
+  torch's dim 0;
+- ``packed_momentum`` and ``packed_weights`` keep the momentum buffers and
+  the non-exempt weights as uint8 codebook codes (``ops/codebook.py``)
+  between steps, with their real sizes (``8 n + 64`` bits a leaf).
 
 The optimizers are written with tensor ops in optax's order (SGD: coupled
 weight decay -> ``trace(decay=momentum)`` -> ``-lr``; Adam: coupled decay
@@ -18,19 +31,24 @@ decay -> ``-lr``), so the momentum buffers are plain tensors the step can
 quantize.  Parameters, gradients and buffers are flat ``{name: tensor}``
 dicts keyed by ``state_dict`` names.  Each compressor call draws its own
 seed from the step's generator, in leaf order.
-
-The packed, row-wise, log-nu and master-weight branches of the JAX package
-are still to be ported (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from smart_quantization_tpu_torch.compress.base import CompressorBase
+from smart_quantization_tpu_torch.convert import jax_axes
+from smart_quantization_tpu_torch.ops.codebook import (
+    SmaQCodes,
+    smaq_decode,
+    smaq_encode,
+    supports_codebook,
+)
+from smart_quantization_tpu_torch.ops.smaq import SmaQParams
 
 Tree = dict[str, torch.Tensor]
 
@@ -42,12 +60,34 @@ class OptimizerCompression:
     compress_gradients: bool = True
     compress_momentum: bool = True
     grad_scaling: float = 1.0
+    # a float32 master copy of the weights; the params are its quantized view
+    use_weight_accumulator: bool = False
+    # momentum buffers / non-exempt weights stored as uint8 codebook codes
+    packed_momentum: bool = False
+    packed_weights: bool = False
+    # momentum quantized with one (mean, std) per row of the JAX leaf
+    momentum_rowwise: bool = False
+    # Adam's nu quantized as log2 of its positive entries (zeros stay zero),
+    # per tensor or, with momentum_log_nu_rowwise, per row
+    momentum_log_nu: bool = False
+    momentum_log_nu_rowwise: bool = False
 
     @property
     def active(self) -> bool:
         return self.compressor is not None and (
             self.compress_weights or self.compress_gradients or self.compress_momentum
         )
+
+    def packs_momentum(self, spec: "OptimizerSpec") -> bool:
+        return (self.packed_momentum and self.active and self.compress_momentum
+                and spec.has_momentum)
+
+
+class CompressedOptState(NamedTuple):
+    """The optimizer state and the float32 master weights."""
+
+    inner: dict
+    master: dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,45 +180,176 @@ def build_optimizer(
     )
 
 
+def init_opt_state(spec: OptimizerSpec, params: Tree, compression: OptimizerCompression,
+                   gen: torch.Generator | None = None):
+    """The initial optimizer state under ``compression``: with
+    ``packed_momentum`` the (zero) momentum buffers encoded from step zero
+    (they decode exactly), drawing from ``gen``; a ``CompressedOptState``
+    with the master weights under ``use_weight_accumulator``, else the
+    plain state."""
+    inner = spec.init(params)
+    if compression.packs_momentum(spec):
+        p = packed_smaq_params(compression)
+        gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        for name, _ in spec.momentum_buffers:
+            inner[name] = _encode_tree(inner[name], gen, p)[0]
+    if compression.use_weight_accumulator:
+        return CompressedOptState(inner, dict(params))
+    return inner
+
+
 def norm_param_mask(names) -> dict[str, bool]:
     """True for leaves of BATCH-norm layers (exempt from weight
     compression); the port's models name them ``bn*``."""
     return {n: any("bn" in part.lower() for part in n.split(".")) for n in names}
 
 
-def _quantize_tree(tree: Tree, gen, compressor, *, skip=None, all_positive=False):
+def _log_stats(x: torch.Tensor, dim: int | None):
+    """(positive mask, log2 input, mean, std) of ``_log_domain``: the mean
+    and the n-1 std of ``log2`` of the positive entries, over the whole
+    tensor or along ``dim`` (kept); the other entries take the mean."""
+    nz = x > 0.0
+    kw = {} if dim is None else {"dim": dim, "keepdim": True}
+    npos = nz.float().sum(**kw).clamp_min(1.0)
+    lx_raw = torch.log2(torch.where(nz, x, 1.0))
+    mean = torch.where(nz, lx_raw, 0.0).sum(**kw) / npos
+    dev = torch.where(nz, lx_raw - mean, 0.0)
+    std = ((dev * dev).sum(**kw) / (npos - 1.0).clamp_min(1.0)).sqrt()
+    return nz, torch.where(nz, lx_raw, mean), mean, std
+
+
+def _quantize_leaf(comp, name: str, leaf: torch.Tensor, gen, *, rows: bool,
+                   log_domain: bool, all_positive: bool):
+    """One momentum or weight leaf through ``comp``: per tensor, or by rows
+    of the JAX layout (``comp.rowwise``, 64 bits of stats a row); in the
+    log2 domain (positive entries quantized as ``log2(x)`` with the mean and
+    std of the positive logs passed to ``comp``, exact zeros kept) or as
+    is.  Returns (y, orig_bits, new_bits)."""
+    x, call = leaf, comp
+    if rows:
+        axes = jax_axes(name, leaf.dim())
+        jax_leaf = leaf.permute(axes)
+        x, call = jax_leaf.reshape(jax_leaf.shape[0], -1), comp.rowwise
+    if log_domain:
+        nz, lx, mean, std = _log_stats(x.float(), 1 if rows else None)
+        y_l, stats = call(lx, gen, all_positive=False, mean=mean, std=std)
+        y = torch.where(nz, torch.exp2(y_l), 0.0)
+    else:
+        y, stats = call(x, gen, all_positive=all_positive)
+    new = stats.new_bits
+    if rows:
+        inverse = tuple(axes.index(i) for i in range(len(axes)))
+        y = y.reshape(jax_leaf.shape).permute(inverse).contiguous()
+        new = new + float(x.shape[0] * 64)
+    return y.to(leaf.dtype), stats.orig_bits, new
+
+
+def by_rows(name: str, leaf: torch.Tensor) -> bool:
+    """The JAX package's row test, on the JAX leaf's shape: rank >= 2 and
+    a leading axis of 2 or more."""
+    return leaf.dim() >= 2 and leaf.shape[jax_axes(name, leaf.dim())[0]] >= 2
+
+
+def _quantize_tree(tree: Tree, gen, compressor, *, skip=None, all_positive=False,
+                   rowwise=False, log_domain=False):
     """Quantize every non-skipped leaf; returns (tree, orig_bits, new_bits)
-    with the bit totals as 0-d device tensors."""
+    with the bit totals as 0-d device tensors.  ``rowwise`` takes the
+    leaves that pass :func:`by_rows` by rows, ``log_domain`` quantizes in
+    the log2 domain (no ``all_positive`` clamp is needed there)."""
     out, origs, news = {}, [], []
     for k, leaf in tree.items():
         if skip is not None and skip.get(k, False):
             out[k] = leaf
             continue
-        out[k], stats = compressor(leaf, gen, all_positive=all_positive)
-        origs.append(stats.orig_bits)
-        news.append(stats.new_bits)
+        out[k], o, n = _quantize_leaf(
+            compressor, k, leaf, gen, rows=rowwise and by_rows(k, leaf),
+            log_domain=log_domain, all_positive=all_positive)
+        origs.append(o)
+        news.append(n)
     if not origs:
         zero = torch.zeros((), device=next(iter(tree.values())).device)
         return out, zero, zero
     return out, torch.stack(origs).sum(), torch.stack(news).sum()
 
 
+def packed_smaq_params(compression: OptimizerCompression) -> SmaQParams:
+    """The SmaQ parameters behind packed storage, checked."""
+    params = getattr(compression.compressor, "params", None)
+    if not isinstance(params, SmaQParams):
+        raise ValueError(
+            "packed_momentum requires the SmaQ compressor (--compress smart); "
+            f"got {type(compression.compressor).__name__}"
+        )
+    if not supports_codebook(params):
+        raise ValueError(
+            "packed_momentum needs 2^(bm-1) + 2^(bo-1) <= 256 codebook entries; "
+            f"{params.num_bits_main}/{params.num_bits_outlier} bits do not fit uint8"
+        )
+    return params
+
+
+def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None):
+    """Encode every non-skipped leaf of ``min_size`` elements or more to
+    ``SmaQCodes`` (smaller ones stay float32, as the fake path passes them
+    through); returns (tree, orig_bits, new_bits) with the real sizes:
+    ``8 n + 64`` bits a code leaf, ``32 n`` a float32 one, skipped leaves
+    not counted.  Draws from ``gen`` in leaf order, as
+    :func:`_quantize_tree` does."""
+    out, orig, new = {}, 0, 0
+    for k, leaf in tree.items():
+        if skip is not None and skip.get(k, False):
+            out[k] = leaf
+            continue
+        n = leaf.numel()
+        orig += 32 * n
+        if n < params.min_size:
+            out[k] = leaf
+            new += 32 * n
+        else:
+            out[k] = smaq_encode(leaf, gen, params)
+            new += 8 * n + 64
+    device = next(iter(tree.values())).device
+    return (out, torch.full((), float(orig), device=device),
+            torch.full((), float(new), device=device))
+
+
+def _decode_tree(tree: Tree, params: SmaQParams, all_positive: bool) -> Tree:
+    """``SmaQCodes`` leaves decoded to float32; the others as they are."""
+    return {k: smaq_decode(v, params, all_positive=all_positive)
+            if isinstance(v, SmaQCodes) else v for k, v in tree.items()}
+
+
 def compressed_optimizer_step(
     spec: OptimizerSpec,
     params: Tree,
     grads: Tree,
-    opt_state: dict,
+    opt_state,
     gen: torch.Generator | None,
     compression: OptimizerCompression,
     *,
     weight_exempt: dict[str, bool] | None = None,
-) -> tuple[Tree, dict, dict[str, torch.Tensor]]:
+) -> tuple[Tree, object, dict[str, torch.Tensor]]:
     """One optimizer step with compression; returns ``(params, opt_state,
     metrics)``, metrics mapping ``optimizer_{grad,weight,momentum}`` to
-    (2,) ``[orig_bits, new_bits]`` device tensors."""
+    (2,) ``[orig_bits, new_bits]`` device tensors.  ``params`` are float32
+    (decode packed weights first, :func:`decode_params`); under
+    ``packed_weights`` the returned ones hold ``SmaQCodes``."""
     metrics: dict[str, torch.Tensor] = {}
     comp = compression.compressor
     active = compression.active
+
+    master = None
+    wrapped = isinstance(opt_state, CompressedOptState)
+    if wrapped:
+        opt_state, master = opt_state.inner, opt_state.master
+
+    # packed momentum arrives as codes: decode for the optimizer math
+    packed = compression.packs_momentum(spec)
+    if packed:
+        p_params = packed_smaq_params(compression)
+        opt_state = dict(opt_state)
+        for name, all_positive in spec.momentum_buffers:
+            opt_state[name] = _decode_tree(opt_state[name], p_params, all_positive)
 
     if active and compression.compress_gradients:
         if compression.grad_scaling != 1.0:
@@ -186,22 +357,65 @@ def compressed_optimizer_step(
         grads, o, n = _quantize_tree(grads, gen, comp)
         metrics["optimizer_grad"] = torch.stack([o, n])
 
-    updates, opt_state = spec.update(grads, opt_state, params)
-    params = {k: p + updates[k] for k, p in params.items()}
+    # with the accumulator the optimizer steps the float32 master
+    step_params = master if master is not None else params
+    updates, opt_state = spec.update(grads, opt_state, step_params)
+    params = {k: p + updates[k] for k, p in step_params.items()}
+    if master is not None:
+        master = params
 
     if active and compression.compress_weights:
-        params, o, n = _quantize_tree(params, gen, comp, skip=weight_exempt)
+        if compression.packed_weights:
+            params, o, n = _encode_tree(params, gen, packed_smaq_params(compression),
+                                        skip=weight_exempt)
+        else:
+            params, o, n = _quantize_tree(params, gen, comp, skip=weight_exempt)
         metrics["optimizer_weight"] = torch.stack([o, n])
 
     if active and compression.compress_momentum and spec.has_momentum:
         origs, news = [], []
         for name, all_positive in spec.momentum_buffers:
-            opt_state[name], o, n = _quantize_tree(
-                opt_state[name], gen, comp, all_positive=all_positive
-            )
+            if packed:
+                opt_state[name], o, n = _encode_tree(opt_state[name], gen, p_params)
+            else:
+                # nu (the all_positive buffer) may take the log2 codec, by
+                # rows with momentum_log_nu_rowwise; mu and SGD's trace may
+                # take rows
+                log_nu = all_positive and compression.momentum_log_nu
+                opt_state[name], o, n = _quantize_tree(
+                    opt_state[name], gen, comp, all_positive=all_positive,
+                    rowwise=(compression.momentum_log_nu_rowwise if log_nu
+                             else compression.momentum_rowwise),
+                    log_domain=log_nu,
+                )
             origs.append(o)
             news.append(n)
         metrics["optimizer_momentum"] = torch.stack(
             [torch.stack(origs).sum(), torch.stack(news).sum()]
         )
+
+    if wrapped:
+        opt_state = CompressedOptState(opt_state, master)
     return params, opt_state, metrics
+
+
+def decode_params(params: Tree, compression: OptimizerCompression) -> Tree:
+    """Packed weights decoded to float32 for the forward pass (identity
+    without ``packed_weights``)."""
+    if not compression.packed_weights:
+        return params
+    return _decode_tree(params, packed_smaq_params(compression), False)
+
+
+def encode_params(params: Tree, compression: OptimizerCompression,
+                  gen: torch.Generator | None = None, *, exempt=None) -> Tree:
+    """Fresh float32 params in packed storage (init and restore); the
+    exempt leaves (by default :func:`norm_param_mask`'s) stay float32.
+    The initial params are thereby quantized at init rather than after the
+    first step, as in the JAX package."""
+    if not compression.packed_weights:
+        return params
+    if exempt is None:
+        exempt = norm_param_mask(params)
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    return _encode_tree(params, gen, packed_smaq_params(compression), skip=exempt)[0]

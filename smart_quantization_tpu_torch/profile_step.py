@@ -2,7 +2,7 @@
 
     python -m smart_quantization_tpu_torch.profile_step [--model resnet|bert]
         [--no_compress] [--compress smart|fp8|fp16|bf16|s2fp8|fp32]
-        [--use_batch_norm]
+        [--use_batch_norm] [TRAIN FLAGS...]
 
 Runs 3 warm-up steps of a main path, with every structure compressed by the
 chosen encoder (SmaQ 6/8 by default) or ``--no_compress``: ResNet-18, batch
@@ -14,7 +14,9 @@ each, the device's busy time per step (the sum of its kernel times; one
 stream, so kernels do not overlap), its idle share of the unprofiled step,
 kernel launches per step, the encoder kernels' time per step, the peak
 device memory, and the kernels by device time.  The last line is one JSON
-object with the same numbers.
+object with the same numbers.  Any other flags go to the trainer's command
+line as they are (``--momentum_rowwise --momentum_log_nu``,
+``--packed_momentum --packed_weights``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def _device_time_us(evt) -> float:
 
 
 def main(argv=None) -> dict:
+    import os
+
+    # cuBLAS reads this at its first call (the trainer's deterministic kernels)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -46,7 +52,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--compress", default="smart",
                     choices=("smart", "fp8", "fp16", "bf16", "s2fp8", "fp32"))
     ap.add_argument("--use_batch_norm", action="store_true")
-    args = ap.parse_args(argv)
+    args, train_flags = ap.parse_known_args(argv)
     steps, warmup = 10, 3
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
@@ -56,6 +62,7 @@ def main(argv=None) -> dict:
         what.append("--no_compress")
     if args.use_batch_norm:
         what.append("--use_batch_norm")
+    what += train_flags
     model_cli = {
         "resnet": ["--resnet_model", "resnet18", "--batch_size", "128"],
         "bert": ["--dataset", "glue", "--glue_task", "stsb", "--batch_size", "32",
@@ -120,7 +127,7 @@ def main(argv=None) -> dict:
     result = {
         "device": card, "model": args.model,
         "compress": None if args.no_compress else args.compress,
-        "use_batch_norm": args.use_batch_norm, "step_ms": step_ms,
+        "use_batch_norm": args.use_batch_norm, "flags": what, "step_ms": step_ms,
         "step_ms_all": times, "profiled_step_ms": statistics.median(profiled_times),
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / step_ms, "launches_per_step": launches,

@@ -9,6 +9,11 @@ Examples:
       --learning_rate 2e-5 --weight_decay 0.01 --measure_compression_ratio
   python -m smart_quantization_tpu_torch.train --device cpu --compress fp32 \\
       --limit_train_batches 10
+  python -m smart_quantization_tpu_torch.train --model bert --bert_size tiny \\
+      --device cpu --compress smart --optimizer_type adamw --max_input_length 32 \\
+      --momentum_rowwise --momentum_log_nu --limit_train_batches 4
+  python -m smart_quantization_tpu_torch.train --compress smart --packed_momentum \\
+      --packed_weights --checkpoint_dir ckpt   # then --resume_from ckpt/epoch_0000.pt
 """
 
 from __future__ import annotations
@@ -50,6 +55,11 @@ def build_trainer(args):
 
 
 def main(argv=None) -> dict:
+    import os
+
+    # cuBLAS reads this at its first call: set it before torch touches the
+    # card, for the trainer's deterministic kernels
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     from smart_quantization_tpu_torch.train.bert_loop import run_bert
@@ -61,7 +71,7 @@ def main(argv=None) -> dict:
     if args.model == "bert":
         return run_bert(args)  # its weights come from a generator of --seed
     torch.manual_seed(args.seed)  # the model's initial weights
-    return run(build_trainer(args))
+    return run(build_trainer(args), args.resume_from)
 
 
 if __name__ == "__main__":

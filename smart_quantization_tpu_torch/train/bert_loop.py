@@ -63,5 +63,6 @@ def build_bert_trainer(args) -> BertTrainer:
 
 
 def run_bert(args) -> dict:
-    """The CLI path of ``--model bert``: fit, evaluate, print ``final:``."""
-    return run(build_bert_trainer(args))
+    """The CLI path of ``--model bert``: resume, fit, evaluate, print
+    ``final:``."""
+    return run(build_bert_trainer(args), args.resume_from)

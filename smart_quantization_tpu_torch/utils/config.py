@@ -8,7 +8,8 @@ re-parses with the selected encoder's, model's and dataset's own flags
 (the JAX package's defaults: batch 8 on CIFAR, 32 and length 512 on text).
 Flags of paths not yet ported are accepted and raise
 ``NotImplementedError`` naming their ROADMAP item; ``--no_pallas`` is gone
-(the port has no Pallas) and ``--device`` is new.
+(the port has no Pallas), ``--device`` and ``--checkpoint_every_epochs``
+are new.
 """
 
 from __future__ import annotations
@@ -120,17 +121,32 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--no_terminate_on_nan", action="store_false", dest="terminate_on_nan")
     parser.add_argument("--precision", type=int, default=32, choices=(16, 32))
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--checkpoint_dir", type=str,
+                        help="write a checkpoint (epoch_NNNN.pt) here at epoch ends")
+    parser.add_argument("--checkpoint_every_epochs", type=int, default=1)
+    parser.add_argument("--resume_from", type=str,
+                        help="restore a checkpoint written under --checkpoint_dir first")
+    parser.add_argument("--use_weight_accumulator", action="store_true",
+                        help="keep float32 master weights; expose the quantized view")
+    parser.add_argument("--packed_momentum", action="store_true",
+                        help="store SGD's trace / Adam's mu and nu as uint8 SmaQ codebook "
+                             "codes (--compress smart)")
+    parser.add_argument("--packed_weights", action="store_true",
+                        help="store the non-BatchNorm weights as uint8 SmaQ codebook codes, "
+                             "decoded at each step (--compress smart)")
+    parser.add_argument("--momentum_log_nu", action="store_true",
+                        help="quantize Adam's second moment in the log2 domain")
+    parser.add_argument("--momentum_rowwise", action="store_true",
+                        help="quantize momentum with per-row stats (64 bits a row, counted)")
+    parser.add_argument("--momentum_log_nu_rowwise", action="store_true",
+                        help="per-row log2 stats for Adam's second moment (implies "
+                             "--momentum_log_nu)")
     # not yet ported: each raises at build time (see _NOT_YET_PORTED)
     parser.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"))
     parser.add_argument("--steps_per_call", type=int, default=1)
     parser.add_argument("--profile_dir", type=str)
-    parser.add_argument("--checkpoint_dir", type=str)
-    parser.add_argument("--resume_from", type=str)
     parser.add_argument("--dp", type=int)
     parser.add_argument("--fsdp", type=int, default=1)
-    for flag in ("--use_weight_accumulator", "--packed_momentum", "--packed_weights",
-                 "--momentum_log_nu", "--momentum_rowwise", "--momentum_log_nu_rowwise"):
-        parser.add_argument(flag, action="store_true")
 
 
 COMPRESSORS = ("bf16", "fp16", "fp32", "fp8", "s2fp8", "smart")
@@ -150,11 +166,7 @@ _NOT_YET_PORTED = (
     (lambda a: a.compute_dtype != "float32", "--compute_dtype bfloat16", 12),
     (lambda a: a.steps_per_call != 1, "--steps_per_call", 12),
     (lambda a: a.profile_dir, "--profile_dir", 12),
-    (lambda a: a.checkpoint_dir or a.resume_from, "checkpoints (--checkpoint_dir/--resume_from)", 11),
     (lambda a: (a.dp or 1) > 1 or a.fsdp > 1, "DP/FSDP (--dp/--fsdp)", 15),
-    (lambda a: a.use_weight_accumulator or a.packed_momentum or a.packed_weights
-     or a.momentum_log_nu or a.momentum_rowwise or a.momentum_log_nu_rowwise,
-     "the optimizer extensions (accumulator, packed, row-wise, log-nu)", 11),
 )
 
 
@@ -239,6 +251,26 @@ def check_ported(args: argparse.Namespace) -> None:
             )
 
 
+def check_packed(optim_comp) -> None:
+    """Refuse the packed-state settings the JAX package refuses: a
+    compressor other than SmaQ, bit widths beyond the uint8 codebook,
+    packed momentum with a row-wise or log2 codec or without momentum
+    compression, packed weights without weight compression."""
+    from smart_quantization_tpu_torch.optim.compressed import packed_smaq_params
+
+    packed_smaq_params(optim_comp)
+    if optim_comp.packed_momentum and (optim_comp.momentum_rowwise or optim_comp.momentum_log_nu):
+        raise ValueError(
+            "--packed_momentum stores per-tensor linear uint8 codebooks and cannot honor "
+            "--momentum_rowwise/--momentum_log_nu; pick one momentum representation")
+    if optim_comp.packed_momentum and not optim_comp.compress_momentum:
+        raise ValueError("--packed_momentum requires momentum compression; drop "
+                         "--no_compress_momentum_vectors")
+    if optim_comp.packed_weights and not optim_comp.compress_weights:
+        raise ValueError("--packed_weights requires weight compression; drop "
+                         "--no_compress_weights")
+
+
 def multistep_schedule(base_lr: float, gamma: float, milestones, steps_per_epoch: int):
     """The epoch-indexed MultiStepLR as a function of the optimizer step:
     ``gamma`` applies once the count reaches each ``milestone * spe``."""
@@ -296,12 +328,22 @@ def build_components(
         if args.compression_hook_fn == "global_hook":
             tap_cfg = tap_cfg.as_global_hook()
 
-    optim_comp = OptimizerCompression(
-        compressor=compressor,
-        compress_weights=args.compress_weights,
-        compress_gradients=args.compress_gradients,
-        compress_momentum=args.compress_momentum_vectors,
-    )
+    optim_comp = OptimizerCompression()
+    if compressor is not None:
+        optim_comp = OptimizerCompression(
+            compressor=compressor,
+            compress_weights=args.compress_weights,
+            compress_gradients=args.compress_gradients,
+            compress_momentum=args.compress_momentum_vectors,
+            use_weight_accumulator=args.use_weight_accumulator,
+            packed_momentum=args.packed_momentum,
+            packed_weights=args.packed_weights,
+            momentum_rowwise=args.momentum_rowwise,
+            momentum_log_nu=args.momentum_log_nu or args.momentum_log_nu_rowwise,
+            momentum_log_nu_rowwise=args.momentum_log_nu_rowwise,
+        )
+    if optim_comp.packed_momentum or optim_comp.packed_weights:
+        check_packed(optim_comp)
 
     lr = args.learning_rate
     if args.scheduler_type == "multi_step":

@@ -214,7 +214,7 @@ def test_cli_builds_every_encoder(argv):
 
 
 @pytest.mark.parametrize("argv", ["--compress_loss", "--steps_per_call 2", "--model inception",
-                                  "--checkpoint_dir ckpt", "--packed_momentum"])
+                                  "--profile_dir prof", "--fsdp 2"])
 def test_cli_deferred_flags_still_raise(argv):
     from smart_quantization_tpu_torch.utils.config import build_components, parse_args
 
