@@ -25,7 +25,10 @@ non-zero:
    and the outlier size after 1000 back-to-back calls (the self-resetting
    counters); 1000 back-to-back calls of both S2FP8 forms and SmaQ; the
    packed state's codebook against the kernels' fake path and its CPU
-   version by the flip rule, and the dense packer's round trip;
+   version by the flip rule, and the dense packer's round trip; the Philox
+   fill (the tensor-op noise of a step on the card) bitwise against its
+   plain version at bert-base's dropout sizes, and the float kernel's
+   stochastic bits against the fill's words for the same key;
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -38,7 +41,17 @@ non-zero:
    median step time beside the uncompressed step (for BERT with the peak
    device memory and the memory held between steps, and with packed
    state as well); the loss after 17 steps of the codecs against the plain
-   run's; each cell's seeded command twice, bitwise, and the step under
+   run's; ``--steps_per_call``: each cell's seeded command at K=1 and at K
+   (ResNet-18 SmaQ at K=8 over two epochs of 10 steps; bert-base at K=4 in
+   its z-score, codecs and packed forms; K=2 for FP8, FP16, BF16, S2FP8,
+   ``--use_batch_norm``, the master weights, packed momentum and sampled
+   stats), every loss and checkpoint tensor bitwise equal; the launches of
+   a first group (warm-up and capture) and of replays (none from the host,
+   no host sync), a run resumed under K against the straight run, grouped
+   against single evaluation, a ``--profile_dir`` trace with the five
+   regions, and each K-step cell's step time, device idle share, launches,
+   peak and held memory at K=1 and at K (``chiprun_out/k_step_times.json``);
+   each cell's seeded command twice, bitwise, and the step under
    PyTorch's default kernels (determinism's cost);
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
@@ -47,7 +60,8 @@ non-zero:
    ResNet-18 step and of one bert-base step (their calls, at their sizes,
    in one CUDA graph each), and the
    SmaQ kernels' blocks resident per SM; the same for S2FP8, with both of
-   its forms at its threshold and at 8192 elements;
+   its forms at its threshold and at 8192 elements; the Philox fill of
+   bert-base's largest dropout mask;
 6. the kernel table as one JSON line, then the result as the last line.
 
 ``--s2fp8_times_of DIR`` times only the S2FP8 call of the port in DIR
@@ -96,6 +110,7 @@ BERT_ARGV = [
 # word-embedding table (30522 x 768; its gradient, mu and nu alike)
 BERT_SIZES = (("bert intermediate 50331648", 32 * 512 * 3072),
               ("bert word embeddings 23440896", 30522 * 768))
+BERT_LAYERS = 12
 # the stable momentum codecs and the packed state on bert-base
 CODEC_ARGV = ["--momentum_rowwise", "--momentum_log_nu"]
 PACKED_ARGV = ["--packed_momentum", "--packed_weights"]
@@ -104,7 +119,7 @@ RAGGED_BN_SHAPE = (3, 10, 7, 5)
 TPU = "smart_quantization_tpu/ops/pallas"
 # the kernels of csrc/*.cu, as their wrappers count them
 KERNEL_NAMES = ("smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize",
-                "s2fp8_stats", "s2fp8_quantize")
+                "s2fp8_stats", "s2fp8_quantize", "philox_fill")
 CSRC = "smart_quantization_tpu_torch/csrc"
 # the other CLI paths: (label, arguments after MAIN_ARGV's, overall ratio
 # range, the loss must be finite); argparse takes the last --compress
@@ -143,6 +158,26 @@ def check_packed_ratio(label, sizes, param_sizes_, buffers, min_size=8):
              f"sizes' {orig / new}")
 
 
+def timing_key(device):
+    """The step key the timed stochastic launches draw from."""
+    from smart_quantization_tpu_torch.ops.keys import key_tensor
+
+    return key_tensor(7, device)
+
+
+def call_key(device, seed):
+    """What a timed call draws from: a step key on the card, as a training
+    step passes it, where the port has one; else (an older tree of the
+    port) a host generator."""
+    import torch
+
+    try:
+        from smart_quantization_tpu_torch.ops.keys import DeviceKey, key_tensor
+    except ImportError:
+        return torch.Generator().manual_seed(seed)
+    return DeviceKey(key_tensor(seed, device))
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -160,9 +195,14 @@ def card_line() -> str:
 
 
 def kernel_modules():
-    from smart_quantization_tpu_torch.ops.cuda import float_kernel, s2fp8_kernel, smaq_kernel
+    from smart_quantization_tpu_torch.ops.cuda import (
+        float_kernel,
+        philox_kernel,
+        s2fp8_kernel,
+        smaq_kernel,
+    )
 
-    return smaq_kernel, float_kernel, s2fp8_kernel
+    return smaq_kernel, float_kernel, s2fp8_kernel, philox_kernel
 
 
 def reset_counts() -> None:
@@ -430,7 +470,7 @@ def check_small_form(device):
         ys, _ = K.smaq_fused(x, host, stoch)
         stochastic_check(name, x, ys, stoch, quantum, FLIP_FRACTION)
     try:
-        K.smaq_quantize(torch.zeros(t + 1, device=device), trunc, seed=0)
+        K.smaq_quantize(torch.zeros(t + 1, device=device), trunc, key=None)
     except ValueError:
         say(f"  the small form refuses {t + 1} elements -> ok")
     else:
@@ -669,7 +709,7 @@ def check_s2fp8_kernels(device):
         if not ok:
             fail(f"stochastic S2FP8 off its grid: {name}")
     try:
-        S.s2fp8_quantize(torch.zeros(t + 1, device=device), seed=0, stochastic=False,
+        S.s2fp8_quantize(torch.zeros(t + 1, device=device), key=None, stochastic=False,
                          check_inf=True)
     except ValueError:
         say(f"  the small form refuses {t + 1} elements -> ok")
@@ -780,6 +820,60 @@ def check_bn_kernel(device):
     return {"smaq_quantize_bn": err}
 
 
+# the Philox fill at the main path's sizes: a ragged one, bert-base's
+# hidden states (32 x 512 x 768: the embeddings', attention output's and
+# FFN output's dropout) and attention probabilities (32 x 12 x 512 x 512)
+FILL_SIZES = (("ragged 300001", 300_001), ("bert hidden 12582912", 32 * 512 * 768),
+              ("bert attention probs 100663296", 32 * 12 * 512 * 512))
+
+
+def bitwise_equal(a, b) -> bool:
+    """The same dtype, shape and bytes (NaN and -0.0 included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return bool(torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                            b.contiguous().view(-1).view(torch.uint8)))
+
+
+def check_philox_fill(device) -> float:
+    """The Philox fill against its plain version, bitwise, in both outputs
+    at FILL_SIZES; and the float kernel's stochastic rounding against the
+    plain version fed the fill's words for the same (key, call): the
+    kernels and the fill draw the same bits.  Returns the largest
+    difference (0.0: every check is bitwise)."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import philox_kernel as P
+    from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT, float_quantize
+    from smart_quantization_tpu_torch.ops.keys import key_tensor, step_key
+
+    for i, (label, n) in enumerate(FILL_SIZES):
+        key = key_tensor(step_key(0, i), device)
+        for uniform in (False, True):
+            got = P.philox_fill(n, key, 5 + i, uniform=uniform)
+            want = P.philox_fill_reference(n, key, 5 + i, uniform=uniform)
+            torch.cuda.synchronize()
+            if not bitwise_equal(got, want):
+                fail(f"philox_fill {label} ({'uniform' if uniform else 'words'}) differs from "
+                     "its plain version")
+            del got, want
+        say(f"  philox_fill {label}: words and uniforms bitwise equal to the plain version")
+    x = torch.randn(300_001, generator=torch.Generator(device=device).manual_seed(20),
+                    device=device) * 3.0
+    key = key_tensor(step_key(1, 2), device)
+    y = F.float_quantize_launch(x, FP8_FORMAT, key=key, call=9, stochastic=True, check_inf=True)
+    words = P.philox_fill(x.numel(), key, 9, uniform=False).to(torch.int64) & 0xFFFFFFFF
+    ref = float_quantize(x, FP8_FORMAT, None, stochastic=True, check_inf=True, rand=words)
+    if not bitwise_equal(y, ref):
+        fail("float_quantize's stochastic bits are not the fill's words for the same key")
+    say("  float_quantize (fp8, stochastic) bitwise equal to its plain version fed the "
+        "fill's words: the kernels and the fill draw the same bits")
+    return 0.0
+
+
 # ---------------------------------------------------------------- phase 4
 def per_step_calls(trainer, model_name: str) -> int:
     """Encoder calls per training step: every tap forward and backward, every
@@ -796,15 +890,27 @@ def per_step_calls(trainer, model_name: str) -> int:
     return 2 * taps + len(names) + kept + len(names) * len(trainer.spec.momentum_buffers)
 
 
+def draws_noise(args) -> bool:
+    """Whether a command line's training step draws tensor-op noise through
+    the Philox fill: BERT's dropout, the row-wise codecs' and the packed
+    state's rounding."""
+    return (args.model == "bert" or getattr(args, "momentum_rowwise", False)
+            or getattr(args, "momentum_log_nu_rowwise", False) or args.packed_momentum
+            or args.packed_weights)
+
+
 def path_kernels(args) -> tuple[str, ...]:
     """The kernels a parsed command line's training runs through."""
+    fill = ("philox_fill",) if draws_noise(args) else ()
     if args.compress in ("fp8", "fp16", "bf16"):
-        return ("float_quantize",)
+        return ("float_quantize", *fill)
     if args.compress == "s2fp8":
-        return ("s2fp8_stats", "s2fp8_quantize")
+        return ("s2fp8_stats", "s2fp8_quantize", *fill)
+    # sampled stats take the TPU kernel's fixed positions: no stats launch
+    stats = () if args.use_sample_stats else ("smaq_stats",)
     if args.use_batch_norm:
-        return ("smaq_stats", "smaq_quantize", "smaq_quantize_bn")
-    return ("smaq_stats", "smaq_quantize")
+        return (*stats, "smaq_quantize", "smaq_quantize_bn", *fill)
+    return (*stats, "smaq_quantize", *fill)
 
 
 def step_calls(trainer, model_args) -> list[tuple[int, str]]:
@@ -816,11 +922,12 @@ def step_calls(trainer, model_args) -> list[tuple[int, str]]:
     launches: ``plain`` (``smaq_plan``'s form), ``bn`` (the BN kernel),
     ``given`` (the log2 codec's per-tensor call with its own stats: the
     quantize kernel alone), ``rows`` (the row-wise codecs: tensor ops, no
-    kernel) or ``encode`` (packed state: the stats kernel, then tensor
-    ops)."""
+    SmaQ kernel; its size is a row's) or ``encode`` (packed state: the
+    stats kernel, then tensor ops)."""
     import torch
 
     from smart_quantization_tpu_torch.compress.base import SizeStats
+    from smart_quantization_tpu_torch.convert import jax_axes
     from smart_quantization_tpu_torch.inject import tap
     from smart_quantization_tpu_torch.optim.compressed import by_rows, norm_param_mask
 
@@ -851,7 +958,8 @@ def step_calls(trainer, model_args) -> list[tuple[int, str]]:
             if comp.packed_momentum:
                 form = "encode"
             elif rows and by_rows(k, p):
-                form = "rows"
+                momentum.append((p.numel() // p.shape[jax_axes(k, p.dim())[0]], "rows"))
+                continue
             else:
                 form = "given" if log_nu else "plain"
             momentum.append((p.numel(), form))
@@ -867,7 +975,11 @@ def expected_launches(args, calls) -> dict:
     forms (``step_calls``) the quantize alone (``given``), the stats alone
     (``encode``) or nothing (``rows``); none for a SmaQ call below
     ``--min_size`` elements (it passes through); under --use_batch_norm
-    the forward taps of the BatchNorms go to the BN kernel."""
+    the forward taps of the BatchNorms go to the BN kernel.  Philox fills:
+    one for each of BERT's dropout sites (3 a layer, the embeddings', the
+    pooler's), one for the rounding of each ``rows`` and ``encode`` call of
+    ``--min_size`` elements (a row's, for ``rows``) or more, and one more
+    for its offset under ``--use_sample_stats``."""
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda.launch import sm_count
@@ -876,26 +988,34 @@ def expected_launches(args, calls) -> dict:
 
     sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
     kernels = path_kernels(args)
+    fills = {}
+    if "philox_fill" in kernels:
+        draws = 1 + int(args.use_sample_stats)
+        fills["philox_fill"] = sum(
+            draws for n, form in calls if form in ("rows", "encode") and n >= args.min_size)
+        if args.model == "bert":
+            fills["philox_fill"] += 3 * BERT_LAYERS + 2
     if kernels[0] == "s2fp8_stats":
         return {"s2fp8_stats": sum(s2fp8_plan(n, sms)[0] == "split" for n, _ in calls),
-                "s2fp8_quantize": len(calls)}
-    if kernels[0] != "smaq_stats":
-        return {k: len(calls) for k in kernels}
-    out = dict.fromkeys(kernels, 0)
+                "s2fp8_quantize": len(calls), **fills}
+    if kernels[0] == "float_quantize":
+        return {"float_quantize": len(calls), **fills}
+    out = {**dict.fromkeys(kernels, 0), **fills}
+    stats = 0 if args.use_sample_stats else 1
     for n, form in calls:
         if n < args.min_size or form == "rows":
             continue
         if form == "bn":
-            out["smaq_stats"] += 1
+            out["smaq_stats"] = out.get("smaq_stats", 0) + stats
             out["smaq_quantize_bn"] += 1
         elif form == "encode":
-            out["smaq_stats"] += 1
+            out["smaq_stats"] = out.get("smaq_stats", 0) + stats
         elif form == "given":
             out["smaq_quantize"] += 1
         else:
-            out["smaq_stats"] += smaq_plan(n, sms)[0] == "split"
+            out["smaq_stats"] = out.get("smaq_stats", 0) + stats * (smaq_plan(n, sms)[0] == "split")
             out["smaq_quantize"] += 1
-    return out
+    return {k: v for k, v in out.items() if k in kernels}
 
 
 def run_main_path(extra_argv=(), ratio_range=(4.5, 5.5), finite_loss=True,
@@ -1043,10 +1163,10 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
                       if k.startswith("_ratio/")}}
 
 
-def seeded_run(base_argv, extra, steps, out_dir):
-    """The CLI's ``main`` for ``steps`` steps with every loss logged and a
-    checkpoint at the epoch's end; returns the logged losses by step and
-    the checkpoint's tensors."""
+def seeded_run(base_argv, extra, steps, out_dir, checkpoint="epoch_0000.pt"):
+    """The CLI's ``main`` for ``steps`` steps an epoch with every loss logged
+    and a checkpoint at each epoch's end; returns the logged losses by step
+    and the tensors of ``checkpoint``."""
     import torch
 
     from smart_quantization_tpu_torch.train.__main__ import main
@@ -1067,7 +1187,7 @@ def seeded_run(base_argv, extra, steps, out_dir):
         else:
             flat[prefix] = torch.tensor(tree)
 
-    walk("", torch.load(os.path.join(out_dir, "epoch_0000.pt"), map_location="cpu",
+    walk("", torch.load(os.path.join(out_dir, checkpoint), map_location="cpu",
                         weights_only=True))
     return losses, flat
 
@@ -1103,6 +1223,243 @@ def torch_equal(a, b) -> bool:
     import torch
 
     return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+# ------------------------------------------------------ phase 4: K steps
+K_RESNET, K_BERT = 8, 4
+# the other encoders and options: K=2 against K=1 on ResNet-18, 5 steps
+# (a group that warms up and captures, a replayed group, a leftover step)
+K2_PATHS = [
+    ("fp8", ["--compress", "fp8"]),
+    ("fp16", ["--compress", "fp16"]),
+    ("bf16", ["--compress", "bf16"]),
+    ("s2fp8", ["--compress", "s2fp8", "--no_terminate_on_nan"]),
+    ("smart bn", ["--use_batch_norm"]),
+    ("smart accumulator", ["--use_weight_accumulator"]),
+    ("smart packed momentum", ["--packed_momentum"]),
+    ("smart sample stats", ["--use_sample_stats"]),
+]
+
+
+def k_equals_eager(label, base_argv, extra, k, steps, epochs=1):
+    """The seeded command at K=1 and at K=k through the CLI's ``main``,
+    every loss logged and a checkpoint at each epoch's end: fails unless
+    every loss and every tensor of the last checkpoint are bitwise equal.
+    Returns the K=k run's launch counts (the slice's main path: the counts
+    are set to 0 just before it and read just after)."""
+    import shutil
+
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    import gc
+
+    import torch
+
+    runs = []
+    argv = base_argv + list(extra) + ["--max_epochs", str(epochs)]
+    for spc in (1, k):
+        gc.collect()  # the last run's trainer and its graphs' memory pools
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(ROOT, "tmp_chip_smoke", f"k_{label.replace(' ', '_')}_{spc}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        runs.append(seeded_run(argv, ["--steps_per_call", str(spc)], steps, out_dir,
+                               checkpoint=f"epoch_{epochs - 1:04d}.pt"))
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        shutil.rmtree(os.path.dirname(out_dir), ignore_errors=True)
+    kernels = path_kernels(parse_args(argv))
+    if any(counts[name] == 0 for name in kernels):
+        fail(f"[{label} K={k}] a kernel of {kernels} was launched no time: {counts}")
+    (la, ta), (lb, tb) = runs
+    diff_steps = [s for s in sorted(la) if la[s] != lb.get(s)]
+    diff_tensors = [name for name in ta if name not in tb or not bitwise_equal(ta[name], tb[name])]
+    say(f"  [{label}] K={k} against K=1, {len(la)} steps ({epochs} epoch(s) of {steps}): losses "
+        f"{'equal' if not diff_steps and len(la) == len(lb) else 'differ at ' + str(diff_steps[:3])}"
+        f" ({la[min(la)]!r} .. {la[max(la)]!r}); {len(ta) - len(diff_tensors)} of {len(ta)} "
+        f"checkpoint tensors bitwise equal; K={k} run {wall:.1f} s")
+    if diff_steps or diff_tensors or len(la) != len(lb) or len(la) != steps * epochs:
+        fail(f"[{label}] the K={k} run is not bitwise the K=1 run: {diff_tensors[:3]}")
+    return {name: counts[name] for name in kernels}
+
+
+def state_tensors(trainer, state) -> dict:
+    """Every tensor a run keeps: parameters (packed ones as their codes),
+    buffers and the optimizer state."""
+    import torch
+
+    from smart_quantization_tpu_torch.train.state import to_saved
+
+    flat = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for name, v in tree.items():
+                walk(f"{prefix}/{name}", v)
+        elif isinstance(tree, torch.Tensor):
+            flat[prefix] = tree
+        else:
+            flat[prefix] = torch.tensor(tree)
+
+    params = state.packed_params
+    if params is None:
+        params = {n: p.detach() for n, p in trainer.model.named_parameters()}
+    walk("params", to_saved(params))
+    walk("buffers", dict(trainer.model.named_buffers()))
+    walk("opt", to_saved(state.opt_state))
+    return flat
+
+
+def resume_and_replay(k=K_RESNET):
+    """ResNet-18 SmaQ at K=k through the trainer: the first group's
+    launches are k eager (warm-up) steps and k captured ones, each equal to
+    the launch plan of one step, and a replay launches nothing from the
+    host and makes no host sync; a run resumed from a checkpoint after the
+    first group ends its next two groups bitwise where the straight run
+    does; the grouped evaluation (K=4, 13 batches: three groups and a
+    leftover) equals the single one."""
+    import torch
+
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    args = parse_args(MAIN_ARGV + ["--steps_per_call", str(k), "--logdir", ""])
+    torch.manual_seed(0)
+    straight = build_trainer(args)
+    state = straight.init_state()
+    batches, epoch = [], 0
+    while len(batches) < 3 * k:
+        for inputs, labels in straight.data.device_train_batches(epoch, straight.device):
+            batches.append((straight.task.prepare_train(inputs, straight.data_gen), labels))
+        epoch += 1
+    groups = [batches[i * k:(i + 1) * k] for i in range(3)]
+    inputs, _ = next(iter(straight.data.device_train_batches(0, straight.device)))
+    calls = step_calls(straight, straight.task.model_args(straight.task.prepare_eval(inputs)))
+    per_step = expected_launches(args, calls)
+
+    reset_counts()
+    straight.train_steps(state, groups[0])
+    first = {name: v for name, v in read_counts().items() if v}
+    if first != {name: 2 * k * v for name, v in per_step.items() if v}:
+        fail(f"the first group launched {first}; expected {2 * k} x {per_step}")
+    path = os.path.join(ROOT, "tmp_chip_smoke", "resume", "group_1.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    straight.save_checkpoint(path, state)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [straight.train_steps(state, g)["train_loss"] for g in groups[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    replayed = {name: v for name, v in read_counts().items() if v}
+    if replayed:
+        fail(f"a replay launched kernels from the host: {replayed}")
+    say(f"  [resnet18 K={k}] first group: {first} = {k} eager warm-up steps + {k} captured "
+        f"steps, {per_step} each (a replayed step runs the captured launches / K); two "
+        "replays: no launch from the host, no host sync")
+
+    torch.manual_seed(0)
+    resumed = build_trainer(args)
+    s2 = resumed.load_checkpoint(path)
+    got = [resumed.train_steps(s2, g)["train_loss"] for g in groups[1:]]
+    want_t, got_t = state_tensors(straight, state), state_tensors(resumed, s2)
+    same = (all(bitwise_equal(a, b) for a, b in zip(losses, got)) and set(want_t) == set(got_t)
+            and all(bitwise_equal(v, got_t[name]) for name, v in want_t.items()))
+    say(f"  [resnet18 K={k}] resumed after the first group: the next {2 * k} losses and "
+        f"{len(want_t)} state tensors {'bitwise equal' if same else 'differ'} at step "
+        f"{s2.step} (straight {state.step})")
+    if not same or s2.step != state.step:
+        fail("the resumed K-step run does not end where the straight run ends")
+
+    straight.cfg.limit_val_batches = 13
+    straight.cfg.steps_per_call = 1
+    single = straight.evaluate(state)
+    straight.cfg.steps_per_call = 4
+    grouped = straight.evaluate(state)
+    say(f"  [resnet18] evaluation of 13 batches in groups of 4 (a graph) and singly: "
+        f"{'equal' if grouped == single else 'differ'} (val_loss {single['val_loss']!r}, "
+        f"val_accuracy {single['val_accuracy']!r})")
+    if grouped != single:
+        fail(f"grouped evaluation {grouped} differs from single evaluation {single}")
+
+
+def profile_dir_run():
+    """A ``--profile_dir`` run of 2 steps: its trace names the five regions
+    and holds device kernels."""
+    import glob
+    import shutil
+
+    from smart_quantization_tpu_torch.train.__main__ import main
+    from smart_quantization_tpu_torch.utils.profiling import REGIONS
+
+    out_dir = os.path.join(ROOT, "tmp_chip_smoke", "profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    main(MAIN_ARGV + ["--limit_train_batches", "2", "--limit_val_batches", "1",
+                      "--profile_dir", out_dir, "--profile_steps", "2", "--logdir", out_dir])
+    traces = glob.glob(os.path.join(out_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--profile_dir wrote {len(traces)} traces")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    missing = [r for r in REGIONS if r not in names]
+    say(f"  --profile_dir: {os.path.basename(traces[0])} names "
+        f"{len(REGIONS) - len(missing)} of the {len(REGIONS)} regions, {kernels} device kernels")
+    shutil.rmtree(os.path.dirname(out_dir), ignore_errors=True)
+    if missing or not kernels:
+        fail(f"the trace lacks the regions {missing} or device kernels ({kernels})")
+
+
+# the K-step cells: (label, the command line, K, and at K=1 and at K the
+# warm-up, timed and profiled dispatches)
+K_CELLS = [
+    ("ResNet-18 smart", MAIN_ARGV, K_RESNET, ((3, 10, 5), (2, 6, 1))),
+    ("bert-base z-score", BERT_ARGV, K_BERT, ((2, 6, 2), (2, 4, 1))),
+    ("bert-base codecs", BERT_ARGV + CODEC_ARGV, K_BERT, ((2, 6, 2), (2, 4, 1))),
+    ("bert-base packed", BERT_ARGV + PACKED_ARGV, K_BERT, ((2, 6, 2), (2, 4, 1))),
+]
+
+
+def k_timings(card) -> dict:
+    """Each K-step cell at K=1 and at its K, in turns, by
+    ``profile_step.profile``: the median step, device busy and idle share,
+    kernels and host launch calls a step, peak memory and the memory held
+    between steps; into ``chiprun_out/k_step_times.json``."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.profile_step import profile
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    out = {"card": card, "cells": {}}
+    for label, argv, k, counts in K_CELLS:
+        cell = {}
+        for spc, (warmup, steps, profiled) in zip((1, k), counts):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.manual_seed(0)
+            trainer = build_trainer(parse_args(argv + ["--steps_per_call", str(spc),
+                                                       "--logdir", ""]))
+            r = profile(trainer, steps=steps, warmup=warmup, profiled=profiled)
+            del trainer
+            r.pop("top")
+            cell[f"K={spc}"] = r
+            say(f"  [{label} K={spc}] step {r['step_ms']:.2f} ms, device busy "
+                f"{r['device_busy_ms']:.2f} ms, idle {r['device_idle_share']:.1%}, "
+                f"{r['launches_per_step']:.0f} kernels and {r['host_launches_per_step']:.2f} "
+                f"host launch calls a step, peak {r['peak_memory_gb']:.2f} GB from the first "
+                f"step, held {r['held_memory_gb']:.2f} GB allocated and "
+                f"{r['reserved_memory_gb']:.2f} GB reserved between steps (the graph's pool "
+                f"under K > 1) on {card}")
+        out["cells"][label] = cell
+    with open(os.path.join(OUT, "k_step_times.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1164,6 +1521,8 @@ def time_kernels(device, timed):
     params = SmaQParams()
     gen = torch.Generator(device=device).manual_seed(2)
     host = torch.Generator().manual_seed(3)
+    dkey = call_key(device, 3)
+    tkey = timing_key(device)  # made once: a fill inside a timed call would count
     x = torch.randn(ACT_SHAPE, generator=gen, device=device).reshape(-1)
     n = x.numel()
     consts = K.smaq_stats(x, params)
@@ -1176,12 +1535,12 @@ def time_kernels(device, timed):
     y = torch.empty_like(x)
 
     def fq(fmt, stochastic):
-        return lambda: F.float_quantize_launch(x, fmt, seed=7, stochastic=stochastic, check_inf=True)
+        return lambda: F.float_quantize_launch(x, fmt, key=tkey, stochastic=stochastic, check_inf=True)
 
     t = {
         "smaq_stats": timed(lambda: K.smaq_stats(x, params)),
-        "smaq_quantize": timed(lambda: K.smaq_quantize(x, params, seed=7, consts=consts)),
-        "smaq_call": timed(lambda: K.smaq_fused(x, host, params)),
+        "smaq_quantize": timed(lambda: K.smaq_quantize(x, params, key=tkey, consts=consts)),
+        "smaq_call": timed(lambda: K.smaq_fused(x, dkey, params)),
         "plain_stats": timed(lambda: K.pivot_stats_reference(x, params)),
         "plain_quantize": timed(lambda: K.smaq_fused_reference(x, host, params, mean=mean, std=std)),
         "plain_call": timed(lambda: K.smaq_fused_reference(x, host, params)),
@@ -1196,13 +1555,13 @@ def time_kernels(device, timed):
         "library_bf16": timed(lambda: x.bfloat16().float()),
         "s2fp8_stats": timed(lambda: S.s2fp8_stats(x)),
         "s2fp8_quantize": timed(lambda: S.s2fp8_quantize(
-            x, s2_consts, seed=7, stochastic=True, check_inf=True)),
-        "s2fp8_pair": timed(lambda: S.s2fp8_fused(x, host)),
+            x, s2_consts, key=tkey, stochastic=True, check_inf=True)),
+        "s2fp8_pair": timed(lambda: S.s2fp8_fused(x, dkey)),
         "plain_s2fp8_stats": timed(lambda: S.stats_reference(x)),
         "plain_s2fp8": timed(lambda: S.s2fp8_fused_reference(x, host)),
         "smaq_quantize_bn": timed(lambda: K.smaq_quantize_bn(
             x, gamma, beta, channels, n // (BN_SHAPE[0] * channels), params,
-            seed=7, consts=consts)),
+            key=tkey, consts=consts)),
         "plain_bn": timed(lambda: K.smaq_fused_bn_reference(
             xb, host, gamma, beta, params, mean=mean, std=std)),
         # yardsticks that move the same bytes: a read, and a read and a write
@@ -1229,9 +1588,31 @@ def time_kernels(device, timed):
 CALL_SIZES = (8_388_608, 2_097_152, 147_456, 36_864, 8192, 512, 64)
 
 
+def time_fill(device, timed):
+    """The Philox fill of the largest dropout mask (bert-base's attention
+    probabilities, FILL_SIZES' last) in uniforms, its plain version and
+    ``torch.rand`` of the same size (a yardstick only: another generator's
+    bits, not the same function); the bound is the 4 bytes an element
+    written.  Returns (times, bound, n) in ms."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import philox_kernel as P
+
+    n = FILL_SIZES[-1][1]
+    key = timing_key(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    t = {
+        "philox_fill": timed(lambda: P.philox_fill(n, key, 3, uniform=True)),
+        "plain_fill": timed(lambda: P.philox_fill_reference(n, key, 3, uniform=True), runs=5),
+        "torch_rand": timed(lambda: torch.rand(n, generator=gen, device=device)),
+    }
+    return t, 4 * n / (HBM_BYTES_PER_S / 1e3), n
+
+
 def time_smaq(device, timed, per_call, step_calls_of, card):
     """Phase 5's SmaQ lines; returns them as a dict.  ``step_calls_of``
     maps a model's name to one training step's encoder calls."""
+    tkey = timing_key(device)  # made once: a fill inside a timed call would count
     import ctypes
 
     import torch
@@ -1241,7 +1622,7 @@ def time_smaq(device, timed, per_call, step_calls_of, card):
     from smart_quantization_tpu_torch.ops.smaq import SmaQParams
 
     params, trunc = SmaQParams(), SmaQParams(stochastic_rounding=False)
-    host = torch.Generator().manual_seed(5)
+    dkey = call_key(device, 5)
     largest = max(n for calls in step_calls_of.values() for n, _ in calls)
     x = torch.randn(max(largest, math.prod(ACT_SHAPE)), device=device,
                     generator=torch.Generator(device=device).manual_seed(4))
@@ -1252,7 +1633,7 @@ def time_smaq(device, timed, per_call, step_calls_of, card):
 
     def call(n):
         xn = x[:n]
-        return lambda: K.smaq_fused(xn, host, params)
+        return lambda: K.smaq_fused(xn, dkey, params)
 
     # in a CUDA graph: a lone multi-launch call's events also catch the
     # host's delays between its launches
@@ -1267,7 +1648,7 @@ def time_smaq(device, timed, per_call, step_calls_of, card):
             f"{b * 1e3:.3f} us (8 B/element), {b / stream:.1%} of it")
 
     consts = K.smaq_stats(x8m, params)
-    q = {name: timed(lambda p=p: K.smaq_quantize(x8m, p, seed=7, consts=consts)) * 1e3
+    q = {name: timed(lambda p=p: K.smaq_quantize(x8m, p, key=tkey, consts=consts)) * 1e3
          for name, p in (("trunc", trunc), ("stochastic", params))}
     out["quantize_us"] = q
     say(f"  smaq_quantize at {x8m.numel()}: truncation {q['trunc']:.2f} us, "
@@ -1334,13 +1715,13 @@ def s2fp8_call_times(device, timed, per_call, calls) -> dict:
 
     from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
 
-    host = torch.Generator().manual_seed(6)
+    dkey = call_key(device, 6)
     x = torch.randn(math.prod(ACT_SHAPE), device=device,
                     generator=torch.Generator(device=device).manual_seed(7))
 
     def call(n):
         xn = x[:n]
-        return lambda: S.s2fp8_fused(xn, host)
+        return lambda: S.s2fp8_fused(xn, dkey)
 
     def digest(gen):
         y = S.s2fp8_fused(x, gen, stochastic=gen is not None)
@@ -1373,6 +1754,7 @@ def time_s2fp8(device, timed, per_call, calls, card):
         sm_count,
     )
 
+    tkey = timing_key(device)  # made once: a fill inside a timed call would count
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
     sms = sm_count(device)
     out = {"card": card, **s2fp8_call_times(device, timed, per_call, calls)}
@@ -1395,12 +1777,13 @@ def time_s2fp8(device, timed, per_call, calls, card):
         # the small form through the C entry point: the wrapper refuses it
         # above SMALL_MAX
         def small(xn=xn, yn=yn, n=n):
-            raise_on(lib.s2fp8_quantize(xn.data_ptr(), yn.data_ptr(), n, None, 7, 1, 1, 1,
-                                        S.SMALL_THREADS, torch.cuda.current_stream(device).cuda_stream),
+            raise_on(lib.s2fp8_quantize(xn.data_ptr(), yn.data_ptr(), n, None, tkey.data_ptr(),
+                                        0, 1, 1, 1, S.SMALL_THREADS,
+                                        torch.cuda.current_stream(device).cuda_stream),
                      "s2fp8_quantize")
 
         def split(xn=xn):
-            S.s2fp8_quantize(xn, S.s2fp8_stats(xn), seed=7, stochastic=True, check_inf=True)
+            S.s2fp8_quantize(xn, S.s2fp8_stats(xn), key=tkey, stochastic=True, check_inf=True)
 
         forms = {"small": per_call(small) * 1e3, "split": per_call(split) * 1e3}
         out["forms_us"][n] = forms
@@ -1408,7 +1791,7 @@ def time_s2fp8(device, timed, per_call, calls, card):
             f"split {forms['split']:.2f} us ({S.s2fp8_plan(n, sms)[0]} form planned)")
 
     consts = S.s2fp8_stats(x)
-    q = {name: timed(lambda s=s: S.s2fp8_quantize(x, consts, seed=7, stochastic=s,
+    q = {name: timed(lambda s=s: S.s2fp8_quantize(x, consts, key=tkey, stochastic=s,
                                                   check_inf=True)) * 1e3
          for name, s in (("nearest", False), ("stochastic", True))}
     out["quantize_us"] = q
@@ -1497,6 +1880,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[3] kernels against their plain version")
     errs = check_kernels(device)
     errs["smaq_quantize"] = max(errs["smaq_quantize"], check_small_form(device))
@@ -1506,7 +1890,9 @@ def main() -> int:
     check_s2fp8_back_to_back(device)
     errs.update(check_bn_kernel(device))
     check_codebook(device)
+    errs["philox_fill"] = check_philox_fill(device)
 
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[4] training: ResNet-18, batch 128, full coverage")
     launches, _ = run_main_path()
     res = time_steps([], check_launches=True)
@@ -1528,15 +1914,16 @@ def main() -> int:
                          ("smart packed momentum", ["--packed_momentum"])):
         got, final = run_main_path(extra, train_batches=5, label=label)
         for k, v in got.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
         if "packed" in label:
             check_packed_ratio(label, [final["orig_size_optimizer_momentum"],
                                        final["new_size_optimizer_momentum"]], resnet_sizes, 1)
 
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("  bert-base, batch 32 x 512, synthetic GLUE STSB, SmaQ 6/8 full coverage, AdamW")
     got, final = run_main_path([], train_batches=5, label="bert stsb", base_argv=BERT_ARGV)
     for k, v in got.items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     say(f"  [bert stsb] val_pearson={final.get('val_pearson')!r} "
         f"val_spearmanr={final.get('val_spearmanr')!r}")
     bert = time_steps([], check_launches=True, base_argv=BERT_ARGV)
@@ -1551,7 +1938,7 @@ def main() -> int:
     got, final = run_main_path(CODEC_ARGV, train_batches=5, label="bert codecs",
                                base_argv=BERT_ARGV)
     for k, v in got.items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     codec = time_steps(CODEC_ARGV, check_launches=True, base_argv=BERT_ARGV)
     say(f"  [bert codecs] train loss after 17 steps: {codec['loss']!r} with the codecs, "
         f"{bert['loss']!r} z-score, {bert_plain['loss']!r} --no_compress; median step "
@@ -1573,6 +1960,26 @@ def main() -> int:
         fail("[bert packed] the packed run's peak memory is not below the unpacked run's")
     steps["bert stsb packed"] = packed["ms"]
 
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
+    say(f"  --steps_per_call: K steps in one CUDA graph against K single steps, bitwise "
+        f"(each cell's seeded command at K=1 and at K; a run's first group warms up and "
+        f"captures, later groups replay, a leftover runs as single steps)")
+    for label, base, extra, k, n_steps, epochs in (
+            ("resnet18 smart", MAIN_ARGV, [], K_RESNET, 10, 2),
+            ("bert stsb", BERT_ARGV, [], K_BERT, 9, 1),
+            ("bert codecs", BERT_ARGV, CODEC_ARGV, K_BERT, 9, 1),
+            ("bert packed", BERT_ARGV, PACKED_ARGV, K_BERT, 9, 1),
+            *((f"resnet18 {name}", MAIN_ARGV, extra, 2, 5, 1) for name, extra in K2_PATHS)):
+        for kname, v in k_equals_eager(label, base, extra, k, n_steps, epochs).items():
+            launches[kname] = launches.get(kname, 0) + v
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
+    resume_and_replay()
+    profile_dir_run()
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
+    say(f"  K-step timings (profile_step.profile; K={K_RESNET} ResNet-18, K={K_BERT} bert-base)")
+    k_timings(card)
+
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("  the same seeded command twice (5 steps, a checkpoint each, every loss logged)")
     for label, base, extra in (("resnet18", MAIN_ARGV, []), ("bert stsb", BERT_ARGV, [])):
         same, line = seeded_twice(label, base, extra)
@@ -1591,6 +1998,7 @@ def main() -> int:
     # phase 5 times kernels under PyTorch's defaults, as before
     nondeterministic()
 
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[5] kernel times at 8388608 elements (median of 25, L2 flushed)")
     timed, per_call = make_timer(device)
     t, bound, n = time_kernels(device, timed)
@@ -1618,6 +2026,13 @@ def main() -> int:
     say(f"  PyTorch moving the same bytes: x.sum() {t['torch_sum'] * 1e3:.1f} us (a read, as "
         f"smaq_stats), y.copy_(x) {t['torch_copy'] * 1e3:.1f} us (a read and a write, as "
         f"smaq_quantize)")
+    tf, bound["philox_fill"], fill_n = time_fill(device, timed)
+    t.update(tf)
+    say(f"  philox_fill ({fill_n} uniforms, bert-base's attention dropout): "
+        f"{t['philox_fill'] * 1e3:.1f} us, plain {t['plain_fill'] * 1e3:.1f} us, torch.rand "
+        f"{t['torch_rand'] * 1e3:.1f} us (a yardstick: another generator's bits), bound "
+        f"{bound['philox_fill'] * 1e3:.1f} us (bytes), "
+        f"{bound['philox_fill'] / t['philox_fill']:.1%} of it, on {card}")
     time_smaq(device, timed, per_call, {"ResNet-18": calls, "bert-base": bert_calls}, card)
     time_s2fp8(device, timed, per_call, calls, card)
 
@@ -1637,10 +2052,16 @@ def main() -> int:
         row("s2fp8_stats", "s2fp8.cu", "s2fp8_kernel.py:226", "plain_s2fp8_stats"),
         # the plain version computes its own stats: its time is the pair's
         row("s2fp8_quantize", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8"),
+        # no TPU kernel: the fill stands in for the JAX package's jax.random
+        # draws of tensor-op noise (its stochastic rounding's, for one)
+        {**row("philox_fill", "philox_fill.cu", "", "plain_fill"),
+         "replaces": "smart_quantization_tpu/ops/rounding.py:25"},
     ]
     say(f"  per step: {per_step} (ResNet-18 smart), {bert_per_step} (bert-base), "
         f"{codec['launches']} (bert-base codecs), {packed['launches']} (bert-base packed); launches "
-        "summed over the main-path runs; "
+        "summed over the main-path runs, the K-step ones included (a K-step run launches "
+        "from the host in its first group's warm-up and capture and in its leftover steps "
+        "only); "
         f"whole run {time.perf_counter() - t_start:.0f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

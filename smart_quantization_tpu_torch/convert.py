@@ -1,6 +1,7 @@
 """Carry parameter trees over to the port's ``state_dict`` layout.
 
-The JAX package's flax trees arrive as nested dicts of numpy arrays:
+The JAX package's flax trees (ResNet, TinyCNN, BERT) arrive as nested
+dicts of numpy arrays:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);

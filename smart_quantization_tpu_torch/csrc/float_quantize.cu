@@ -12,7 +12,8 @@
 // over.
 //
 // Random bits: one 32-bit Philox word per element, counted by element index
-// and keyed by a 64-bit seed from the caller's host generator (philox.cuh).
+// and keyed by the step key in device memory mixed with the call's index
+// (philox.cuh).
 //
 // What bounds it: memory.  One read and one write of 4 bytes per element;
 // about 25 integer operations per element, plus a Philox call per 4
@@ -37,15 +38,16 @@ __device__ __forceinline__ float round_one(float v, uint32_t rand, const FloatFm
 }
 
 __global__ void float_quantize_kernel(const float* __restrict__ x, float* __restrict__ y,
-                                      int64_t n, FloatFmt f, uint64_t seed, int stochastic,
-                                      int check_inf) {
+                                      int64_t n, FloatFmt f,
+                                      const unsigned long long* __restrict__ key,
+                                      uint32_t call, int stochastic, int check_inf) {
   const bool st = stochastic != 0, ci = check_inf != 0;
-  const uint2 key = smaq::philox_key(seed);
+  const uint2 pkey = st ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int64_t groups = (n + 3) >> 2;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    const uint4 r = st ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 r = st ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
     const int64_t e = g << 2;
     if (aligned && e + 3 < n) {
       const float4 v = reinterpret_cast<const float4*>(x)[g];
@@ -69,11 +71,12 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError().
 int float_quantize(const float* x, float* y, long long n, int man, int emin,
                    unsigned int maxv_bits, unsigned int quantum_bits, float c1,
-                   float c2, unsigned long long seed, int stochastic, int check_inf,
+                   float c2, const unsigned long long* key, unsigned int call,
+                   int stochastic, int check_inf,
                    int num_blocks, int threads, void* stream) {
   const FloatFmt f{man, emin, maxv_bits, quantum_bits, c1, c2};
   float_quantize_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), f, static_cast<uint64_t>(seed), stochastic, check_inf);
+      x, y, static_cast<int64_t>(n), f, key, call, stochastic, check_inf);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,9 +2,13 @@
 //
 // Every kernel that rounds stochastically draws one 32-bit word per element
 // from here, counted by element index: the four words of counter g belong
-// to elements 4g .. 4g+3, and the key is a 64-bit seed the wrapper draws
-// from the caller's host generator.  So the bits do not depend on the
-// launch shape, and no state lives on the device between calls.
+// to elements 4g .. 4g+3.  The key comes from device memory: a 64-bit step
+// key (ops/keys.py) that the kernel reads, mixed with the call index the
+// wrapper passes by value (philox_key).  A CUDA graph that captures a launch
+// bakes the pointer and the index, not the key, so each replay draws the
+// bits of the key the host wrote into that slot before it.  The bits do not
+// depend on the launch shape, and no state lives on the device between
+// calls.
 
 #pragma once
 
@@ -27,8 +31,26 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return ctr;
 }
 
-__device__ __forceinline__ uint2 philox_key(uint64_t seed) {
-  return make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+// The mix of a step key and a call index into a Philox key: splitmix64's
+// output function on key + (call + 1) * gamma.  ops/keys.py::mix is its
+// host mirror (the constants are pinned against it by the tests).
+constexpr uint64_t kMixGamma = 0x9E3779B97F4A7C15ull;
+constexpr uint64_t kMixM1 = 0xBF58476D1CE4E5B9ull;
+constexpr uint64_t kMixM2 = 0x94D049BB133111EBull;
+constexpr int kMixS1 = 30, kMixS2 = 27, kMixS3 = 31;
+
+__host__ __device__ __forceinline__ uint64_t mix(uint64_t key, uint32_t call) {
+  uint64_t z = key + (static_cast<uint64_t>(call) + 1ull) * kMixGamma;
+  z = (z ^ (z >> kMixS1)) * kMixM1;
+  z = (z ^ (z >> kMixS2)) * kMixM2;
+  return z ^ (z >> kMixS3);
+}
+
+// The Philox key of draw `call` of the step whose key is at `key`: every
+// thread reads the same 8 bytes (one broadcast load a warp).
+__device__ __forceinline__ uint2 philox_key(const unsigned long long* key, uint32_t call) {
+  const uint64_t k = mix(static_cast<uint64_t>(__ldg(key)), call);
+  return make_uint2(static_cast<uint32_t>(k), static_cast<uint32_t>(k >> 32));
 }
 
 // The words of elements 4g .. 4g+3.

@@ -21,8 +21,9 @@
 //                   atomics: the result does not depend on block order.
 //   s2fp8_quantize  stages the table in shared memory, then per element:
 //                   squeeze exp2(alpha * log2|x| + beta), round onto e5m2
-//                   (float_round.cuh; random bits from philox.cuh, counted
-//                   by element group, when stochastic), unsqueeze by one
+//                   (float_round.cuh; random bits from philox.cuh, keyed by
+//                   the step key in device memory and the call's index and
+//                   counted by element group, when stochastic), unsqueeze by one
 //                   table read, and put the sign back.  Zeros stay zeros;
 //                   inf and NaN go through the selects of the TPU kernel.
 //                   The small form (consts == NULL) is one block of
@@ -294,7 +295,8 @@ struct Squeeze {
 template <bool kStochastic, bool kCheckInf>
 __global__ void __launch_bounds__(kSmallThreads)
 s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
-                      const Consts* __restrict__ consts, uint64_t seed) {
+                      const Consts* __restrict__ consts,
+                      const unsigned long long* __restrict__ key, uint32_t call) {
   __shared__ float table[kTableSize];
   __shared__ LogStats sm[32];
 
@@ -313,7 +315,7 @@ s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_
   }
   __syncthreads();
 
-  const uint2 key = smaq::philox_key(seed);
+  const uint2 pkey = kStochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int64_t n4 = aligned ? n >> 2 : 0;
   const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -334,7 +336,7 @@ s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_
       const int64_t i = g0 + u * span;
       if (i < n4) {
         const int64_t g = n4 - 1 - i;
-        const uint4 r = kStochastic ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 r = kStochastic ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
         float4 o;
         o.x = sq(v[u].x, r.x, table);
         o.y = sq(v[u].y, r.y, table);
@@ -346,12 +348,13 @@ s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_
   }
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + tid; e < n; e += span) {
-    const uint4 r = kStochastic ? smaq::philox_group(e >> 2, key) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 r = kStochastic ? smaq::philox_group(e >> 2, pkey) : make_uint4(0u, 0u, 0u, 0u);
     y[e] = sq(x[e], smaq::philox_word(r, e), table);
   }
 }
 
-using QuantizeKernel = void (*)(const float*, float*, int64_t, const Consts*, uint64_t);
+using QuantizeKernel = void (*)(const float*, float*, int64_t, const Consts*,
+                                const unsigned long long*, uint32_t);
 
 QuantizeKernel quantize_kernel(int stochastic, int check_inf) {
   if (stochastic)
@@ -377,12 +380,11 @@ int s2fp8_stats(const float* x, long long n, unsigned long long* ws, int num_blo
 }
 
 int s2fp8_quantize(const float* x, float* y, long long n, const float* consts,
-                   unsigned long long seed, int stochastic, int check_inf, int num_blocks,
-                   int threads, void* stream) {
+                   const unsigned long long* key, unsigned int call, int stochastic,
+                   int check_inf, int num_blocks, int threads, void* stream) {
   const QuantizeKernel kernel = quantize_kernel(stochastic, check_inf);
   kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), reinterpret_cast<const Consts*>(consts),
-      static_cast<uint64_t>(seed));
+      x, y, static_cast<int64_t>(n), reinterpret_cast<const Consts*>(consts), key, call);
   return static_cast<int>(cudaGetLastError());
 }
 

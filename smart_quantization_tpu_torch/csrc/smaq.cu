@@ -27,7 +27,8 @@
 //                  (mean, std) pair), then one read and one write per
 //                  element.  Rounding is trunc or floor(q + u), u the top 24
 //                  bits of a counter-based Philox4x32-10 (philox.cuh) keyed
-//                  by a per-call 64-bit seed and counted by element index
+//                  by the step key in device memory and the call's index,
+//                  and counted by element index
 //                  (the output does not depend on the launch shape or walk
 //                  order).  The outlier count goes through a block reduction
 //                  and one 64-bit integer atomicAdd per block that also
@@ -339,7 +340,8 @@ __device__ void write_size(int cnt, int64_t n, int compute_size, const QParams& 
 __global__ void __launch_bounds__(kSmallThreads)
 smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
                      const float* __restrict__ stats, const Consts* __restrict__ consts,
-                     int stats_mode, int range_std, uint64_t seed, int stochastic,
+                     int stats_mode, int range_std, const unsigned long long* __restrict__ key,
+                     unsigned int call, int stochastic,
                      int all_positive, int compute_size, QParams p,
                      unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
   __shared__ Sums sm[32];
@@ -361,7 +363,7 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
   qz.stochastic = stochastic != 0;
   qz.all_positive = all_positive != 0;
 
-  const uint2 key = smaq::philox_key(seed);
+  const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int64_t n4 = aligned ? n >> 2 : 0;
   const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -383,7 +385,7 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
       const int64_t i = g0 + u * span;
       if (i < n4) {
         const int64_t g = n4 - 1 - i;
-        const uint4 r = qz.stochastic ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 r = qz.stochastic ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
         float4 o;
         o.x = qz(v[u].x, r.x, cnt);
         o.y = qz(v[u].y, r.y, cnt);
@@ -395,7 +397,7 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
   }
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) {
-    const uint4 r = qz.stochastic ? smaq::philox_group(e >> 2, key) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 r = qz.stochastic ? smaq::philox_group(e >> 2, pkey) : make_uint4(0u, 0u, 0u, 0u);
     y[e] = qz(x[e], smaq::philox_word(r, e), cnt);
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su);
@@ -431,7 +433,8 @@ __global__ void smaq_quantize_bn_kernel(
     const float* __restrict__ x, float* __restrict__ y, int64_t n,
     const float* __restrict__ stats, const Consts* __restrict__ consts, int stats_mode,
     const float* __restrict__ gamma, const float* __restrict__ beta, int channels,
-    int64_t inner, uint64_t seed, int stochastic, int all_positive, int compute_size,
+    int64_t inner, const unsigned long long* __restrict__ key, unsigned int call,
+    int stochastic, int all_positive, int compute_size,
     QParams p, unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
   __shared__ unsigned long long su[32];
   extern __shared__ float4 chan[];
@@ -457,13 +460,13 @@ __global__ void smaq_quantize_bn_kernel(
                  : static_cast<int>((e / inner) % channels);
   };
   const bool group_in_one = (inner & 3) == 0;
-  const uint2 key = smaq::philox_key(seed);
+  const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int64_t groups = (n + 3) >> 2;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    const uint4 r = qz.stochastic ? smaq::philox_group(g, key) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 r = qz.stochastic ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
     const int64_t e = g << 2;
     if (aligned && group_in_one && e + 3 < n) {
       const float4 k = chan[chan_of(e)];
@@ -513,14 +516,15 @@ int smaq_stats(const float* x, long long n, int range_std, float t, float range_
 
 int smaq_quantize(const float* x, float* y, long long n, const float* stats,
                   const float* consts, int stats_mode, int range_std,
-                  unsigned long long seed, int stochastic, int all_positive,
+                  const unsigned long long* key, unsigned int call, int stochastic,
+                  int all_positive,
                   int compute_size, float t, float range_main, float range_outlier,
                   float inv_range_main, float inv_range_outlier, float std_lo,
                   float std_hi, int bits_main, int bits_outlier, unsigned long long* ws,
                   float* size_out, int num_blocks, int threads, void* stream) {
   smaq_quantize_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
-      stats_mode, range_std, static_cast<uint64_t>(seed), stochastic, all_positive,
+      stats_mode, range_std, key, call, stochastic, all_positive,
       compute_size,
       qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
               std_hi, bits_main, bits_outlier),
@@ -531,7 +535,8 @@ int smaq_quantize(const float* x, float* y, long long n, const float* stats,
 int smaq_quantize_bn(const float* x, float* y, long long n, const float* stats,
                      const float* consts, int stats_mode, const float* gamma,
                      const float* beta, int channels, long long inner,
-                     unsigned long long seed, int stochastic, int all_positive,
+                     const unsigned long long* key, unsigned int call, int stochastic,
+                     int all_positive,
                      int compute_size, float t, float range_main, float range_outlier,
                      float inv_range_main, float inv_range_outlier, float std_lo,
                      float std_hi, int bits_main, int bits_outlier,
@@ -541,7 +546,7 @@ int smaq_quantize_bn(const float* x, float* y, long long n, const float* stats,
   smaq_quantize_bn_kernel<<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
       stats_mode, gamma, beta, channels, static_cast<int64_t>(inner),
-      static_cast<uint64_t>(seed), stochastic, all_positive, compute_size,
+      key, call, stochastic, all_positive, compute_size,
       qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
               std_hi, bits_main, bits_outlier),
       ws, size_out);

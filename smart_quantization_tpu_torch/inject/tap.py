@@ -4,9 +4,15 @@ backward (tag ``backward_autograd``).
 
 Counterpart of ``smart_quantization_tpu/inject/tap.py``, as a
 ``torch.autograd.Function``: the gradient is straight-through, d(tap)/dx ==
-the quantized incoming gradient.  The two directions get separate seeds,
-drawn from the step's host generator when the forward runs, so the backward
-draws do not depend on the order autograd visits the taps in.
+the quantized incoming gradient.  The two directions get keys of their own,
+fixed when the forward runs, so the backward draws do not depend on the
+order autograd visits the taps in: two seeds drawn from the step's host
+generator, or, from a step key on the card (``ops/keys.py``), two blocks of
+``DRAWS_PER_COMPRESS`` call indices.
+
+Under a profiler (``utils/profiling.py``) the two directions' compress
+calls are the regions ``compress/forward`` and ``compress/backward``, the
+JAX tap's named scopes.
 
 Sizes go to the step's :class:`SizeTotals` as device tensors; no tap reads a
 value back to the host, so PyTorch needs none of the JAX package's
@@ -26,36 +32,48 @@ import torch
 
 from smart_quantization_tpu_torch.compress.base import CompressorBase, SizeStats, SizeTotals
 from smart_quantization_tpu_torch.inject.policy import DEFAULT_POLICY, LayerKind, TapPolicy
+from smart_quantization_tpu_torch.ops.keys import DeviceKey
+from smart_quantization_tpu_torch.utils.profiling import scope
+
+# call indices a compressor call may draw (SmaQ's sampled-stats offset and
+# its rounding noise at most)
+DRAWS_PER_COMPRESS = 4
 
 
 @dataclasses.dataclass
 class TapContext:
-    """What one forward pass of a tapped model needs: the host generator the
-    taps draw their seeds from, where sizes go (None: not recorded), and,
-    for a model with dropout in training mode, the generator its masks are
-    drawn from (on the model's device)."""
+    """What one forward pass of a tapped model needs: the key the taps draw
+    from (a host generator, or the step's ``DeviceKey`` on the card), where
+    sizes go (None: not recorded), and, for a model with dropout in
+    training mode, the key its masks are drawn from (a generator on the
+    model's device, or the step's ``DeviceKey``)."""
 
-    gen: torch.Generator
+    gen: torch.Generator | DeviceKey
     sizes: SizeTotals | None = None
-    dropout_gen: torch.Generator | None = None
+    dropout_gen: torch.Generator | DeviceKey | None = None
 
 
-def _generator(seed: int) -> torch.Generator:
+def _key(k: int | DeviceKey) -> torch.Generator | DeviceKey:
+    """A direction's key: a generator of its seed, or its block of call
+    indices."""
+    if isinstance(k, DeviceKey):
+        return k
     gen = torch.Generator()
-    gen.manual_seed(seed)
+    gen.manual_seed(k)
     return gen
 
 
 class _CompressionTap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, compressor, compress_forward, compress_backward,
-                seed_fwd, seed_bwd, sizes, gamma, beta):
+                key_fwd, key_bwd, sizes, gamma, beta):
         ctx.compressor = compressor
         ctx.compress_backward = compress_backward
-        ctx.seed_bwd = seed_bwd
+        ctx.key_bwd = key_bwd
         ctx.sizes = sizes
         if compress_forward:
-            y, s = compressor(x, _generator(seed_fwd), gamma=gamma, beta=beta)
+            with scope("compress/forward"):
+                y, s = compressor(x, _key(key_fwd), gamma=gamma, beta=beta)
         else:
             y, s = x, SizeStats.of(x.numel(), 32, 32, x.device)
         if y is x:  # a passthrough still has to be a new autograd output
@@ -66,7 +84,8 @@ class _CompressionTap(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_orig, _g_new):
         if ctx.compress_backward:
-            g, s = ctx.compressor(g.contiguous(), _generator(ctx.seed_bwd))
+            with scope("compress/backward"):
+                g, s = ctx.compressor(g.contiguous(), _key(ctx.key_bwd))
             if ctx.sizes is not None:
                 ctx.sizes.add("backward_autograd", s)
         return g, None, None, None, None, None, None, None, None
@@ -74,7 +93,7 @@ class _CompressionTap(torch.autograd.Function):
 
 def compression_tap(
     x: torch.Tensor,
-    gen: torch.Generator,
+    gen: torch.Generator | DeviceKey,
     compressor: CompressorBase,
     *,
     compress_forward: bool = True,
@@ -86,9 +105,12 @@ def compression_tap(
     """Apply the tap; returns ``(y, forward SizeStats)``.  The backward
     sizes are added to ``sizes`` under ``backward_autograd``.  ``gamma`` and
     ``beta`` (no gradient flows to them here) go to the forward compress."""
-    seed_fwd, seed_bwd = torch.randint(0, 2**62, (2,), generator=gen).tolist()
+    if isinstance(gen, DeviceKey):
+        key_fwd, key_bwd = gen.reserve(DRAWS_PER_COMPRESS), gen.reserve(DRAWS_PER_COMPRESS)
+    else:
+        key_fwd, key_bwd = torch.randint(0, 2**62, (2,), generator=gen).tolist()
     y, orig_bits, new_bits = _CompressionTap.apply(
-        x, compressor, compress_forward, compress_backward, seed_fwd, seed_bwd, sizes,
+        x, compressor, compress_forward, compress_backward, key_fwd, key_bwd, sizes,
         gamma, beta,
     )
     return y, SizeStats(orig_bits, new_bits)
@@ -134,7 +156,7 @@ def module_tap(
     if cfg is None or not cfg.active or not cfg.policy.should_tap(kind):
         return x
     if tap_ctx is None:
-        raise ValueError("an active tap needs a TapContext (generator + sizes)")
+        raise ValueError("an active tap needs a TapContext (a key + sizes)")
     if not cfg.use_batch_norm:
         gamma = beta = None
     y, stats = compression_tap(

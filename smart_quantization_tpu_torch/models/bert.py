@@ -24,8 +24,9 @@ onto the ``state_dict`` (the flax ``dense`` and ``norm`` levels fold away):
 
 Dropout is flax's: keep with probability 1 - rate, scale the kept values
 by 1 / (1 - rate).  Its masks are drawn in training mode from
-``TapContext.dropout_gen`` (a generator on the model's device that the
-trainer derives from the seed and the step), never from the global RNG.
+``TapContext.dropout_gen`` (a generator on the CPU, or the step's key on
+the card, that the trainer derives from the seed and the step), never from
+the global RNG.
 The word-embedding gradient is dense, as JAX's.
 """
 
@@ -40,6 +41,8 @@ from torch import nn
 
 from smart_quantization_tpu_torch.inject.policy import LayerKind
 from smart_quantization_tpu_torch.inject.tap import TapConfig, TapContext, module_tap
+from smart_quantization_tpu_torch.ops.keys import DeviceKey
+from smart_quantization_tpu_torch.ops.rounding import uniform
 
 INIT_STD = 0.02
 
@@ -66,14 +69,15 @@ class BertConfig:
         )
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
-    """flax's ``nn.Dropout`` in training mode, masks drawn from ``gen``."""
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | DeviceKey | None) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in training mode, masks drawn from ``gen`` (a
+    generator on ``x``'s device, or the step's key: ``rounding.uniform``)."""
     if rate == 0.0:
         return x
     if gen is None:
         raise ValueError("dropout in training mode needs TapContext.dropout_gen")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    keep = uniform(x.shape, gen, x.device) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -120,7 +124,7 @@ class TappedLayerNorm(nn.Module):
         return module_tap(y, LayerKind.NORM, self.tap, tap_ctx)
 
 
-def _dropout_gen(tap_ctx: TapContext | None) -> torch.Generator | None:
+def _dropout_gen(tap_ctx: TapContext | None) -> torch.Generator | DeviceKey | None:
     return None if tap_ctx is None else tap_ctx.dropout_gen
 
 

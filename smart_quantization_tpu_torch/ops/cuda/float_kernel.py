@@ -13,9 +13,10 @@ gives the design.  Here:
 - ``float_quantize_fused_or_reference`` sends a CUDA tensor to the kernel
   and a CPU tensor to the plain version.  There is no size threshold.
 
-Stochastic rounding draws one 64-bit seed per call from the caller's host
-``torch.Generator``; the kernel's Philox words are not the plain version's
-draws, so stochastic outputs compare by statistics only.
+Stochastic rounding keys the kernel's Philox words by a step key in device
+memory and a call index (``launch.key_for``); the plain version draws its
+words from the caller's key by ``ops/rounding.py``, which gives other bits,
+so stochastic outputs compare by statistics only.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ from smart_quantization_tpu_torch.ops.cuda import build
 from smart_quantization_tpu_torch.ops.cuda.launch import (
     THREADS,
     check_input,
+    check_key,
+    key_for,
+    ptr,
     quant_blocks,
     raise_on,
-    seed_for,
     stream,
 )
 from smart_quantization_tpu_torch.ops.float_format import FloatFormat, f32_bits, float_quantize
@@ -50,14 +53,18 @@ def format_args(fmt: FloatFormat) -> tuple:
 
 
 def float_quantize_launch(
-    xf: torch.Tensor, fmt: FloatFormat, *, seed: int, stochastic: bool, check_inf: bool
+    xf: torch.Tensor, fmt: FloatFormat, *, key: torch.Tensor | None, call: int = 0,
+    stochastic: bool, check_inf: bool
 ) -> torch.Tensor:
-    """Launch the kernel on a flat float32 CUDA tensor; returns the output."""
+    """Launch the kernel on a flat float32 CUDA tensor; stochastic rounding
+    draws (``key``, ``call``), ``key`` a 1-element int64 step key on the
+    card.  Returns the output."""
     check_input(xf)
+    check_key(key, xf, stochastic)
     n = xf.numel()
     y = torch.empty_like(xf)
     rc = build.library().float_quantize(
-        xf.data_ptr(), y.data_ptr(), n, *format_args(fmt), seed, int(stochastic),
+        xf.data_ptr(), y.data_ptr(), n, *format_args(fmt), ptr(key), call, int(stochastic),
         int(check_inf), quant_blocks(n), THREADS, stream(xf),
     )
     raise_on(rc, "float_quantize")
@@ -80,8 +87,9 @@ def float_quantize_fused(
     if x.numel() == 0:
         return x.to(torch.float32)
     xf = x.reshape(-1).to(torch.float32).contiguous()
+    key, call = key_for(gen, stochastic, x.device)
     y = float_quantize_launch(
-        xf, fmt, seed=seed_for(gen, stochastic), stochastic=stochastic, check_inf=check_inf
+        xf, fmt, key=key, call=call, stochastic=stochastic, check_inf=check_inf
     )
     return y.view(x.shape)
 

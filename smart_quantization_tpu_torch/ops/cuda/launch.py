@@ -1,12 +1,12 @@
 """What every kernel wrapper of the port shares: the launch shapes, the SM
-count, the per-stream workspaces, the input checks, the stream and the
-error check after a launch."""
+count, the per-stream workspaces, the key of a stochastic launch, the input
+checks, the stream and the error check after a launch."""
 
 from __future__ import annotations
 
 import torch
 
-from smart_quantization_tpu_torch.ops.rounding import draw_seed
+from smart_quantization_tpu_torch.ops.keys import DeviceKey, draw_seed, key_tensor
 
 THREADS = 256
 # float_quantize and smaq_quantize_bn: a float4 for each thread per loop
@@ -57,14 +57,29 @@ def workspace(xf: torch.Tensor, kind: str, words: int) -> torch.Tensor:
     return ws
 
 
-def seed_for(gen: torch.Generator | None, stochastic: bool) -> int:
-    """The kernel's 64-bit Philox key: one draw from the caller's host
-    generator when rounding stochastically (no device sync), else 0."""
+def key_for(gen, stochastic: bool, device: torch.device) -> tuple[torch.Tensor | None, int]:
+    """A stochastic launch's key pointer and call index (``ops/keys.py``):
+    a :class:`DeviceKey`'s slot and its next call index, or, for a host
+    ``torch.Generator`` (initialization, tests), one draw from it written
+    to the card by a fill (no copy, no sync) with call index 0.  None and 0
+    when the launch rounds by truncation."""
     if not stochastic:
-        return 0
+        return None, 0
     if gen is None:
-        raise ValueError("stochastic rounding requires a torch.Generator")
-    return draw_seed(gen)
+        raise ValueError("stochastic rounding requires a torch.Generator or a DeviceKey")
+    if isinstance(gen, DeviceKey):
+        if gen.device != device:
+            raise ValueError(f"step key on {gen.device}, tensor on {device}")
+        return gen.key, gen.take()
+    return key_tensor(draw_seed(gen), device), 0
+
+
+def check_key(key: torch.Tensor | None, x: torch.Tensor, stochastic: bool) -> None:
+    """A stochastic launch needs a 1-element int64 step key on ``x``'s card."""
+    if not stochastic:
+        return
+    if key is None or key.dtype != torch.int64 or key.numel() != 1 or key.device != x.device:
+        raise ValueError("stochastic rounding needs a 1-element int64 key on the tensor's card")
 
 
 def raise_on(rc: int, name: str) -> None:

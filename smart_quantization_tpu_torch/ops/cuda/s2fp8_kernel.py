@@ -30,9 +30,10 @@ from smart_quantization_tpu_torch.ops.cuda.launch import (
     BLOCKS_PER_SM,
     THREADS,
     check_input,
+    check_key,
+    key_for,
     ptr,
     raise_on,
-    seed_for,
     sm_count,
     split_blocks,
     stream,
@@ -128,15 +129,18 @@ def s2fp8_quantize(
     xf: torch.Tensor,
     consts: torch.Tensor | None = None,
     *,
-    seed: int,
+    key: torch.Tensor | None,
+    call: int = 0,
     stochastic: bool,
     check_inf: bool,
 ) -> torch.Tensor:
     """Launch the quantize kernel against ``s2fp8_stats``' ``consts``;
     without them, the small form (``SMALL_MAX`` elements at most): one
-    block computes the stats itself, then quantizes.  Returns the flat
-    output."""
+    block computes the stats itself, then quantizes.  Stochastic rounding
+    draws (``key``, ``call``): ``key`` a 1-element int64 step key on the
+    card.  Returns the flat output."""
     check_input(xf)
+    check_key(key, xf, stochastic)
     n = xf.numel()
     if consts is None:
         if not 0 < n <= SMALL_MAX:
@@ -151,7 +155,8 @@ def s2fp8_quantize(
         blocks, threads = split_blocks(n, sm_count(xf.device)), THREADS
     y = torch.empty_like(xf)
     rc = build.library().s2fp8_quantize(
-        xf.data_ptr(), y.data_ptr(), n, ptr(consts), seed, int(stochastic), int(check_inf),
+        xf.data_ptr(), y.data_ptr(), n, ptr(consts), ptr(key), call, int(stochastic),
+        int(check_inf),
         blocks, threads, stream(xf),
     )
     raise_on(rc, "s2fp8_quantize")
@@ -197,8 +202,9 @@ def s2fp8_fused(
         return x
     xf = x.reshape(-1).to(torch.float32).contiguous()
     small = s2fp8_plan(xf.numel(), sm_count(xf.device))[0] == "small"
+    key, call = key_for(gen, stochastic, x.device)
     y = s2fp8_quantize(
-        xf, None if small else s2fp8_stats(xf), seed=seed_for(gen, stochastic),
+        xf, None if small else s2fp8_stats(xf), key=key, call=call,
         stochastic=stochastic, check_inf=check_inf,
     )
     return y.view(x.shape).to(x.dtype)

@@ -25,9 +25,11 @@ its BatchNorm-folded variant ``smaq_fused_bn``.  The source note in
 BatchNorm tensors are NCHW: gamma and beta are per channel (dim 1), or 0-d
 for one scalar pair.
 
-Stochastic rounding draws one 64-bit seed per call from the caller's host
-``torch.Generator``; the kernel's Philox stream will never give the bits of
-any other generator, so stochastic outputs compare by statistics only.
+Stochastic rounding keys the kernel's Philox stream by a step key in device
+memory and a call index (``launch.key_for``: a ``DeviceKey``'s next index,
+or one draw from a host ``torch.Generator``); the plain versions draw their
+noise from the caller's key by ``ops/rounding.py``, which gives other bits,
+so stochastic outputs compare by statistics only.
 """
 
 from __future__ import annotations
@@ -42,10 +44,11 @@ from smart_quantization_tpu_torch.ops.cuda.launch import (
     BLOCKS_PER_SM,
     THREADS,
     check_input,
+    check_key,
+    key_for,
     ptr,
     quant_blocks,
     raise_on,
-    seed_for,
     sm_count,
     split_blocks,
     stream,
@@ -156,7 +159,8 @@ def smaq_quantize(
     xf: torch.Tensor,
     params: SmaQParams,
     *,
-    seed: int,
+    key: torch.Tensor | None,
+    call: int = 0,
     stats: torch.Tensor | None = None,
     consts: torch.Tensor | None = None,
     all_positive: bool = False,
@@ -165,9 +169,12 @@ def smaq_quantize(
     """Launch the quantize kernel against ``stats`` (a float32 (mean, std)
     pair on the device) or ``smaq_stats``' ``consts``; with neither, the
     small form (``SMALL_MAX`` elements at most): one block computes the
-    full stats itself, then quantizes.  Returns the flat output and the
-    size in bits as a 0-d float32 device tensor."""
+    full stats itself, then quantizes.  Stochastic rounding draws
+    (``key``, ``call``): ``key`` a 1-element int64 step key on the card.
+    Returns the flat output and the size in bits as a 0-d float32 device
+    tensor."""
     check_input(xf)
+    check_key(key, xf, params.stochastic_rounding)
     stats, consts, mode = _stats_args(xf, stats, consts)
     n = xf.numel()
     if mode == _SMALL and n > SMALL_MAX:
@@ -179,7 +186,7 @@ def smaq_quantize(
         (1, SMALL_THREADS) if mode == _SMALL else (split_blocks(n, sm_count(xf.device)), THREADS))
     rc = build.library().smaq_quantize(
         xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
-        int(params.use_range_std_dev), seed, int(params.stochastic_rounding),
+        int(params.use_range_std_dev), ptr(key), call, int(params.stochastic_rounding),
         int(all_positive), int(compute_size), *_quant_args(params),
         workspace(xf).data_ptr(), size.data_ptr(), blocks, threads, stream(xf),
     )
@@ -196,7 +203,8 @@ def smaq_quantize_bn(
     inner: int,
     params: SmaQParams,
     *,
-    seed: int,
+    key: torch.Tensor | None,
+    call: int = 0,
     stats: torch.Tensor | None = None,
     consts: torch.Tensor | None = None,
     all_positive: bool = False,
@@ -205,8 +213,9 @@ def smaq_quantize_bn(
     """Launch the BN-folded quantize kernel: ``xf`` is the flat NCHW tensor,
     element e in channel ``(e // inner) % channels``, and ``gamma``/``beta``
     hold ``channels`` float32 values on the device; one of ``stats`` and
-    ``consts`` is required."""
+    ``consts`` is required; ``key`` and ``call`` as ``smaq_quantize``'s."""
     check_input(xf)
+    check_key(key, xf, params.stochastic_rounding)
     for v in (gamma, beta):
         check_input(v)
         if v.numel() != channels:
@@ -222,7 +231,7 @@ def smaq_quantize_bn(
     rc = build.library().smaq_quantize_bn(
         xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
         gamma.data_ptr(), beta.data_ptr(), channels, inner,
-        seed, int(params.stochastic_rounding), int(all_positive), int(compute_size),
+        ptr(key), call, int(params.stochastic_rounding), int(all_positive), int(compute_size),
         *_quant_args(params), workspace(xf).data_ptr(), size.data_ptr(),
         quant_blocks(n), THREADS, stream(xf),
     )
@@ -319,10 +328,10 @@ def smaq_fused(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     xf = x.reshape(-1).to(torch.float32).contiguous()
-    seed = seed_for(gen, params.stochastic_rounding)
+    key, call = key_for(gen, params.stochastic_rounding, x.device)
     stats, consts = _device_stats(xf, params, mean, std, small_form=True)
     y, size = smaq_quantize(
-        xf, params, seed=seed, stats=stats, consts=consts,
+        xf, params, key=key, call=call, stats=stats, consts=consts,
         all_positive=all_positive, compute_size=compute_size,
     )
     return y.view(x.shape).to(x.dtype), size
@@ -362,12 +371,12 @@ def smaq_fused_bn(
         return x, torch.full((), float(n * 32), device=x.device)
     channels, inner = channel_layout(x, gamma)
     xf = x.reshape(-1).to(torch.float32).contiguous()
-    seed = seed_for(gen, params.stochastic_rounding)
+    key, call = key_for(gen, params.stochastic_rounding, x.device)
     stats, consts = _device_stats(xf, params, mean, std, small_form=False)
     y, size = smaq_quantize_bn(
         xf, gamma.reshape(-1).to(torch.float32).contiguous(),
         beta.reshape(-1).to(torch.float32).contiguous(), channels, inner, params,
-        seed=seed, stats=stats, consts=consts,
+        key=key, call=call, stats=stats, consts=consts,
         all_positive=all_positive, compute_size=compute_size,
     )
     return y.view(x.shape).to(x.dtype), size

@@ -1,22 +1,39 @@
 """Rounding primitives shared by the quantizers.
 
-Randomness comes from an explicit host-side ``torch.Generator`` (the JAX
-package threads PRNG keys, ``smart_quantization_tpu/ops/rounding.py``).
-A generator on the CPU is the port's key: a draw from it is a host-side
-operation that never waits on the card.  Noise for a tensor on another
-device comes from a generator on that device, seeded by one such draw.
+Randomness comes from an explicit key (the JAX package threads PRNG keys,
+``smart_quantization_tpu/ops/rounding.py``), one of two kinds:
+
+- a host ``torch.Generator`` (the CPU trainer, initialization, tests): a
+  draw from it is a host-side operation that never waits on the card, and
+  noise for a tensor on another device comes from a generator on that
+  device, seeded by one such draw;
+- a :class:`~smart_quantization_tpu_torch.ops.keys.DeviceKey` (a training
+  step on the card): each draw takes the next call index of the step key
+  and fills its noise through the Philox fill (``ops/cuda/
+  philox_kernel.py``), so that a CUDA graph of the step replays it with
+  each replay's key.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-_SEED_HI = 2**62
+from smart_quantization_tpu_torch.ops.cuda.philox_kernel import philox_fill_or_reference
+from smart_quantization_tpu_torch.ops.keys import DeviceKey, draw_seed
 
 
-def draw_seed(gen: torch.Generator) -> int:
-    """One 62-bit seed from ``gen`` (a host draw; no device sync)."""
-    return int(torch.randint(0, _SEED_HI, (), generator=gen))
+def _fill(shape, key: DeviceKey, device, uniform: bool) -> torch.Tensor:
+    if key.device != torch.device(device):
+        raise ValueError(f"step key on {key.device}, noise asked for on {device}")
+    n = math.prod(shape)
+    return philox_fill_or_reference(n, key.key, key.take(), uniform=uniform).view(shape)
+
+
+def _words(shape, key: DeviceKey, device) -> torch.Tensor:
+    """The fill's 32-bit words as int64 in ``[0, 2^32)``."""
+    return _fill(shape, key, device, False).to(torch.int64) & 0xFFFFFFFF
 
 
 def child_generator(gen: torch.Generator, device: torch.device | str = "cpu"):
@@ -28,13 +45,20 @@ def child_generator(gen: torch.Generator, device: torch.device | str = "cpu"):
 
 def uniform(shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     """``U[0, 1)`` float32 noise of ``shape`` on ``device`` from ``gen``."""
+    if isinstance(gen, DeviceKey):
+        return _fill(shape, gen, device, True)
     if gen.device.type != torch.device(device).type:
         gen = child_generator(gen, device)
     return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
 
 
 def randint(high: int, shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
-    """Integers in ``[0, high)`` of ``shape`` on ``device`` from ``gen``."""
+    """Integers in ``[0, high)`` of ``shape`` on ``device`` from ``gen``
+    (from a step key: ``(w * high) >> 32`` of a 32-bit word ``w``)."""
+    if isinstance(gen, DeviceKey):
+        if not 0 < high < 2**31:
+            raise ValueError(f"randint from a step key takes 0 < high < 2^31, got {high}")
+        return (_words(shape, gen, device) * high) >> 32
     if gen.device.type != torch.device(device).type:
         gen = child_generator(gen, device)
     return torch.randint(0, high, shape, generator=gen, device=device)
@@ -43,6 +67,8 @@ def randint(high: int, shape, gen: torch.Generator, device: torch.device) -> tor
 def random_bits(shape, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     """Uniform 32-bit words (int64 in ``[0, 2^32)``) of ``shape`` on
     ``device`` from ``gen``."""
+    if isinstance(gen, DeviceKey):
+        return _words(shape, gen, device)
     if gen.device.type != torch.device(device).type:
         gen = child_generator(gen, device)
     return torch.randint(0, 2**32, shape, generator=gen, device=device, dtype=torch.int64)
@@ -66,6 +92,6 @@ def round_to_grid(
 ) -> torch.Tensor:
     if stochastic:
         if gen is None:
-            raise ValueError("stochastic rounding requires a torch.Generator")
+            raise ValueError("stochastic rounding requires a torch.Generator or a DeviceKey")
         return stochastic_round(x, gen)
     return round_trunc(x)

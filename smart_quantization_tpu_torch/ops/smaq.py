@@ -5,7 +5,8 @@ with the same math:
 
 1. tensors with fewer than ``min_size`` elements pass through untouched;
 2. per-tensor mean/std: full (unbiased, ddof=1, two-pass), sampled (one
-   stratified strided slice at a generator-drawn offset, biased std), or the
+   stratified strided slice at a drawn offset, biased std; from a step key
+   the offset stays on the device and the slice is a gather), or the
    Range-BN estimator ``(max - min) / sqrt(2 ln N)``;
 3. ``z = (x - mean) / clamp(std)``; elements with ``|z| > t_main`` are
    outliers, shifted toward zero by ``t_main`` and scaled by
@@ -38,6 +39,7 @@ import math
 
 import torch
 
+from smart_quantization_tpu_torch.ops.keys import DeviceKey
 from smart_quantization_tpu_torch.ops.rounding import randint, round_to_grid
 
 
@@ -90,8 +92,12 @@ def compute_stats(
             raise ValueError("sampled stats require a torch.Generator")
         k = params.num_samples
         m = n // k
-        j = int(torch.randint(0, m, (), generator=gen))
-        sample = flat[: k * m].view(k, m)[:, j]
+        if isinstance(gen, DeviceKey):
+            j = randint(m, (1,), gen, flat.device)
+            sample = flat[: k * m].view(k, m).index_select(1, j).reshape(k)
+        else:
+            j = int(torch.randint(0, m, (), generator=gen))
+            sample = flat[: k * m].view(k, m)[:, j]
         mean = sample.mean()
         if params.use_range_std_dev:
             std = _range_std(sample)

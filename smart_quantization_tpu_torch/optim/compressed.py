@@ -29,8 +29,15 @@ weight decay -> ``trace(decay=momentum)`` -> ``-lr``; Adam: coupled decay
 -> ``scale_by_adam`` -> ``-lr``; AdamW: ``scale_by_adam`` -> decoupled
 decay -> ``-lr``), so the momentum buffers are plain tensors the step can
 quantize.  Parameters, gradients and buffers are flat ``{name: tensor}``
-dicts keyed by ``state_dict`` names.  Each compressor call draws its own
-seed from the step's generator, in leaf order.
+dicts keyed by ``state_dict`` names.  Each compressor call draws from the
+step's key (a host generator, or the step key on the card), in leaf order.
+
+On the card the trainer hands the step its learning rate and Adam's bias
+corrections as a float32 device tensor (:meth:`OptimizerSpec.
+step_scalars`), so that a CUDA graph of the step reads each replay's values
+instead of baking the capture's.  Under a profiler the three compressions
+are the regions ``compress/optimizer_grad``, ``compress/optimizer_weight``
+and ``compress/optimizer_momentum`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from smart_quantization_tpu_torch.ops.codebook import (
     supports_codebook,
 )
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+from smart_quantization_tpu_torch.utils.profiling import scope
 
 Tree = dict[str, torch.Tensor]
 
@@ -122,9 +130,25 @@ class OptimizerSpec:
             state[name] = {k: torch.zeros_like(p) for k, p in params.items()}
         return state
 
-    def update(self, grads: Tree, state: dict, params: Tree) -> tuple[Tree, dict]:
+    def step_scalars(self, count: int) -> tuple[float, float, float]:
+        """What the update at optimizer count ``count`` takes from the
+        count: ``-lr`` and Adam's bias corrections ``1 - b1^(count + 1)``
+        and ``1 - b2^(count + 1)`` (1 and 1 for SGD)."""
+        if self.kind == "sgd":
+            return -self.lr(count), 1.0, 1.0
+        return (-self.lr(count), 1.0 - self.b1 ** (count + 1),
+                1.0 - self.b2 ** (count + 1))
+
+    def update(self, grads: Tree, state: dict, params: Tree,
+               scalars: torch.Tensor | None = None) -> tuple[Tree, dict]:
+        """One update; ``scalars`` (a float32 tensor of
+        :meth:`step_scalars` on the parameters' device) replaces the values
+        the host derives from the count."""
         count = state["count"]
-        lr = self.lr(count)
+        if scalars is None:
+            neg_lr, c1, c2 = self.step_scalars(count)
+        else:
+            neg_lr, c1, c2 = scalars[0], scalars[1], scalars[2]
         wd = self.weight_decay
         updates: Tree = {}
         new_state = {"count": count + 1}
@@ -134,14 +158,12 @@ class OptimizerSpec:
                 if wd:
                     g = g + wd * params[k]
                 trace[k] = torch.add(g, state["trace"][k], alpha=self.momentum)
-                updates[k] = trace[k] * -lr
+                updates[k] = trace[k] * neg_lr
             new_state["trace"] = trace
             return updates, new_state
         if self.kind not in ("adam", "adamw"):
             raise ValueError(f"unknown optimizer {self.kind!r} (sgd|adam|adamw)")
         mu, nu = {}, {}
-        c1 = 1.0 - self.b1 ** (count + 1)
-        c2 = 1.0 - self.b2 ** (count + 1)
         for k, g in grads.items():
             if wd and self.kind == "adam":
                 g = g + wd * params[k]
@@ -150,7 +172,7 @@ class OptimizerSpec:
             u = (mu[k] / c1) / ((nu[k] / c2).sqrt() + self.eps)
             if wd and self.kind == "adamw":
                 u = u + wd * params[k]
-            updates[k] = u * -lr
+            updates[k] = u * neg_lr
         new_state["mu"], new_state["nu"] = mu, nu
         return updates, new_state
 
@@ -194,7 +216,8 @@ def init_opt_state(spec: OptimizerSpec, params: Tree, compression: OptimizerComp
         for name, _ in spec.momentum_buffers:
             inner[name] = _encode_tree(inner[name], gen, p)[0]
     if compression.use_weight_accumulator:
-        return CompressedOptState(inner, dict(params))
+        # a copy: the trainer updates the master and the model in place
+        return CompressedOptState(inner, {k: p.clone() for k, p in params.items()})
     return inner
 
 
@@ -319,6 +342,28 @@ def _decode_tree(tree: Tree, params: SmaQParams, all_positive: bool) -> Tree:
             if isinstance(v, SmaQCodes) else v for k, v in tree.items()}
 
 
+def _compress_momentum(spec, opt_state, gen, compression, p_params):
+    """Quantize (or, with ``p_params``, encode) every momentum buffer;
+    returns the state and the (2,) ``[orig_bits, new_bits]`` total."""
+    origs, news = [], []
+    for name, all_positive in spec.momentum_buffers:
+        if p_params is not None:
+            opt_state[name], o, n = _encode_tree(opt_state[name], gen, p_params)
+        else:
+            # nu (the all_positive buffer) may take the log2 codec, by rows
+            # with momentum_log_nu_rowwise; mu and SGD's trace may take rows
+            log_nu = all_positive and compression.momentum_log_nu
+            opt_state[name], o, n = _quantize_tree(
+                opt_state[name], gen, compression.compressor, all_positive=all_positive,
+                rowwise=(compression.momentum_log_nu_rowwise if log_nu
+                         else compression.momentum_rowwise),
+                log_domain=log_nu,
+            )
+        origs.append(o)
+        news.append(n)
+    return opt_state, torch.stack([torch.stack(origs).sum(), torch.stack(news).sum()])
+
+
 def compressed_optimizer_step(
     spec: OptimizerSpec,
     params: Tree,
@@ -328,12 +373,14 @@ def compressed_optimizer_step(
     compression: OptimizerCompression,
     *,
     weight_exempt: dict[str, bool] | None = None,
+    scalars: torch.Tensor | None = None,
 ) -> tuple[Tree, object, dict[str, torch.Tensor]]:
     """One optimizer step with compression; returns ``(params, opt_state,
     metrics)``, metrics mapping ``optimizer_{grad,weight,momentum}`` to
     (2,) ``[orig_bits, new_bits]`` device tensors.  ``params`` are float32
     (decode packed weights first, :func:`decode_params`); under
-    ``packed_weights`` the returned ones hold ``SmaQCodes``."""
+    ``packed_weights`` the returned ones hold ``SmaQCodes``.  ``scalars``
+    goes to :meth:`OptimizerSpec.update`."""
     metrics: dict[str, torch.Tensor] = {}
     comp = compression.compressor
     active = compression.active
@@ -352,47 +399,32 @@ def compressed_optimizer_step(
             opt_state[name] = _decode_tree(opt_state[name], p_params, all_positive)
 
     if active and compression.compress_gradients:
-        if compression.grad_scaling != 1.0:
-            grads = {k: g * compression.grad_scaling for k, g in grads.items()}
-        grads, o, n = _quantize_tree(grads, gen, comp)
+        with scope("compress/optimizer_grad"):
+            if compression.grad_scaling != 1.0:
+                grads = {k: g * compression.grad_scaling for k, g in grads.items()}
+            grads, o, n = _quantize_tree(grads, gen, comp)
         metrics["optimizer_grad"] = torch.stack([o, n])
 
     # with the accumulator the optimizer steps the float32 master
     step_params = master if master is not None else params
-    updates, opt_state = spec.update(grads, opt_state, step_params)
+    updates, opt_state = spec.update(grads, opt_state, step_params, scalars)
     params = {k: p + updates[k] for k, p in step_params.items()}
     if master is not None:
         master = params
 
     if active and compression.compress_weights:
-        if compression.packed_weights:
-            params, o, n = _encode_tree(params, gen, packed_smaq_params(compression),
-                                        skip=weight_exempt)
-        else:
-            params, o, n = _quantize_tree(params, gen, comp, skip=weight_exempt)
+        with scope("compress/optimizer_weight"):
+            if compression.packed_weights:
+                params, o, n = _encode_tree(params, gen, packed_smaq_params(compression),
+                                            skip=weight_exempt)
+            else:
+                params, o, n = _quantize_tree(params, gen, comp, skip=weight_exempt)
         metrics["optimizer_weight"] = torch.stack([o, n])
 
     if active and compression.compress_momentum and spec.has_momentum:
-        origs, news = [], []
-        for name, all_positive in spec.momentum_buffers:
-            if packed:
-                opt_state[name], o, n = _encode_tree(opt_state[name], gen, p_params)
-            else:
-                # nu (the all_positive buffer) may take the log2 codec, by
-                # rows with momentum_log_nu_rowwise; mu and SGD's trace may
-                # take rows
-                log_nu = all_positive and compression.momentum_log_nu
-                opt_state[name], o, n = _quantize_tree(
-                    opt_state[name], gen, comp, all_positive=all_positive,
-                    rowwise=(compression.momentum_log_nu_rowwise if log_nu
-                             else compression.momentum_rowwise),
-                    log_domain=log_nu,
-                )
-            origs.append(o)
-            news.append(n)
-        metrics["optimizer_momentum"] = torch.stack(
-            [torch.stack(origs).sum(), torch.stack(news).sum()]
-        )
+        with scope("compress/optimizer_momentum"):
+            opt_state, metrics["optimizer_momentum"] = _compress_momentum(
+                spec, opt_state, gen, compression, p_params if packed else None)
 
     if wrapped:
         opt_state = CompressedOptState(opt_state, master)

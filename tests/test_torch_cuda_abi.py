@@ -1,11 +1,12 @@
 """The port's C interface and SmaQ launch plan, checked without a card.
 
 ``ops/cuda/build.py`` loads ``csrc/*.cu`` with ``ctypes``; an argument
-declared with the wrong type (a pointer as a 32-bit int, a 64-bit seed as
-an int) is cut or misread without any error on the CPU, and only a chip run
-would show it.  So every ``extern "C"`` entry point's C signature is parsed
-here and held against the ``argtypes`` that ``build._declare`` sets on a
-stand-in library.  ``smaq_plan`` and ``s2fp8_plan``, and the launch
+declared with the wrong type (a pointer as a 32-bit int, a 32-bit call
+index as a pointer) is cut or misread without any error on the CPU, and
+only a chip run would show it.  So every ``extern "C"`` entry point's C
+signature is parsed here and held against the ``argtypes`` that
+``build._declare`` sets on a stand-in library; every stochastic kernel
+takes its step key by pointer and its call index by value.  ``smaq_plan`` and ``s2fp8_plan``, and the launch
 constants and workspace layouts that the wrappers and ``csrc/smaq.cu`` or
 ``csrc/s2fp8.cu`` both state, are pinned too.
 """
@@ -45,18 +46,20 @@ def _read(path):
         return f.read()
 
 
-def _entry_points() -> dict[str, list]:
+def _signatures() -> dict[str, list[str]]:
+    """Each entry point's parameter declarations."""
     out = {}
     for src in build.sources():
         if src.endswith(".cu"):
             text = _read(src)
             c_block = text[text.index('extern "C" {'):]
             for m in re.finditer(r"^int\s+(\w+)\(([^)]*)\)\s*\{", c_block, re.M):
-                out[m.group(1)] = [_ctype(a) for a in m.group(2).split(",")]
+                out[m.group(1)] = [" ".join(a.split()) for a in m.group(2).split(",")]
     return out
 
 
-ENTRY_POINTS = _entry_points()
+SIGNATURES = _signatures()
+ENTRY_POINTS = {name: [_ctype(a) for a in params] for name, params in SIGNATURES.items()}
 
 
 class _Library:
@@ -88,8 +91,21 @@ def test_ctypes_declaration_matches_c_signature(name):
 def test_every_declaration_has_an_entry_point():
     assert {"smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_occupancy",
             "float_quantize", "s2fp8_stats", "s2fp8_quantize",
-            "s2fp8_occupancy"} <= set(ENTRY_POINTS)
+            "s2fp8_occupancy", "philox_fill"} <= set(ENTRY_POINTS)
     assert set(_declared()) == set(ENTRY_POINTS)
+
+
+@pytest.mark.parametrize(
+    "name", ["smaq_quantize", "smaq_quantize_bn", "float_quantize", "s2fp8_quantize",
+             "philox_fill"])
+def test_stochastic_kernels_read_their_key_from_device_memory(name):
+    """A CUDA graph bakes a launch's arguments: the key goes by pointer
+    (each replay reads the slot the host wrote) and the call index by value,
+    one after the other; no 64-bit seed is passed by value any more."""
+    params = SIGNATURES[name]
+    i = params.index("const unsigned long long* key")
+    assert params[i + 1] == "unsigned int call"
+    assert not any(p.endswith(" seed") for p in params)
 
 
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe

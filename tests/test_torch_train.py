@@ -213,8 +213,8 @@ def test_cli_builds_every_encoder(argv):
         assert comp.use_batch_norm and comp.bn_scalar_params == ("--bn_scalar_params" in argv)
 
 
-@pytest.mark.parametrize("argv", ["--compress_loss", "--steps_per_call 2", "--model inception",
-                                  "--profile_dir prof", "--fsdp 2"])
+@pytest.mark.parametrize("argv", ["--compress_loss", "--compute_dtype bfloat16",
+                                  "--model inception", "--dp 2", "--fsdp 2"])
 def test_cli_deferred_flags_still_raise(argv):
     from smart_quantization_tpu_torch.utils.config import build_components, parse_args
 
