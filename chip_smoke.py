@@ -28,7 +28,12 @@ non-zero:
    version by the flip rule, and the dense packer's round trip; the Philox
    fill (the tensor-op noise of a step on the card) bitwise against its
    plain version at bert-base's dropout sizes, and the float kernel's
-   stochastic bits against the fill's words for the same key;
+   stochastic bits against the fill's words for the same key; each
+   kernel's bfloat16 form (``--compute_dtype bfloat16``) at the same shapes
+   in bf16 bitwise against its float32 form on the widened input rounded
+   to nearest-even (outputs and sizes, truncation and stochastic) and
+   against its plain version by the rules above, and 1000 back-to-back
+   bf16 calls;
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -52,7 +57,17 @@ non-zero:
    regions, and each K-step cell's step time, device idle share, launches,
    peak and held memory at K=1 and at K (``chiprun_out/k_step_times.json``);
    each cell's seeded command twice, bitwise, and the step under
-   PyTorch's default kernels (determinism's cost);
+   PyTorch's default kernels (determinism's cost); under
+   ``--compute_dtype bfloat16``: ResNet-18 with SmaQ 6/8 (with
+   ``--measure_average_grad_norm``), FP8, FP16, BF16, S2FP8 and
+   ``--use_batch_norm``, bert-base with the stable codecs beside its
+   ``--no_compress`` step (the loss after 17 steps within 1.25x), each
+   with its ratio, launches per step equal to the plan with no dtype cast
+   inside an encoder call, no host sync, K=8 / K=4 against K=1 and two
+   seeded runs bitwise, and each K-step cell timed; ``--compress_loss``
+   (SmaQ, FP8), ``--auto_lr_find`` at K=8 (the weights and graphs put
+   back) and ``--auto_scale_batch_size`` (an out-of-memory trial under a
+   memory cap, its memory given back, then a step at batch 128);
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
    cast to the same format; the SmaQ call at the main path's sizes,
@@ -61,8 +76,11 @@ non-zero:
    in one CUDA graph each), and the
    SmaQ kernels' blocks resident per SM; the same for S2FP8, with both of
    its forms at its threshold and at 8192 elements; the Philox fill of
-   bert-base's largest dropout mask;
-6. the kernel table as one JSON line, then the result as the last line.
+   bert-base's largest dropout mask; the bfloat16 forms beside the
+   float32 form between a cast in and a cast out (the path they replace),
+   against their 4 bytes an element;
+6. the kernel table as one JSON line (the bfloat16 forms as rows of their
+   own), then the result as the last line.
 
 ``--s2fp8_times_of DIR`` times only the S2FP8 call of the port in DIR
 (``s2fp8_fused`` by size, alone at 8 388 608 elements and in streams of 20,
@@ -113,13 +131,27 @@ BERT_SIZES = (("bert intermediate 50331648", 32 * 512 * 3072),
 BERT_LAYERS = 12
 # the stable momentum codecs and the packed state on bert-base
 CODEC_ARGV = ["--momentum_rowwise", "--momentum_log_nu"]
+# the models' compute in bfloat16: every tap's map goes to a kernel's bf16 form
+BF16_ARGV = ["--compute_dtype", "bfloat16"]
+# ResNet-18's other encoders under bfloat16: (label, arguments, overall
+# ratio range, the loss must be finite), so that every bf16 form launches
+# on a training path
+BF16_PATHS = [
+    ("bf16 fp8", ["--compress", "fp8"], (4.0, 4.0), True),
+    ("bf16 fp16", ["--compress", "fp16"], (2.0, 2.0), True),
+    ("bf16 bf16", ["--compress", "bf16"], (2.0, 2.0), True),
+    ("bf16 s2fp8", ["--compress", "s2fp8", "--no_terminate_on_nan"], (3.9, 4.0), False),
+    ("bf16 smart bn", ["--use_batch_norm"], (4.5, 5.5), True),
+]
 PACKED_ARGV = ["--packed_momentum", "--packed_weights"]
 BN_SHAPE = (128, 64, 32, 32)  # the largest BatchNorm output, NCHW
 RAGGED_BN_SHAPE = (3, 10, 7, 5)
 TPU = "smart_quantization_tpu/ops/pallas"
-# the kernels of csrc/*.cu, as their wrappers count them
-KERNEL_NAMES = ("smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize",
-                "s2fp8_stats", "s2fp8_quantize", "philox_fill")
+# the kernels of csrc/*.cu, as their wrappers count them; the bfloat16
+# forms count under the same name with "_bf16"
+BF16_KERNELS = ("smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize",
+                "s2fp8_stats", "s2fp8_quantize")
+KERNEL_NAMES = (*BF16_KERNELS, "philox_fill", *(f"{k}_bf16" for k in BF16_KERNELS))
 CSRC = "smart_quantization_tpu_torch/csrc"
 # the other CLI paths: (label, arguments after MAIN_ARGV's, overall ratio
 # range, the loss must be finite); argparse takes the last --compress
@@ -680,7 +712,7 @@ def check_s2fp8_kernels(device):
         form = S.s2fp8_plan(n, sms)[0]
         before = dict(S.LAUNCHES)
         y = S.s2fp8_fused(x, None, stochastic=False)
-        got = {k: S.LAUNCHES[k] - before[k] for k in S.LAUNCHES}
+        got = {k: S.LAUNCHES[k] - before[k] for k in ("s2fp8_stats", "s2fp8_quantize")}
         if got != {"s2fp8_stats": int(form == "split"), "s2fp8_quantize": 1}:
             fail(f"s2fp8_fused at {n} did not take the {form} form: {got}")
         y_ref = S.s2fp8_fused_reference(x, stochastic=False)
@@ -716,7 +748,7 @@ def check_s2fp8_kernels(device):
     else:
         fail(f"s2fp8_quantize ran the small form on {t + 1} elements")
     say(f"  launches during the checks: {dict(S.LAUNCHES)}")
-    if min(S.LAUNCHES.values()) == 0:
+    if min(S.LAUNCHES["s2fp8_stats"], S.LAUNCHES["s2fp8_quantize"]) == 0:
         fail("an S2FP8 kernel was never launched by the checks")
     return errs
 
@@ -874,7 +906,208 @@ def check_philox_fill(device) -> float:
     return 0.0
 
 
+# the bfloat16 forms (--compute_dtype bfloat16): phase 3's shapes in bf16
+BF16_CASES = (("act 128x64x32x32", ACT_SHAPE, 1.7, 0.3),
+              ("ragged 300001", (300_001,), 2.5, -0.7),
+              ("bn leaf 64", (64,), 0.1, 1.0),
+              ("fc bias 10", (10,), 0.01, 0.0),
+              *((name, (n,), 0.05, -0.01) for name, n in BERT_SIZES))
+
+
+def bf16_of(shape, scale, shift, gen, device):
+    """A bfloat16 tensor of ``shape`` (normal * scale + shift, rounded)."""
+    import torch
+
+    return (torch.randn(shape, generator=gen, device=device) * scale + shift).to(torch.bfloat16)
+
+
+def same_bits(label, got, want) -> None:
+    """``got`` must be bfloat16 and bitwise ``want`` (the float32 form's
+    result on the widened input, rounded to nearest-even)."""
+    import torch
+
+    want = want.to(torch.bfloat16) if want.dtype != torch.bfloat16 else want
+    if got.dtype != torch.bfloat16 or not bitwise_equal(got, want):
+        bad = int((got.view(torch.int16) != want.view(torch.int16)).sum()) \
+            if got.dtype == torch.bfloat16 and got.shape == want.shape else -1
+        fail(f"bf16 {label}: not bitwise the float32 form on the widened input, rounded "
+             f"({got.dtype}, {bad} of {want.numel()} apart)")
+
+
+def fresh_key(device, seed=21):
+    """A step key of its own, so two forms draw the same (key, call)."""
+    from smart_quantization_tpu_torch.ops.keys import DeviceKey, key_tensor
+
+    return DeviceKey(key_tensor(seed, device))
+
+
+def check_bf16_kernels(device) -> dict:
+    """Every kernel's bfloat16 form against (a) its float32 form on the
+    widened input with the output rounded to nearest-even, bitwise (the
+    outputs and the sizes, in truncation and, with the same key, in
+    stochastic rounding) and (b) its plain version on the bf16 input by
+    phase 3's rules: the flip rule for SmaQ, bitwise for the float formats,
+    one e5m2 step for S2FP8.  Phase 3's shapes in bf16 (a ragged tensor,
+    each small form's threshold, a BN NCHW tensor with a zero gamma,
+    bert-base's largest activation and its word-embedding table), then 1000
+    back-to-back bf16 calls.  Returns the largest difference from the plain
+    versions."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.float_format import (
+        BF16_FORMAT,
+        FP8_FORMAT,
+        FP16_FORMAT,
+        float_quantize,
+    )
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    trunc, stoch = SmaQParams(stochastic_rounding=False), SmaQParams()
+    before = read_counts()
+    errs = dict.fromkeys((f"{k}_bf16" for k in BF16_KERNELS), 0.0)
+    cases = [(name, bf16_of(shape, scale, shift, gen, device))
+             for name, shape, scale, shift in BF16_CASES]
+    cases += [(f"smaq threshold {n}", bf16_of((n,), 0.8, 0.3, gen, device))
+              for n in (K.SMALL_MAX - 1, K.SMALL_MAX, K.SMALL_MAX + 1)]
+    cases += [(f"s2fp8 threshold {n}", bf16_of((n,), 0.5, 0.1, gen, device))
+              for n in (S.SMALL_MAX, S.SMALL_MAX + 1)]
+    for name, xb in cases:
+        xw = xb.float()
+        n = xb.numel()
+        # SmaQ: truncation, all_positive and stochastic (the same key)
+        for mode, p, kw in (("trunc", trunc, {}), ("all_positive", trunc, {"all_positive": True}),
+                            ("stochastic", stoch, {})):
+            xin, xwin = (xb - xb.mean(), None) if kw else (xb, xw)
+            if kw:
+                xwin = xin.float()
+            yb, sb = K.smaq_fused(xin, fresh_key(device) if p.stochastic_rounding else None,
+                                  p, **kw)
+            yw, sw = K.smaq_fused(xwin, fresh_key(device) if p.stochastic_rounding else None,
+                                  p, **kw)
+            same_bits(f"smaq {name} {mode}", yb, yw)
+            if not bitwise_equal(sb, sw):
+                fail(f"bf16 smaq {name} {mode}: size {float(sb)} against {float(sw)}")
+            if mode != "stochastic":
+                y_ref, s_ref = K.smaq_fused_reference(xin, None, p, **kw)
+                quantum = K.pivot_stats_reference(xwin.reshape(-1), p)[1] / p.range_main
+                errs["smaq_quantize_bf16"] = max(errs["smaq_quantize_bf16"], flip_check(
+                    f"bf16 {name} smaq {mode} against its plain version", yb.float(),
+                    y_ref.float(), sb, s_ref, quantum))
+        # the float formats: nearest with and without check_inf, stochastic
+        for fname, fmt in (("fp8", FP8_FORMAT), ("fp16", FP16_FORMAT), ("bf16", BF16_FORMAT)):
+            for ci in (True, False):
+                yb = F.float_quantize_fused(xb, fmt, None, stochastic=False, check_inf=ci)
+                same_bits(f"{fname} {name} nearest", yb,
+                          F.float_quantize_fused(xw, fmt, None, stochastic=False, check_inf=ci))
+                y_ref = float_quantize(xb, fmt, stochastic=False, check_inf=ci).to(torch.bfloat16)
+                if not bitwise_equal(yb, y_ref):
+                    fail(f"bf16 {fname} {name}: not bitwise its plain version")
+            same_bits(f"{fname} {name} stochastic",
+                      F.float_quantize_fused(xb, fmt, fresh_key(device), stochastic=True),
+                      F.float_quantize_fused(xw, fmt, fresh_key(device), stochastic=True))
+        # S2FP8: nearest and stochastic against the float32 form; nearest
+        # against the plain version within one e5m2 step
+        yb = S.s2fp8_fused(xb, None, stochastic=False)
+        same_bits(f"s2fp8 {name} nearest", yb, S.s2fp8_fused(xw, None, stochastic=False))
+        same_bits(f"s2fp8 {name} stochastic", S.s2fp8_fused(xb, fresh_key(device)),
+                  S.s2fp8_fused(xw, fresh_key(device)))
+        y_ref = S.s2fp8_fused_reference(xb, stochastic=False)
+        mu_r, m_r = S.stats_reference(xw.reshape(-1))
+        alpha, beta = (v.double() for v in squeeze_coefs_of(mu_r, m_r))
+
+        def squeezed(y):
+            a = y.reshape(-1).double().abs()
+            return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
+
+        diff = (yb.view(torch.int16) != y_ref.view(torch.int16)).reshape(-1)
+        n_diff = int(diff.sum())
+        steps = (float(e5m2_steps(squeezed(yb)[diff], squeezed(y_ref)[diff]).max())
+                 if n_diff else 0.0)
+        if n_diff > max(1e-3 * n, 1) or steps > 1.01:
+            fail(f"bf16 s2fp8 {name}: {n_diff} of {n} apart from the plain version, "
+                 f"{steps:.3f} e5m2 steps")
+        errs["s2fp8_quantize_bf16"] = max(errs["s2fp8_quantize_bf16"],
+                                          float((yb.float() - y_ref.float()).abs().max()))
+        mu_k, m_k = (S.read_consts(S.s2fp8_stats(xb.reshape(-1)))[k] for k in ("mu", "m"))
+        errs["s2fp8_stats_bf16"] = max(errs["s2fp8_stats_bf16"], float((mu_k - mu_r).abs()),
+                                       float((m_k - m_r).abs()))
+        mean_k, std_k = K.read_consts(K.smaq_stats(xb.reshape(-1), trunc))
+        mean_p, std_p = K.pivot_stats_reference(xw.reshape(-1), trunc)
+        errs["smaq_stats_bf16"] = max(errs["smaq_stats_bf16"], float((mean_k - mean_p).abs()),
+                                      float((std_k - std_p).abs()))
+        say(f"  bf16 {name}: smaq (trunc, all_positive, stochastic), fp8/fp16/bf16 (nearest "
+            f"x2, stochastic), s2fp8 (nearest, stochastic) bitwise the float32 forms rounded; "
+            f"s2fp8 {n_diff} apart from its plain version ({steps:.3f} e5m2 steps) -> ok")
+        del xw
+    # BatchNorm-folded SmaQ on NCHW bf16: per-channel, a zero gamma, a scalar pair
+    xb = bf16_of(BN_SHAPE, 1.3, 0.2, gen, device)
+    xw = xb.float()
+    g = torch.randn(BN_SHAPE[1], generator=gen, device=device) * 0.3 + 1.0
+    b = torch.randn(BN_SHAPE[1], generator=gen, device=device) * 0.2
+    g_zero = g.clone()
+    g_zero[::3] = 0.0
+    for label, gg, bb in (("per channel", g, b), ("zero gamma", g_zero, b),
+                          ("scalar pair", g.mean(), b.mean())):
+        for p in (trunc, stoch):
+            yb, sb = K.smaq_fused_bn(xb, fresh_key(device) if p.stochastic_rounding else None,
+                                     gg, bb, p)
+            yw, sw = K.smaq_fused_bn(xw, fresh_key(device) if p.stochastic_rounding else None,
+                                     gg, bb, p)
+            same_bits(f"bn {label}", yb, yw)
+            if not bitwise_equal(sb, sw) or not bool(torch.isfinite(yb).all()):
+                fail(f"bf16 bn {label}: size {float(sb)} against {float(sw)}, or not finite")
+        y_ref, s_ref = K.smaq_fused_bn_reference(xb, None, gg, bb, trunc)
+        yb, sb = K.smaq_fused_bn(xb, None, gg, bb, trunc)
+        std = K.pivot_stats_reference(xw.reshape(-1), trunc)[1]
+        g_safe = torch.where(gg == 0, torch.ones_like(gg), gg)
+        errs["smaq_quantize_bn_bf16"] = max(errs["smaq_quantize_bn_bf16"], flip_check(
+            f"bf16 bn {label} against its plain version", yb.float(), y_ref.float(), sb, s_ref,
+            std * g_safe.abs().max() / trunc.range_main))
+    # 1000 back-to-back bf16 calls on one stream, every form in turn
+    gen_small = bf16_of((1728,), 1.0, 0.0, gen, device)
+    big = bf16_of((300_001,), 2.5, -0.7, gen, device)
+    calls = [lambda: K.smaq_fused(big, None, trunc),
+             lambda: K.smaq_fused(gen_small, None, trunc),
+             lambda: K.smaq_fused_bn(xb, None, g, b, trunc),
+             lambda: (S.s2fp8_fused(big, None, stochastic=False),),
+             lambda: (S.s2fp8_fused(gen_small, None, stochastic=False),),
+             lambda: (F.float_quantize_fused(big, FP8_FORMAT, None, stochastic=False),)]
+    firsts = [fn() for fn in calls]
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    for i in range(1000 - len(calls)):
+        for out, first in zip(calls[i % len(calls)](), firsts[i % len(calls)]):
+            bad += (out.reshape(-1).view(torch.int16 if out.dtype == torch.bfloat16
+                                         else torch.int32)
+                    != first.reshape(-1).view(torch.int16 if first.dtype == torch.bfloat16
+                                              else torch.int32)).sum()
+    say(f"  1000 back-to-back bf16 calls (smaq split/small/bn, s2fp8 split/small, fp8): "
+        f"{int(bad)} elements or sizes apart from the first of their kind -> "
+        f"{'ok' if int(bad) == 0 else 'MISMATCH'}")
+    if int(bad):
+        fail("a bf16 call's output changed over back-to-back calls")
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    say(f"  launches during the bf16 checks: {got}")
+    if any(got[f"{k}_bf16"] == 0 for k in BF16_KERNELS):
+        fail("a bf16 kernel form was never launched by the checks")
+    return errs
+
+
+def squeeze_coefs_of(mu, m):
+    from smart_quantization_tpu_torch.ops.s2fp8 import squeeze_coefs
+
+    return squeeze_coefs(mu, m)
+
+
 # ---------------------------------------------------------------- phase 4
+# the suffix of a bfloat16 tap's form in step_calls, and of a bfloat16
+# form's launch counter
+BF16_FORM = "_bf16"
+
+
 def per_step_calls(trainer, model_name: str) -> int:
     """Encoder calls per training step: every tap forward and backward, every
     gradient, every non-exempt weight and every momentum buffer (SGD's
@@ -900,17 +1133,22 @@ def draws_noise(args) -> bool:
 
 
 def path_kernels(args) -> tuple[str, ...]:
-    """The kernels a parsed command line's training runs through."""
+    """The kernels a parsed command line's training runs through.  Under
+    ``--compute_dtype bfloat16`` the taps' feature and gradient maps go to
+    the bfloat16 forms and the optimizer's float32 leaves to the float32
+    ones."""
     fill = ("philox_fill",) if draws_noise(args) else ()
     if args.compress in ("fp8", "fp16", "bf16"):
-        return ("float_quantize", *fill)
-    if args.compress == "s2fp8":
-        return ("s2fp8_stats", "s2fp8_quantize", *fill)
-    # sampled stats take the TPU kernel's fixed positions: no stats launch
-    stats = () if args.use_sample_stats else ("smaq_stats",)
-    if args.use_batch_norm:
-        return (*stats, "smaq_quantize", "smaq_quantize_bn", *fill)
-    return (*stats, "smaq_quantize", *fill)
+        opt, taps = ("float_quantize",), ()
+    elif args.compress == "s2fp8":
+        opt, taps = ("s2fp8_stats", "s2fp8_quantize"), ()
+    else:
+        # sampled stats take the TPU kernel's fixed positions: no stats launch
+        opt = (() if args.use_sample_stats else ("smaq_stats",)) + ("smaq_quantize",)
+        taps = ("smaq_quantize_bn",) if args.use_batch_norm else ()
+    if args.compute_dtype == "bfloat16":
+        return (*opt, *(f"{k}_bf16" for k in opt + taps), *fill)
+    return (*opt, *taps, *fill)
 
 
 def step_calls(trainer, model_args) -> list[tuple[int, str]]:
@@ -923,7 +1161,8 @@ def step_calls(trainer, model_args) -> list[tuple[int, str]]:
     ``given`` (the log2 codec's per-tensor call with its own stats: the
     quantize kernel alone), ``rows`` (the row-wise codecs: tensor ops, no
     SmaQ kernel; its size is a row's) or ``encode`` (packed state: the
-    stats kernel, then tensor ops)."""
+    stats kernel, then tensor ops); a tap's form on a bfloat16 map ends in
+    ``BF16_FORM`` (its launches are the bfloat16 forms')."""
     import torch
 
     from smart_quantization_tpu_torch.compress.base import SizeStats
@@ -934,7 +1173,8 @@ def step_calls(trainer, model_args) -> list[tuple[int, str]]:
     taps = []
 
     def record(x, gen, compressor, *, gamma=None, **_):
-        taps.append((x.numel(), "bn" if gamma is not None else "plain"))
+        form = "bn" if gamma is not None else "plain"
+        taps.append((x.numel(), form + BF16_FORM * (x.dtype == torch.bfloat16)))
         return x, SizeStats.of(x.numel(), 32, 32, x.device)
 
     model, real = trainer.model, tap.compression_tap
@@ -963,7 +1203,8 @@ def step_calls(trainer, model_args) -> list[tuple[int, str]]:
             else:
                 form = "given" if log_nu else "plain"
             momentum.append((p.numel(), form))
-    return (taps + [(n, "plain") for n, _ in taps]
+    # a gradient map has its feature map's dtype; a BN tap's backward is plain
+    return (taps + [(n, "plain" + BF16_FORM * f.endswith(BF16_FORM)) for n, f in taps]
             + [(p.numel(), "plain") for p in named.values()] + weights + momentum)
 
 
@@ -971,7 +1212,8 @@ def expected_launches(args, calls) -> dict:
     """Launches of each kernel in one training step: one per encoder call
     for the float formats; for S2FP8 and SmaQ, a stats launch where
     ``s2fp8_plan`` or ``smaq_plan`` takes the split form (and for every
-    BN-kernel call) and one quantize launch per call; for SmaQ's other
+    BN-kernel call) and one quantize launch per call, in the element form
+    of the call (``BF16_FORM``); for SmaQ's other
     forms (``step_calls``) the quantize alone (``given``), the stats alone
     (``encode``) or nothing (``rows``); none for a SmaQ call below
     ``--min_size`` elements (it passes through); under --use_batch_norm
@@ -988,6 +1230,13 @@ def expected_launches(args, calls) -> dict:
 
     sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
     kernels = path_kernels(args)
+    out = dict.fromkeys(kernels, 0)
+
+    def add(name, form, k=1):
+        name += BF16_FORM * form.endswith(BF16_FORM)
+        out[name] = out.get(name, 0) + k
+
+    forms = [(n, form.removesuffix(BF16_FORM), form) for n, form in calls]
     fills = {}
     if "philox_fill" in kernels:
         draws = 1 + int(args.use_sample_stats)
@@ -995,26 +1244,29 @@ def expected_launches(args, calls) -> dict:
             draws for n, form in calls if form in ("rows", "encode") and n >= args.min_size)
         if args.model == "bert":
             fills["philox_fill"] += 3 * BERT_LAYERS + 2
-    if kernels[0] == "s2fp8_stats":
-        return {"s2fp8_stats": sum(s2fp8_plan(n, sms)[0] == "split" for n, _ in calls),
-                "s2fp8_quantize": len(calls), **fills}
-    if kernels[0] == "float_quantize":
-        return {"float_quantize": len(calls), **fills}
-    out = {**dict.fromkeys(kernels, 0), **fills}
-    stats = 0 if args.use_sample_stats else 1
-    for n, form in calls:
-        if n < args.min_size or form == "rows":
-            continue
-        if form == "bn":
-            out["smaq_stats"] = out.get("smaq_stats", 0) + stats
-            out["smaq_quantize_bn"] += 1
-        elif form == "encode":
-            out["smaq_stats"] = out.get("smaq_stats", 0) + stats
-        elif form == "given":
-            out["smaq_quantize"] += 1
-        else:
-            out["smaq_stats"] = out.get("smaq_stats", 0) + stats * (smaq_plan(n, sms)[0] == "split")
-            out["smaq_quantize"] += 1
+    if args.compress == "s2fp8":
+        for n, _, form in forms:
+            add("s2fp8_stats", form, int(s2fp8_plan(n, sms)[0] == "split"))
+            add("s2fp8_quantize", form)
+    elif args.compress in ("fp8", "fp16", "bf16"):
+        for _, _, form in forms:
+            add("float_quantize", form)
+    else:
+        stats = 0 if args.use_sample_stats else 1
+        for n, base, form in forms:
+            if n < args.min_size or base == "rows":
+                continue
+            if base == "bn":
+                add("smaq_stats", form, stats)
+                add("smaq_quantize_bn", form)
+            elif base == "encode":
+                add("smaq_stats", form, stats)
+            elif base == "given":
+                add("smaq_quantize", form)
+            else:
+                add("smaq_stats", form, stats * (smaq_plan(n, sms)[0] == "split"))
+                add("smaq_quantize", form)
+    out.update(fills)
     return {k: v for k, v in out.items() if k in kernels}
 
 
@@ -1078,15 +1330,59 @@ def default_kernels():
         real()
 
 
+@contextlib.contextmanager
+def casts_in_encoder_calls():
+    """Count the dtype casts (``aten._to_copy``, a ``copy_`` across dtypes)
+    that run inside the encoders' kernel paths (``smaq_fused``,
+    ``smaq_fused_bn``, ``float_quantize_fused``, ``s2fp8_fused``): a bf16
+    map must reach its kernel's bf16 form with none around it.  Yields a
+    one-element list holding the count."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+
+    count = [0]
+    aten = torch.ops.aten
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is aten._to_copy.default or (
+                    func is aten.copy_.default and args[0].dtype != args[1].dtype):
+                count[0] += 1
+            return func(*args, **kwargs)
+
+    def watched(fn):
+        def call(*a, **kw):
+            with Casts():
+                return fn(*a, **kw)
+        return call
+
+    patched = [(K, "smaq_fused"), (K, "smaq_fused_bn"), (F, "float_quantize_fused"),
+               (S, "s2fp8_fused")]
+    real = [getattr(m, name) for m, name in patched]
+    for (m, name), fn in zip(patched, real):
+        setattr(m, name, watched(fn))
+    try:
+        yield count
+    finally:
+        for (m, name), fn in zip(patched, real):
+            setattr(m, name, fn)
+
+
 def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
-               base_argv=MAIN_ARGV):
+               base_argv=MAIN_ARGV, timed=10):
     """Steps of the trainer a command line builds: 2 warm-up steps, then
-    (with ``check_launches``) 5 steps whose launches must equal the plan
-    and which must not sync with the host, then 10 timed steps.  Returns
-    the median step (ms), the loss after the 17 steps, the launches of a
-    step, the step's encoder calls, the peak device memory of the timed
-    steps and the memory held between steps (GB), and the last step's
-    compression sizes by tag."""
+    (with ``check_launches``) 5 steps whose launches must equal the plan,
+    with no dtype cast around an encoder call and no sync with the host,
+    then ``timed`` timed steps.  Returns the median step (ms), the loss
+    after the last step, the launches of a step, the step's encoder calls,
+    the peak device memory of the timed steps and the memory held between
+    steps (GB), the last step's compression sizes by tag and its
+    ``avg_grad_norm`` (None without ``--measure_average_grad_norm``)."""
     import gc
 
     import torch
@@ -1104,7 +1400,7 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
     # a host-to-device copy the sync check would flag
     batches = []
     epoch = 0
-    while len(batches) < 17:
+    while len(batches) < 7 + timed:
         batches.extend(trainer.data.device_train_batches(epoch, trainer.device))
         epoch += 1
     batches = iter(batches)
@@ -1129,17 +1425,20 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
         # non-logging steps: any device-to-host sync raises
         torch.cuda.set_sync_debug_mode("error")
         try:
-            for _ in range(5):
-                before = read_counts()
-                metrics = step()
-                got = {k: v - before[k] for k, v in read_counts().items()}
-                want = {k: expected.get(k, 0) for k in got}
-                if got != want:
-                    fail(f"a step launched {got}; expected {want}")
+            with casts_in_encoder_calls() as casts:
+                for _ in range(5):
+                    before = read_counts()
+                    metrics = step()
+                    got = {k: v - before[k] for k, v in read_counts().items()}
+                    want = {k: expected.get(k, 0) for k in got}
+                    if got != want:
+                        fail(f"a step launched {got}; expected {want}")
         finally:
             torch.cuda.set_sync_debug_mode(0)
+        if casts[0]:
+            fail(f"{casts[0]} dtype casts ran inside encoder calls in 5 steps")
         say(f"  launches on every step: {expected} for {len(calls)} encoder calls; "
-            "no host sync in 5 non-logging steps")
+            "no host sync and no cast around an encoder call in 5 non-logging steps")
         if finite_loss and not math.isfinite(float(metrics["train_loss"])):
             fail("non-finite training loss")
     else:
@@ -1147,7 +1446,7 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
             step()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(10):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step()
@@ -1160,7 +1459,9 @@ def time_steps(extra_argv, check_launches: bool, finite_loss: bool = True,
             "calls": calls, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "resident_gb": torch.cuda.memory_allocated() / 1e9,
             "sizes": {k.split("/", 1)[1]: v.tolist() for k, v in metrics.items()
-                      if k.startswith("_ratio/")}}
+                      if k.startswith("_ratio/")},
+            "avg_grad_norm": (float(metrics["avg_grad_norm"]) if "avg_grad_norm" in metrics
+                              else None)}
 
 
 def seeded_run(base_argv, extra, steps, out_dir, checkpoint="epoch_0000.pt"):
@@ -1223,6 +1524,157 @@ def torch_equal(a, b) -> bool:
     import torch
 
     return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+# ------------------------------------------------------ phase 4: bfloat16
+def ratio_of(sizes: dict) -> float:
+    """The overall compression ratio of one step's sizes by tag."""
+    return sum(v[0] for v in sizes.values()) / sum(v[1] for v in sizes.values())
+
+
+def check_ratio(label, sizes, ratio_range) -> float:
+    ratio = ratio_of(sizes)
+    lo, hi = ratio_range
+    if not lo <= ratio <= hi:
+        fail(f"[{label}] overall compression ratio {ratio} outside {lo}-{hi}")
+    return ratio
+
+
+def bf16_cells(card) -> tuple[dict, dict]:
+    """Phase 4 under ``--compute_dtype bfloat16``: ResNet-18 SmaQ 6/8 through
+    the CLI and its steps (with ``--measure_average_grad_norm``), FP8,
+    FP16, BF16, S2FP8 and SmaQ ``--use_batch_norm`` steps, and bert-base's
+    codecs cell beside its ``--no_compress`` step: each cell's ratio, a
+    finite loss, launches per step equal to the plan with no cast around an
+    encoder call and no host sync (``time_steps``), and bert-base's loss
+    after 17 steps within 1.25x of the plain bf16 run's.  Returns the main
+    path's launches and the median steps (ms)."""
+    launches, steps = {}, {}
+    got, _ = run_main_path(BF16_ARGV, label="bf16 smart")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    run = time_steps(BF16_ARGV + ["--measure_average_grad_norm"], check_launches=True)
+    norm = run["avg_grad_norm"]
+    if norm is None or not math.isfinite(norm) or norm <= 0:
+        fail(f"[bf16 smart] avg_grad_norm {norm} is not a finite positive number")
+    steps["bf16 smart"] = run["ms"]
+    say(f"  [bf16 smart] median step {run['ms']:.2f} ms (loss {run['loss']:.4f}, avg_grad_norm "
+        f"{norm:.4f}), peak memory {run['peak_gb']:.2f} GB, held {run['resident_gb']:.2f} GB "
+        f"on {card}")
+    for label, extra, ratio_range, finite in BF16_PATHS:
+        got, _ = run_main_path(BF16_ARGV + extra, ratio_range, finite, train_batches=3,
+                               label=label)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        run = time_steps(BF16_ARGV + extra, check_launches=True, finite_loss=finite, timed=3)
+        ratio = check_ratio(label, run["sizes"], ratio_range)
+        steps[label] = run["ms"]
+        say(f"  [{label}] ratio {ratio!r}; median step {run['ms']:.2f} ms (loss "
+            f"{run['loss']:.4f}, finite: {math.isfinite(run['loss'])}) on {card}")
+    codec = time_steps(BF16_ARGV + CODEC_ARGV, check_launches=True, base_argv=BERT_ARGV)
+    plain = time_steps(BF16_ARGV + ["--no_compress"], check_launches=False, base_argv=BERT_ARGV)
+    ratio = check_ratio("bert codecs bf16", codec["sizes"], (4.5, 5.5))
+    say(f"  [bert codecs bf16] ratio {ratio!r}; train loss after 17 steps {codec['loss']!r}, "
+        f"{plain['loss']!r} --no_compress; median step {codec['ms']:.2f} ms against "
+        f"{plain['ms']:.2f} ms; peak memory {codec['peak_gb']:.2f} / {plain['peak_gb']:.2f} GB, "
+        f"held {codec['resident_gb']:.2f} / {plain['resident_gb']:.2f} GB on {card}")
+    if not math.isfinite(codec["loss"]) or codec["loss"] > 1.25 * plain["loss"]:
+        fail(f"[bert codecs bf16] loss {codec['loss']} is not finite or above 1.25x the plain "
+             f"loss {plain['loss']}")
+    steps.update({"bert codecs bf16": codec["ms"], "bert no_compress bf16": plain["ms"]})
+    for label, extra, ratio_range in (
+            ("bf16 smart compress_loss", [], (4.5, 5.5)),
+            ("bf16 fp8 compress_loss", ["--compress", "fp8"], (4.0, 4.0))):
+        got, _ = run_main_path(BF16_ARGV + extra + ["--compress_loss"], ratio_range,
+                               train_batches=3, label=label)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, steps
+
+
+def tuned_run(card) -> dict:
+    """``--auto_lr_find`` on ResNet-18 under bfloat16 at K=8: the range test
+    (50 steps, six groups in the probe's own CUDA graph and two single
+    steps) leaves the model's weights and the trainer's cached graphs as
+    they were and a constant learning rate; then the run trains, capturing
+    its own graph, to a finite loss.  Returns the run's launches."""
+    import torch
+
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.train.loop import run
+    from smart_quantization_tpu_torch.train.tune import tune_from_args
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    args = parse_args(MAIN_ARGV + BF16_ARGV + [
+        "--auto_lr_find", "--steps_per_call", str(K_RESNET), "--limit_train_batches", "8",
+        "--limit_val_batches", "2", "--logdir", os.path.join(OUT, "smoke_logs")])
+    torch.manual_seed(args.seed)
+    trainer = build_trainer(args)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    t0 = time.perf_counter()
+    tune_from_args(trainer, args)
+    took = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(trainer.model.parameters(), before))
+    lr = trainer.spec.lr(0)
+    if not same or trainer._train_graph is not None or lr != trainer.spec.lr(10**6):
+        fail("--auto_lr_find did not put the model and its step graphs back, or left a schedule")
+    reset_counts()
+    final = run(trainer)
+    counts = read_counts()
+    kernels = path_kernels(args)
+    say(f"  [auto_lr_find] suggestion {lr!r} after {took:.1f} s (50 steps at K={K_RESNET}); "
+        f"weights and graphs put back; the run at it: val_loss {final['val_loss']!r}, its own "
+        f"graph captured ({trainer._train_graph is not None}), launches {counts}")
+    if not math.isfinite(final["val_loss"]) or trainer._train_graph is None:
+        fail("the run after --auto_lr_find did not train through its own graph")
+    if any(counts[k] == 0 for k in kernels):
+        fail(f"the run after --auto_lr_find launched a kernel of {kernels} no time")
+    return {k: counts[k] for k in kernels}
+
+
+def scaled_batch(card) -> int:
+    """``--auto_scale_batch_size`` on ResNet-18 under bfloat16, doubling from
+    batch 128: on the whole card with the CLI's (JAX's) eight trials, then
+    with the caching allocator capped at a quarter of the card, so that a
+    trial runs out of memory (batch 16 384 still fits the whole card, and
+    32 768 would put 2^31 elements in one activation).  After the
+    out-of-memory trial the trial's memory is given back (the allocator
+    holds what it held before), and one step at batch 128 trains on the
+    same card.  Returns the size found on the whole card."""
+    import torch
+
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.train.tune import scale_batch_size, trial_batch
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    args = parse_args(MAIN_ARGV + BF16_ARGV + ["--logdir", ""])
+    torch.manual_seed(args.seed)
+    trainer = build_trainer(args)
+    next(iter(trainer.data.device_train_batches(0, trainer.device)))  # the data on the card
+    t0 = time.perf_counter()
+    best = scale_batch_size(trainer, args.batch_size)
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held, held_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    cap = 0.25
+    torch.cuda.set_per_process_memory_fraction(cap)
+    try:
+        capped = scale_batch_size(trainer, args.batch_size)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    after, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    m = trainer.train_step(trainer.init_state(), *trial_batch(trainer, args.batch_size))
+    loss = float(m["train_loss"])
+    say(f"  [auto_scale_batch_size] {best} on the whole card ({took:.1f} s, eight trials from "
+        f"{args.batch_size}); {capped} under a {cap:.0%} memory cap, then out of memory; "
+        f"allocated {held / 1e9:.2f} GB before and {after / 1e9:.2f} GB after, reserved "
+        f"{held_reserved / 1e9:.2f} GB before and {reserved / 1e9:.2f} GB after; then a step "
+        f"at batch {args.batch_size}: loss {loss:.4f} on {card}")
+    if capped >= args.batch_size * 2**7 or capped < 2 * args.batch_size:
+        fail(f"--auto_scale_batch_size found {capped} under the cap: no out-of-memory trial")
+    if after > held + 2**28 or reserved > held_reserved + 2**30 or not math.isfinite(loss):
+        fail("--auto_scale_batch_size kept the failed trial's memory, or the step after it failed")
+    return best
 
 
 # ------------------------------------------------------ phase 4: K steps
@@ -1415,11 +1867,18 @@ def profile_dir_run():
 
 # the K-step cells: (label, the command line, K, and at K=1 and at K the
 # warm-up, timed and profiled dispatches)
+# (bert-base at K=1: 1 warm-up, 3 timed, 1 profiled step; at K=4: 1, 2 and
+# 1 dispatches of 4 steps)
+BERT_K_COUNTS = ((1, 3, 1), (1, 2, 1))
 K_CELLS = [
     ("ResNet-18 smart", MAIN_ARGV, K_RESNET, ((3, 10, 5), (2, 6, 1))),
-    ("bert-base z-score", BERT_ARGV, K_BERT, ((2, 6, 2), (2, 4, 1))),
-    ("bert-base codecs", BERT_ARGV + CODEC_ARGV, K_BERT, ((2, 6, 2), (2, 4, 1))),
-    ("bert-base packed", BERT_ARGV + PACKED_ARGV, K_BERT, ((2, 6, 2), (2, 4, 1))),
+    ("bert-base z-score", BERT_ARGV, K_BERT, BERT_K_COUNTS),
+    ("bert-base codecs", BERT_ARGV + CODEC_ARGV, K_BERT, BERT_K_COUNTS),
+    ("bert-base packed", BERT_ARGV + PACKED_ARGV, K_BERT, BERT_K_COUNTS),
+    ("ResNet-18 smart bf16", MAIN_ARGV + BF16_ARGV, K_RESNET, ((3, 10, 5), (2, 6, 1))),
+    ("bert-base codecs bf16", BERT_ARGV + CODEC_ARGV + BF16_ARGV, K_BERT, BERT_K_COUNTS),
+    ("bert-base no_compress bf16", BERT_ARGV + ["--no_compress"] + BF16_ARGV, K_BERT,
+     BERT_K_COUNTS),
 ]
 
 
@@ -1583,6 +2042,85 @@ def time_kernels(device, timed):
     for k in ("float_fp8_nearest", "float_fp16_nearest", "float_bf16_nearest"):
         bound[k] = bound["float_quantize"]
     return t, bound, n
+
+
+def time_bf16_kernels(device, timed):
+    """Phase 5 for the bfloat16 forms at 8 388 608 elements: each kernel,
+    its plain version on the bf16 input, and the path they replace (the
+    float32 form between a cast in and a cast out); the bound is 4 bytes an
+    element for a call (2 read, 2 written), 2 for a stats pass.  Returns
+    (times, bounds) in ms, keyed by the ``_bf16`` names."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.float_format import (
+        BF16_FORMAT,
+        FP8_FORMAT,
+        FP16_FORMAT,
+        float_quantize,
+    )
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    bf = torch.bfloat16
+    params = SmaQParams()
+    gen = torch.Generator(device=device).manual_seed(4)
+    host = torch.Generator().manual_seed(5)
+    dkey = call_key(device, 5)
+    tkey = timing_key(device)
+    xb = torch.randn(ACT_SHAPE, generator=gen, device=device).reshape(-1).to(bf)
+    n = xb.numel()
+    consts = K.smaq_stats(xb, params)
+    mean, std = K.read_consts(consts)
+    s2_consts = S.s2fp8_stats(xb)
+    channels = BN_SHAPE[1]
+    gamma = torch.randn(channels, generator=gen, device=device) * 0.3 + 1.0
+    beta = torch.randn(channels, generator=gen, device=device) * 0.2
+
+    def fq(fmt, stochastic, x=xb):
+        return lambda: F.float_quantize_launch(x, fmt, key=tkey, stochastic=stochastic,
+                                               check_inf=True)
+
+    t = {
+        "smaq_stats_bf16": timed(lambda: K.smaq_stats(xb, params)),
+        "smaq_quantize_bf16": timed(lambda: K.smaq_quantize(xb, params, key=tkey, consts=consts)),
+        "smaq_call_bf16": timed(lambda: K.smaq_fused(xb, dkey, params)),
+        "smaq_call_cast": timed(lambda: K.smaq_fused(xb.float(), dkey, params)[0].to(bf)),
+        "plain_stats_bf16": timed(lambda: K.pivot_stats_reference(xb.float(), params)),
+        "plain_quantize_bf16": timed(lambda: K.smaq_fused_reference(
+            xb, host, params, mean=mean, std=std)),
+        "plain_call_bf16": timed(lambda: K.smaq_fused_reference(xb, host, params)),
+        "float_quantize_bf16": timed(fq(FP8_FORMAT, True)),
+        "float_quantize_cast": timed(lambda: fq(FP8_FORMAT, True, xb.float())().to(bf)),
+        "float_fp8_nearest_bf16": timed(fq(FP8_FORMAT, False)),
+        "float_fp16_nearest_bf16": timed(fq(FP16_FORMAT, False)),
+        "float_bf16_nearest_bf16": timed(fq(BF16_FORMAT, False)),
+        "plain_float_bf16": timed(lambda: float_quantize(xb, FP8_FORMAT, host).to(bf)),
+        "library_fp8_bf16": timed(lambda: xb.to(torch.float8_e5m2).to(bf)),
+        "library_fp16_bf16": timed(lambda: xb.half().to(bf)),
+        "s2fp8_stats_bf16": timed(lambda: S.s2fp8_stats(xb)),
+        "s2fp8_quantize_bf16": timed(lambda: S.s2fp8_quantize(
+            xb, s2_consts, key=tkey, stochastic=True, check_inf=True)),
+        "s2fp8_pair_bf16": timed(lambda: S.s2fp8_fused(xb, dkey)),
+        "s2fp8_pair_cast": timed(lambda: S.s2fp8_fused(xb.float(), dkey).to(bf)),
+        "plain_s2fp8_stats_bf16": timed(lambda: S.stats_reference(xb.float())),
+        "plain_s2fp8_bf16": timed(lambda: S.s2fp8_fused_reference(xb, host)),
+        "smaq_quantize_bn_bf16": timed(lambda: K.smaq_quantize_bn(
+            xb, gamma, beta, channels, n // (BN_SHAPE[0] * channels), params,
+            key=tkey, consts=consts)),
+        "smaq_quantize_bn_cast": timed(lambda: K.smaq_quantize_bn(
+            xb.float(), gamma, beta, channels, n // (BN_SHAPE[0] * channels), params,
+            key=tkey, consts=consts)[0].to(bf)),
+        "plain_bn_bf16": timed(lambda: K.smaq_fused_bn_reference(
+            xb.view(BN_SHAPE), host, gamma, beta, params, mean=mean, std=std)),
+    }
+    rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    bound = {k: 4 * n / rate for k in t if not k.startswith(("plain", "library"))}
+    bound["smaq_stats_bf16"] = bound["s2fp8_stats_bf16"] = 2 * n / rate
+    bound["smaq_quantize_bn_bf16"] = (4 * n + 8 * channels) / rate
+    bound["smaq_quantize_bn_cast"] = bound["smaq_quantize_bn_bf16"]
+    return t, bound
 
 
 CALL_SIZES = (8_388_608, 2_097_152, 147_456, 36_864, 8192, 512, 64)
@@ -1777,8 +2315,8 @@ def time_s2fp8(device, timed, per_call, calls, card):
         # the small form through the C entry point: the wrapper refuses it
         # above SMALL_MAX
         def small(xn=xn, yn=yn, n=n):
-            raise_on(lib.s2fp8_quantize(xn.data_ptr(), yn.data_ptr(), n, None, tkey.data_ptr(),
-                                        0, 1, 1, 1, S.SMALL_THREADS,
+            raise_on(lib.s2fp8_quantize(xn.data_ptr(), yn.data_ptr(), n, 0, None,
+                                        tkey.data_ptr(), 0, 1, 1, 1, S.SMALL_THREADS,
                                         torch.cuda.current_stream(device).cuda_stream),
                      "s2fp8_quantize")
 
@@ -1891,6 +2429,8 @@ def main() -> int:
     errs.update(check_bn_kernel(device))
     check_codebook(device)
     errs["philox_fill"] = check_philox_fill(device)
+    say("  the bfloat16 forms (--compute_dtype bfloat16)")
+    errs.update(check_bf16_kernels(device))
 
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[4] training: ResNet-18, batch 128, full coverage")
@@ -1905,7 +2445,7 @@ def main() -> int:
         got, _ = run_main_path(extra, ratio_range, finite, train_batches=5, label=label)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        run = time_steps(extra, check_launches=True, finite_loss=finite)
+        run = time_steps(extra, check_launches=True, finite_loss=finite, timed=5)
         steps[label] = run["ms"]
         say(f"  [{label}] median step: {run['ms']:.2f} ms (loss {run['loss']:.4f}, finite: "
             f"{math.isfinite(run['loss'])}) on {card}")
@@ -1961,6 +2501,17 @@ def main() -> int:
     steps["bert stsb packed"] = packed["ms"]
 
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
+    say("  --compute_dtype bfloat16: ResNet-18 batch 128 (SmaQ 6/8 and the other encoders) "
+        "and bert-base 32 x 512 (SmaQ 6/8 with the stable codecs, AdamW 2e-5)")
+    got, bf16_steps = bf16_cells(card)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    steps.update(bf16_steps)
+    for k, v in tuned_run(card).items():
+        launches[k] = launches.get(k, 0) + v
+    scaled_batch(card)
+
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say(f"  --steps_per_call: K steps in one CUDA graph against K single steps, bitwise "
         f"(each cell's seeded command at K=1 and at K; a run's first group warms up and "
         f"captures, later groups replay, a leftover runs as single steps)")
@@ -1969,6 +2520,9 @@ def main() -> int:
             ("bert stsb", BERT_ARGV, [], K_BERT, 9, 1),
             ("bert codecs", BERT_ARGV, CODEC_ARGV, K_BERT, 9, 1),
             ("bert packed", BERT_ARGV, PACKED_ARGV, K_BERT, 9, 1),
+            ("resnet18 smart bf16", MAIN_ARGV, BF16_ARGV + ["--measure_average_grad_norm"],
+             K_RESNET, 10, 2),
+            ("bert codecs bf16", BERT_ARGV, CODEC_ARGV + BF16_ARGV, K_BERT, 9, 1),
             *((f"resnet18 {name}", MAIN_ARGV, extra, 2, 5, 1) for name, extra in K2_PATHS)):
         for kname, v in k_equals_eager(label, base, extra, k, n_steps, epochs).items():
             launches[kname] = launches.get(kname, 0) + v
@@ -1980,17 +2534,22 @@ def main() -> int:
     k_timings(card)
 
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
-    say("  the same seeded command twice (5 steps, a checkpoint each, every loss logged)")
-    for label, base, extra in (("resnet18", MAIN_ARGV, []), ("bert stsb", BERT_ARGV, [])):
-        same, line = seeded_twice(label, base, extra)
+    say("  the same seeded command twice (5 steps, 3 in bfloat16, a checkpoint each, every "
+        "loss logged)")
+    for label, base, extra in (("resnet18", MAIN_ARGV, []), ("bert stsb", BERT_ARGV, []),
+                               ("resnet18 bf16", MAIN_ARGV, BF16_ARGV),
+                               ("bert codecs bf16", BERT_ARGV, CODEC_ARGV + BF16_ARGV)):
+        same, line = seeded_twice(label, base, extra, steps=3 if "bf16" in label else 5)
         say(f"  [{label}] deterministic kernels: {line}")
         if not same:
             fail(f"[{label}] two runs of one seeded command differ")
-        _, line = seeded_twice(label, base, extra, control=True)
-        say(f"  [{label}] PyTorch's default kernels: {line}")
+        if "bf16" not in label:
+            _, line = seeded_twice(label, base, extra, steps=3, control=True)
+            say(f"  [{label}] PyTorch's default kernels: {line}")
     with default_kernels():
-        before = {"smart": time_steps([], check_launches=False)["ms"],
-                  "bert stsb": time_steps([], check_launches=False, base_argv=BERT_ARGV)["ms"]}
+        before = {"smart": time_steps([], check_launches=False, timed=5)["ms"],
+                  "bert stsb": time_steps([], check_launches=False, base_argv=BERT_ARGV,
+                                          timed=5)["ms"]}
     say(f"  determinism's cost, median step: ResNet-18 {before['smart']:.2f} -> "
         f"{steps['smart']:.2f} ms, bert-base {before['bert stsb']:.2f} -> "
         f"{steps['bert stsb']:.2f} ms (default kernels -> deterministic) on {card}")
@@ -2035,6 +2594,33 @@ def main() -> int:
         f"{bound['philox_fill'] / t['philox_fill']:.1%} of it, on {card}")
     time_smaq(device, timed, per_call, {"ResNet-18": calls, "bert-base": bert_calls}, card)
     time_s2fp8(device, timed, per_call, calls, card)
+    say("  the bfloat16 forms at 8388608 elements, beside the float32 form between two casts "
+        "(the path they replace) and their plain versions")
+    tb, bound_b = time_bf16_kernels(device, timed)
+    t.update(tb)
+    bound.update(bound_b)
+    for k, plain, lib, cast in (
+            ("smaq_stats_bf16", "plain_stats_bf16", None, None),
+            ("smaq_quantize_bf16", "plain_quantize_bf16", None, None),
+            ("smaq_call_bf16", "plain_call_bf16", None, "smaq_call_cast"),
+            ("float_quantize_bf16", "plain_float_bf16", "library_fp8_bf16", "float_quantize_cast"),
+            ("float_fp8_nearest_bf16", None, "library_fp8_bf16", None),
+            ("float_fp16_nearest_bf16", None, "library_fp16_bf16", None),
+            ("float_bf16_nearest_bf16", None, None, None),
+            ("s2fp8_stats_bf16", "plain_s2fp8_stats_bf16", None, None),
+            ("s2fp8_quantize_bf16", None, None, None),
+            ("s2fp8_pair_bf16", "plain_s2fp8_bf16", None, "s2fp8_pair_cast"),
+            ("smaq_quantize_bn_bf16", "plain_bn_bf16", None, "smaq_quantize_bn_cast")):
+        line = f"  {k}: {t[k] * 1e3:.1f} us"
+        if cast:
+            line += f", float32 form with its casts {t[cast] * 1e3:.1f} us"
+        if plain:
+            line += f", plain {t[plain] * 1e3:.1f} us"
+        if lib:
+            line += f", {lib} {t[lib] * 1e3:.1f} us"
+        say(line + f", bound {bound[k] * 1e3:.1f} us (bytes), {bound[k] / t[k]:.1%} of it, on {card}")
+    with open(os.path.join(OUT, "bf16_times.json"), "w") as f:
+        json.dump({"card": card, "ms": tb, "bound_ms": bound_b}, f, indent=1)
 
     def row(kname, source, replaces, plain, lib=None):
         return {"name": kname, "route": "cuda", "source": f"{CSRC}/{source}",
@@ -2056,6 +2642,15 @@ def main() -> int:
         # draws of tensor-op noise (its stochastic rounding's, for one)
         {**row("philox_fill", "philox_fill.cu", "", "plain_fill"),
          "replaces": "smart_quantization_tpu/ops/rounding.py:25"},
+        # the bfloat16 forms (--compute_dtype bfloat16): the same kernels
+        # and TPU functions, bf16 in and out
+        row("smaq_stats_bf16", "smaq.cu", "smaq_kernel.py:268", "plain_stats_bf16"),
+        row("smaq_quantize_bf16", "smaq.cu", "smaq_kernel.py:212", "plain_quantize_bf16"),
+        row("smaq_quantize_bn_bf16", "smaq.cu", "smaq_kernel.py:486", "plain_bn_bf16"),
+        row("float_quantize_bf16", "float_quantize.cu", "float_kernel.py:137",
+            "plain_float_bf16", "library_fp8_bf16"),
+        row("s2fp8_stats_bf16", "s2fp8.cu", "s2fp8_kernel.py:226", "plain_s2fp8_stats_bf16"),
+        row("s2fp8_quantize_bf16", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8_bf16"),
     ]
     say(f"  per step: {per_step} (ResNet-18 smart), {bert_per_step} (bert-base), "
         f"{codec['launches']} (bert-base codecs), {packed['launches']} (bert-base packed); launches "

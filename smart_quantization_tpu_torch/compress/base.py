@@ -64,6 +64,11 @@ class CompressorBase:
     precision: int = 32
 
     name: str = dataclasses.field(default="base", init=False, repr=False)
+    # the derivative the JAX package's autodiff gives through this encoder
+    # on a one-element tensor (``--compress_loss``): 1 where the encoder
+    # passes it through or its value follows x through its statistics
+    # (SmaQ below min_size, S2FP8, FP32); 0 for the float formats
+    loss_derivative = 1.0
 
     def __call__(
         self,

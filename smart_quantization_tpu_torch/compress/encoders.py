@@ -67,6 +67,9 @@ class FloatEncoder(CompressorBase):
     stochastic: bool = True
 
     name = "float"
+    # JAX differentiates the rounding's bit arithmetic as 0, so a compressed
+    # loss gives every gradient 0 (a JAX-side fault the port reproduces)
+    loss_derivative = 0.0
 
     def __call__(self, x, gen, *, all_positive=False, gamma=None, beta=None,
                  mean=None, std=None):

@@ -41,6 +41,11 @@
 // binades) are no grid value; their entries are computed all the same and
 // never read.
 //
+// Element types: float32 or bfloat16 in and out (elem.cuh), the arithmetic
+// float32/float64 on the widened elements in the same order, so a bfloat16
+// call is bit for bit the float32 kernels on x.float() with the output
+// rounded to nearest-even.
+//
 // The stats ticket and partials live in a workspace the wrapper zeroes once
 // per (device, stream); the last stats block puts the ticket back to 0, so
 // no call needs a memset.  Launches on one stream run in order, so a call's
@@ -69,12 +74,18 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "float_round.cuh"
 #include "philox.cuh"
 
 namespace {
 
+using smaq::bf16;
 using smaq::FloatFmt;
+using smaq::group_aligned;
+using smaq::load_group;
+using smaq::store_group;
+using smaq::to_float;
 
 // float4 loads in flight per thread in the streaming loops
 constexpr int kUnroll = 4;
@@ -150,15 +161,15 @@ __device__ LogStats block_stats(LogStats v, LogStats* sm) {
 }
 
 // This thread's share of the stats.  The grid's threads cover one slice of
-// x, a float4 group each; a thread takes the groups g0 + u * span (u <
+// x, a group of four elements each (elem.cuh); a thread takes the groups g0 + u * span (u <
 // kUnroll, span = the grid's thread count), then steps by kUnroll slices:
 // kUnroll loads in flight, and every block busy even where x is one slice.
 // Every element goes into the double sum on its own.  The elements past
-// the last whole group (all of them when x is not 16-byte aligned) go one
-// per thread.
-__device__ LogStats thread_stats(const float* __restrict__ x, int64_t n) {
-  const int64_t n4 = (reinterpret_cast<uintptr_t>(x) & 15) == 0 ? n >> 2 : 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
+// the last whole group (all of them when x is not aligned to a group) go
+// one per thread.
+template <typename T>
+__device__ LogStats thread_stats(const T* __restrict__ x, int64_t n) {
+  const int64_t n4 = group_aligned<T>(x) ? n >> 2 : 0;
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   LogStats st{0.0, -CUDART_INF_F};
@@ -171,7 +182,7 @@ __device__ LogStats thread_stats(const float* __restrict__ x, int64_t n) {
     float4 v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (g0 + u * span < n4) v[u] = x4[g0 + u * span];
+      if (g0 + u * span < n4) v[u] = load_group(x, g0 + u * span);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (g0 + u * span < n4) {
@@ -182,7 +193,7 @@ __device__ LogStats thread_stats(const float* __restrict__ x, int64_t n) {
       }
     }
   }
-  for (int64_t e = (n4 << 2) + tid; e < n; e += span) acc(x[e]);
+  for (int64_t e = (n4 << 2) + tid; e < n; e += span) acc(to_float(x[e]));
   return st;
 }
 
@@ -205,8 +216,9 @@ __device__ __forceinline__ float table_entry(int k, float beta, float inv_alpha)
   return exp2f((log2f(t) - beta) * inv_alpha);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-s2fp8_stats_kernel(const float* __restrict__ x, int64_t n, unsigned long long* __restrict__ ws) {
+s2fp8_stats_kernel(const T* __restrict__ x, int64_t n, unsigned long long* __restrict__ ws) {
   __shared__ LogStats sm[32];
   __shared__ bool last;
   Consts* out = reinterpret_cast<Consts*>(ws + kCounterWords);
@@ -292,9 +304,9 @@ struct Squeeze {
 // kTableBase) mod kTableSize, so that the e5m2 value with bits b reads
 // (b >> 21) mod kTableSize (kTableBase .. kTableBase + 127 are 128
 // consecutive integers, so their low 7 bits tell them apart).
-template <bool kStochastic, bool kCheckInf>
+template <typename T, bool kStochastic, bool kCheckInf>
 __global__ void __launch_bounds__(kSmallThreads)
-s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
+s2fp8_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
                       const Consts* __restrict__ consts,
                       const unsigned long long* __restrict__ key, uint32_t call) {
   __shared__ float table[kTableSize];
@@ -316,10 +328,7 @@ s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_
   __syncthreads();
 
   const uint2 pkey = kStochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  const int64_t n4 = aligned ? n >> 2 : 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
+  const int64_t n4 = group_aligned<T>(x) && group_aligned<T>(y) ? n >> 2 : 0;
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   // as thread_stats walks x, but from its end: group i of the walk is group
@@ -329,7 +338,7 @@ s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t i = g0 + u * span;
-      if (i < n4) v[u] = x4[n4 - 1 - i];
+      if (i < n4) v[u] = load_group(x, n4 - 1 - i);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -342,58 +351,87 @@ s2fp8_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_
         o.y = sq(v[u].y, r.y, table);
         o.z = sq(v[u].z, r.z, table);
         o.w = sq(v[u].w, r.w, table);
-        y4[g] = o;
+        store_group(y, g, o);
       }
     }
   }
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + tid; e < n; e += span) {
     const uint4 r = kStochastic ? smaq::philox_group(e >> 2, pkey) : make_uint4(0u, 0u, 0u, 0u);
-    y[e] = sq(x[e], smaq::philox_word(r, e), table);
+    y[e] = smaq::from_float<T>(sq(to_float(x[e]), smaq::philox_word(r, e), table));
   }
 }
 
-using QuantizeKernel = void (*)(const float*, float*, int64_t, const Consts*,
+template <typename T>
+using QuantizeKernel = void (*)(const T*, T*, int64_t, const Consts*,
                                 const unsigned long long*, uint32_t);
 
-QuantizeKernel quantize_kernel(int stochastic, int check_inf) {
+template <typename T>
+QuantizeKernel<T> quantize_kernel(int stochastic, int check_inf) {
   if (stochastic)
-    return check_inf ? s2fp8_quantize_kernel<true, true> : s2fp8_quantize_kernel<true, false>;
-  return check_inf ? s2fp8_quantize_kernel<false, true> : s2fp8_quantize_kernel<false, false>;
+    return check_inf ? s2fp8_quantize_kernel<T, true, true>
+                     : s2fp8_quantize_kernel<T, true, false>;
+  return check_inf ? s2fp8_quantize_kernel<T, false, true>
+                   : s2fp8_quantize_kernel<T, false, false>;
+}
+
+template <typename T>
+void launch_quantize(const void* x, void* y, long long n, const float* consts,
+                     const unsigned long long* key, unsigned int call, int stochastic,
+                     int check_inf, int num_blocks, int threads, cudaStream_t stream) {
+  quantize_kernel<T>(stochastic, check_inf)<<<num_blocks, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n),
+      reinterpret_cast<const Consts*>(consts), key, call);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The entry points launch on `stream` and return cudaGetLastError().  `ws`
-// is the stream's workspace: kCounterWords 64-bit words, zero between calls,
-// then the constants (kConstWords words), then 2 doubles per stats block.
-// `consts` points at the constants in the workspace, or is NULL for the
-// small form (one block).
+// The entry points launch on `stream` and return cudaGetLastError()
+// (cudaErrorInvalidValue for a `dtype` they do not take).  `x` and `y` hold
+// float32 (dtype 0) or bfloat16 (dtype 1) elements.  `ws` is the stream's
+// workspace: kCounterWords 64-bit words, zero between calls, then the
+// constants (kConstWords words), then 2 doubles per stats block.  `consts`
+// points at the constants in the workspace, or is NULL for the small form
+// (one block).
 
-int s2fp8_stats(const float* x, long long n, unsigned long long* ws, int num_blocks,
+int s2fp8_stats(const void* x, long long n, int dtype, unsigned long long* ws, int num_blocks,
                 int threads, void* stream) {
-  s2fp8_stats_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<int64_t>(n), ws);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    s2fp8_stats_kernel<float><<<num_blocks, threads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<int64_t>(n), ws);
+  else if (dtype == 1)
+    s2fp8_stats_kernel<bf16><<<num_blocks, threads, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<int64_t>(n), ws);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-int s2fp8_quantize(const float* x, float* y, long long n, const float* consts,
+int s2fp8_quantize(const void* x, void* y, long long n, int dtype, const float* consts,
                    const unsigned long long* key, unsigned int call, int stochastic,
                    int check_inf, int num_blocks, int threads, void* stream) {
-  const QuantizeKernel kernel = quantize_kernel(stochastic, check_inf);
-  kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), reinterpret_cast<const Consts*>(consts), key, call);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch_quantize<float>(x, y, n, consts, key, call, stochastic, check_inf, num_blocks,
+                           threads, s);
+  else if (dtype == 1)
+    launch_quantize<bf16>(x, y, n, consts, key, call, stochastic, check_inf, num_blocks,
+                          threads, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of `threads` threads resident on one SM: kernel 0 s2fp8_stats, 1
-// s2fp8_quantize in the given mode.
+// Blocks of `threads` threads resident on one SM, for the float32 kernels:
+// kernel 0 s2fp8_stats, 1 s2fp8_quantize in the given mode.
 int s2fp8_occupancy(int kernel, int stochastic, int check_inf, int threads,
                     int* blocks_per_sm) {
-  const void* f = kernel == 0 ? reinterpret_cast<const void*>(s2fp8_stats_kernel)
-                              : reinterpret_cast<const void*>(quantize_kernel(stochastic, check_inf));
+  const void* f =
+      kernel == 0 ? reinterpret_cast<const void*>(s2fp8_stats_kernel<float>)
+                  : reinterpret_cast<const void*>(quantize_kernel<float>(stochastic, check_inf));
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, f, threads, 0));
 }

@@ -46,6 +46,16 @@
 //                  element e is (e / (H*W)) % C; each block stages the four
 //                  folded constants of every channel in shared memory.
 //
+// Element types: each kernel reads and writes float32 or bfloat16 (elem.cuh,
+// the C interface's dtype argument).  The arithmetic is float32/float64 on
+// the widened elements either way and the threads visit the same groups of
+// four in the same order, so a bfloat16 call gives bit for bit the float32
+// kernel's result on x.float(), rounded to nearest-even, with the same
+// constants and size; a bfloat16 call moves 2 + 2 (+ 2 for the stats pass)
+// bytes an element.  The launch shapes and smaq_plan's small-form threshold
+// are the float32 ones (the small form's block reads half the bytes, so its
+// threshold could move up: a later, measured decision).
+//
 // The counters (the stats ticket; the quantize tickets and outlier count) and the
 // stats partials live in a workspace the wrapper zeroes once per (device,
 // stream); the block that reads a counter last puts it back to 0, so no call
@@ -69,11 +79,17 @@
 #include <stdint.h>
 
 #include "block_reduce.cuh"
+#include "elem.cuh"
 #include "philox.cuh"
 
 namespace {
 
+using smaq::bf16;
 using smaq::block_sum;
+using smaq::group_aligned;
+using smaq::load_group;
+using smaq::store_group;
+using smaq::to_float;
 
 constexpr int kPivotElems = 256;
 // float4 loads in flight per thread in the streaming loops
@@ -161,13 +177,14 @@ __device__ Sums block_sums(Sums s, Sums* sm) {
 // The pivot, summed by each warp on its own: the xor butterfly leaves the
 // same bits in every lane, and every warp of every block adds in the same
 // order, so no block-wide barrier stands before the stream.
-__device__ float warp_pivot(const float* __restrict__ x, int64_t n) {
+template <typename T>
+__device__ float warp_pivot(const T* __restrict__ x, int64_t n) {
   const int n_pivot = n < kPivotElems ? static_cast<int>(n) : kPivotElems;
   float v[kPivotElems / 32];
 #pragma unroll
   for (int k = 0; k < kPivotElems / 32; ++k) {  // all loads issued before the first add
     const int i = (threadIdx.x & 31) + 32 * k;
-    v[k] = i < n_pivot ? x[i] : 0.f;
+    v[k] = i < n_pivot ? to_float(x[i]) : 0.f;
   }
   float s = 0.f;
 #pragma unroll
@@ -178,22 +195,22 @@ __device__ float warp_pivot(const float* __restrict__ x, int64_t n) {
 }
 
 // This thread's share of the one-pass sums.  The grid's threads cover one
-// slice of x, a float4 group each; a thread takes the groups g0 + u * span
+// slice of x, a group of four elements each (elem.cuh); a thread takes the groups g0 + u * span
 // (u < kUnroll, span = the grid's thread count) for g0 = its index, then
 // steps by kUnroll slices: kUnroll loads in flight, every block busy even
 // where x is one slice, and the first loads issued before the pivot.  The
-// elements past the last whole group (all of them when x is not 16-byte
-// aligned) go one per thread.
-__device__ Sums thread_sums(const float* __restrict__ x, int64_t n, float& pivot) {
-  const int64_t n4 = (reinterpret_cast<uintptr_t>(x) & 15) == 0 ? n >> 2 : 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
+// elements past the last whole group (all of them when x is not aligned to
+// a group) go one per thread.
+template <typename T>
+__device__ Sums thread_sums(const T* __restrict__ x, int64_t n, float& pivot) {
+  const int64_t n4 = group_aligned<T>(x) ? n >> 2 : 0;
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t g0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float4 v[kUnroll];
   auto load = [&]() {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (g0 + u * span < n4) v[u] = x4[g0 + u * span];
+      if (g0 + u * span < n4) v[u] = load_group(x, g0 + u * span);
   };
   load();
   pivot = warp_pivot(x, n);
@@ -218,7 +235,8 @@ __device__ Sums thread_sums(const float* __restrict__ x, int64_t n, float& pivot
     g0 += span * kUnroll;
     load();
   }
-  for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) acc(x[e]);
+  for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span)
+    acc(to_float(x[e]));
   return s;
 }
 
@@ -238,8 +256,9 @@ __device__ Consts finish_stats(const Sums& s, float pivot, int64_t n, int range_
   return make_consts(mean, std, p);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-smaq_stats_kernel(const float* __restrict__ x, int64_t n, int range_std, QParams p,
+smaq_stats_kernel(const T* __restrict__ x, int64_t n, int range_std, QParams p,
                   unsigned long long* __restrict__ ws, Consts* __restrict__ out) {
   __shared__ Sums sm[32];
   __shared__ bool last;
@@ -337,8 +356,9 @@ __device__ void write_size(int cnt, int64_t n, int compute_size, const QParams& 
 
 // Launched with kThreads-thread blocks, or as one block of kSmallThreads in
 // the small form.
+template <typename T>
 __global__ void __launch_bounds__(kSmallThreads)
-smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
+smaq_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
                      const float* __restrict__ stats, const Consts* __restrict__ consts,
                      int stats_mode, int range_std, const unsigned long long* __restrict__ key,
                      unsigned int call, int stochastic,
@@ -364,10 +384,7 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
   qz.all_positive = all_positive != 0;
 
   const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  const int64_t n4 = aligned ? n >> 2 : 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
+  const int64_t n4 = group_aligned<T>(x) && group_aligned<T>(y) ? n >> 2 : 0;
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
   // as thread_sums walks x, but from its end: group i of the walk is group
@@ -378,7 +395,7 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t i = g0 + u * span;
-      if (i < n4) v[u] = x4[n4 - 1 - i];
+      if (i < n4) v[u] = load_group(x, n4 - 1 - i);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -391,14 +408,14 @@ smaq_quantize_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t
         o.y = qz(v[u].y, r.y, cnt);
         o.z = qz(v[u].z, r.z, cnt);
         o.w = qz(v[u].w, r.w, cnt);
-        y4[g] = o;
+        store_group(y, g, o);
       }
     }
   }
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) {
     const uint4 r = qz.stochastic ? smaq::philox_group(e >> 2, pkey) : make_uint4(0u, 0u, 0u, 0u);
-    y[e] = qz(x[e], smaq::philox_word(r, e), cnt);
+    y[e] = smaq::from_float<T>(qz(to_float(x[e]), smaq::philox_word(r, e), cnt));
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su);
 }
@@ -429,8 +446,9 @@ struct QuantBN {
 // x is (outer, channels, inner) in memory (NCHW: inner = H * W); element e
 // is in channel (e / inner) % channels.  The per-channel constants live in
 // dynamic shared memory, one float4 per channel.
+template <typename T>
 __global__ void smaq_quantize_bn_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int64_t n,
+    const T* __restrict__ x, T* __restrict__ y, int64_t n,
     const float* __restrict__ stats, const Consts* __restrict__ consts, int stats_mode,
     const float* __restrict__ gamma, const float* __restrict__ beta, int channels,
     int64_t inner, const unsigned long long* __restrict__ key, unsigned int call,
@@ -461,7 +479,7 @@ __global__ void smaq_quantize_bn_kernel(
   };
   const bool group_in_one = (inner & 3) == 0;
   const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const bool aligned = group_aligned<T>(x) && group_aligned<T>(y);
   const int64_t groups = (n + 3) >> 2;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
@@ -470,17 +488,17 @@ __global__ void smaq_quantize_bn_kernel(
     const int64_t e = g << 2;
     if (aligned && group_in_one && e + 3 < n) {
       const float4 k = chan[chan_of(e)];
-      const float4 v = reinterpret_cast<const float4*>(x)[g];
+      const float4 v = load_group(x, g);
       float4 o;
       o.x = qz(v.x, k, r.x, cnt);
       o.y = qz(v.y, k, r.y, cnt);
       o.z = qz(v.z, k, r.z, cnt);
       o.w = qz(v.w, k, r.w, cnt);
-      reinterpret_cast<float4*>(y)[g] = o;
+      store_group(y, g, o);
     } else {
       const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
       for (int j = 0; j < 4 && e + j < n; ++j)
-        y[e + j] = qz(x[e + j], chan[chan_of(e + j)], rw[j], cnt);
+        y[e + j] = smaq::from_float<T>(qz(to_float(x[e + j]), chan[chan_of(e + j)], rw[j], cnt));
     }
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su);
@@ -493,28 +511,76 @@ QParams qparams(float t, float range_main, float range_outlier, float inv_range_
                  std_lo, std_hi, bits_main, bits_outlier};
 }
 
+// The element types of the C interface's `dtype` argument.
+constexpr int kFloat32 = 0, kBFloat16 = 1;
+
+template <typename T>
+void launch_stats(const void* x, long long n, int range_std, const QParams& p,
+                  unsigned long long* ws, float* consts, int num_blocks, int threads,
+                  cudaStream_t stream) {
+  smaq_stats_kernel<T><<<num_blocks, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<int64_t>(n), range_std, p, ws,
+      reinterpret_cast<Consts*>(consts));
+}
+
+template <typename T>
+void launch_quantize(const void* x, void* y, long long n, const float* stats,
+                     const float* consts, int stats_mode, int range_std,
+                     const unsigned long long* key, unsigned int call, int stochastic,
+                     int all_positive, int compute_size, const QParams& p,
+                     unsigned long long* ws, float* size_out, int num_blocks, int threads,
+                     cudaStream_t stream) {
+  smaq_quantize_kernel<T><<<num_blocks, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n), stats,
+      reinterpret_cast<const Consts*>(consts), stats_mode, range_std, key, call, stochastic,
+      all_positive, compute_size, p, ws, size_out);
+}
+
+template <typename T>
+void launch_quantize_bn(const void* x, void* y, long long n, const float* stats,
+                        const float* consts, int stats_mode, const float* gamma,
+                        const float* beta, int channels, long long inner,
+                        const unsigned long long* key, unsigned int call, int stochastic,
+                        int all_positive, int compute_size, const QParams& p,
+                        unsigned long long* ws, float* size_out, int num_blocks, int threads,
+                        cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(channels) * sizeof(float4);
+  smaq_quantize_bn_kernel<T><<<num_blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n), stats,
+      reinterpret_cast<const Consts*>(consts), stats_mode, gamma, beta, channels,
+      static_cast<int64_t>(inner), key, call, stochastic, all_positive, compute_size, p, ws,
+      size_out);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The entry points launch on `stream` and return cudaGetLastError().  `ws`
-// is the stream's workspace: kCounterWords 64-bit words, zero between calls,
-// then 4 doubles per stats block.  `consts` holds 8 floats, 16-byte aligned.
+// The entry points launch on `stream` and return cudaGetLastError()
+// (cudaErrorInvalidValue for a `dtype` they do not take).  `x` and `y` hold
+// float32 (dtype 0) or bfloat16 (dtype 1) elements; everything else is
+// float32.  `ws` is the stream's workspace: kCounterWords 64-bit words, zero
+// between calls, then 4 doubles per stats block.  `consts` holds 8 floats,
+// 16-byte aligned.
 
-int smaq_stats(const float* x, long long n, int range_std, float t, float range_main,
-               float range_outlier, float inv_range_main, float inv_range_outlier,
-               float std_lo, float std_hi, int bits_main, int bits_outlier,
-               unsigned long long* ws, float* consts, int num_blocks, int threads,
-               void* stream) {
-  smaq_stats_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<int64_t>(n), range_std,
-      qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
-              std_hi, bits_main, bits_outlier),
-      ws, reinterpret_cast<Consts*>(consts));
+int smaq_stats(const void* x, long long n, int dtype, int range_std, float t,
+               float range_main, float range_outlier, float inv_range_main,
+               float inv_range_outlier, float std_lo, float std_hi, int bits_main,
+               int bits_outlier, unsigned long long* ws, float* consts, int num_blocks,
+               int threads, void* stream) {
+  const QParams p = qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier,
+                            std_lo, std_hi, bits_main, bits_outlier);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    launch_stats<float>(x, n, range_std, p, ws, consts, num_blocks, threads, s);
+  else if (dtype == kBFloat16)
+    launch_stats<bf16>(x, n, range_std, p, ws, consts, num_blocks, threads, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-int smaq_quantize(const float* x, float* y, long long n, const float* stats,
+int smaq_quantize(const void* x, void* y, long long n, int dtype, const float* stats,
                   const float* consts, int stats_mode, int range_std,
                   const unsigned long long* key, unsigned int call, int stochastic,
                   int all_positive,
@@ -522,17 +588,21 @@ int smaq_quantize(const float* x, float* y, long long n, const float* stats,
                   float inv_range_main, float inv_range_outlier, float std_lo,
                   float std_hi, int bits_main, int bits_outlier, unsigned long long* ws,
                   float* size_out, int num_blocks, int threads, void* stream) {
-  smaq_quantize_kernel<<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
-      stats_mode, range_std, key, call, stochastic, all_positive,
-      compute_size,
-      qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
-              std_hi, bits_main, bits_outlier),
-      ws, size_out);
+  const QParams p = qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier,
+                            std_lo, std_hi, bits_main, bits_outlier);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    launch_quantize<float>(x, y, n, stats, consts, stats_mode, range_std, key, call, stochastic,
+                           all_positive, compute_size, p, ws, size_out, num_blocks, threads, s);
+  else if (dtype == kBFloat16)
+    launch_quantize<bf16>(x, y, n, stats, consts, stats_mode, range_std, key, call, stochastic,
+                          all_positive, compute_size, p, ws, size_out, num_blocks, threads, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-int smaq_quantize_bn(const float* x, float* y, long long n, const float* stats,
+int smaq_quantize_bn(const void* x, void* y, long long n, int dtype, const float* stats,
                      const float* consts, int stats_mode, const float* gamma,
                      const float* beta, int channels, long long inner,
                      const unsigned long long* key, unsigned int call, int stochastic,
@@ -542,23 +612,29 @@ int smaq_quantize_bn(const float* x, float* y, long long n, const float* stats,
                      float std_hi, int bits_main, int bits_outlier,
                      unsigned long long* ws, float* size_out, int num_blocks, int threads,
                      void* stream) {
-  const size_t smem = static_cast<size_t>(channels) * sizeof(float4);
-  smaq_quantize_bn_kernel<<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, static_cast<int64_t>(n), stats, reinterpret_cast<const Consts*>(consts),
-      stats_mode, gamma, beta, channels, static_cast<int64_t>(inner),
-      key, call, stochastic, all_positive, compute_size,
-      qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier, std_lo,
-              std_hi, bits_main, bits_outlier),
-      ws, size_out);
+  const QParams p = qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier,
+                            std_lo, std_hi, bits_main, bits_outlier);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    launch_quantize_bn<float>(x, y, n, stats, consts, stats_mode, gamma, beta, channels, inner,
+                              key, call, stochastic, all_positive, compute_size, p, ws,
+                              size_out, num_blocks, threads, s);
+  else if (dtype == kBFloat16)
+    launch_quantize_bn<bf16>(x, y, n, stats, consts, stats_mode, gamma, beta, channels, inner,
+                             key, call, stochastic, all_positive, compute_size, p, ws,
+                             size_out, num_blocks, threads, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of `threads` threads (and `smem` bytes of dynamic shared memory)
-// resident on one SM: kernel 0 smaq_stats, 1 smaq_quantize, 2 smaq_quantize_bn.
+// resident on one SM, for the float32 kernels: kernel 0 smaq_stats, 1
+// smaq_quantize, 2 smaq_quantize_bn.
 int smaq_occupancy(int kernel, int threads, long long smem, int* blocks_per_sm) {
-  const void* f = kernel == 0   ? reinterpret_cast<const void*>(smaq_stats_kernel)
-                  : kernel == 1 ? reinterpret_cast<const void*>(smaq_quantize_kernel)
-                                : reinterpret_cast<const void*>(smaq_quantize_bn_kernel);
+  const void* f = kernel == 0   ? reinterpret_cast<const void*>(smaq_stats_kernel<float>)
+                  : kernel == 1 ? reinterpret_cast<const void*>(smaq_quantize_kernel<float>)
+                                : reinterpret_cast<const void*>(smaq_quantize_bn_kernel<float>);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, f, threads, static_cast<size_t>(smem)));
 }

@@ -116,6 +116,40 @@ def compression_tap(
     return y, SizeStats(orig_bits, new_bits)
 
 
+def own_key(gen: torch.Generator | DeviceKey) -> torch.Generator | DeviceKey:
+    """The key of one compressor call of its own drawn from ``gen``: a block
+    of ``DRAWS_PER_COMPRESS`` call indices of a step key, or a generator of
+    one seed drawn from a host generator."""
+    if isinstance(gen, DeviceKey):
+        return gen.reserve(DRAWS_PER_COMPRESS)
+    return _key(int(torch.randint(0, 2**62, (1,), generator=gen)))
+
+
+class _LossCompression(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, loss, compressor, key):
+        ctx.derivative = compressor.loss_derivative
+        y, _ = compressor(loss.reshape(1), key)
+        return y.reshape(())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.derivative, None, None
+
+
+def compress_loss(loss: torch.Tensor, compressor: CompressorBase,
+                  gen: torch.Generator | DeviceKey) -> torch.Tensor:
+    """``--compress_loss``: the scalar loss through ``compressor`` under a
+    key of its own (``own_key``), as the JAX package's step compresses
+    ``loss[None]``.  The gradient is what JAX's autodiff gives through the
+    encoder on one element (``CompressorBase.loss_derivative``): the
+    identity where the encoder passes the loss through (SmaQ below
+    ``min_size``, S2FP8, FP32), zero for FP8, FP16 and BF16, whose rounding
+    is bit arithmetic.  No size is counted (the JAX step drops the loss's
+    ``SizeStats``)."""
+    return _LossCompression.apply(loss, compressor, own_key(gen))
+
+
 @dataclasses.dataclass(frozen=True)
 class TapConfig:
     """Everything a model needs to place compression taps: the compressor,

@@ -28,6 +28,17 @@ by 1 / (1 - rate).  Its masks are drawn in training mode from
 the card, that the trainer derives from the seed and the step), never from
 the global RNG.
 The word-embedding gradient is dense, as JAX's.
+
+``dtype`` is the compute dtype (``--compute_dtype``), with flax's
+semantics of ``dtype=`` on each module, by explicit casts (not
+``torch.autocast``, whose per-op rules are not flax's): the embedding sum
+stays float32 and is then cast; each Dense casts its float32 weight and
+bias to it; the attention scores are in it, the float32 mask bias is
+added to them in float32 and the softmax taken in float32, then cast back;
+dropout, GELU, tanh and the residual adds run in it; LayerNorm takes its
+statistics and normalizes in float32 (flax's ``_compute_stats`` and
+``_normalize`` promote to float32) and returns its input's dtype; the
+logits come back float32.  Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -90,7 +101,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(fout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class Embed(nn.Module):
@@ -120,7 +131,7 @@ class TappedLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x, tap_ctx=None):
-        y = F.layer_norm(x, x.shape[-1:], self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
         return module_tap(y, LayerKind.NORM, self.tap, tap_ctx)
 
 
@@ -153,7 +164,7 @@ class BertSelfAttention(nn.Module):
         k = heads_first(self.key(x, tap_ctx))
         v = heads_first(self.value(x, tap_ctx))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
-        probs = torch.softmax(scores.float() + mask_bias, dim=-1)
+        probs = torch.softmax(scores.float() + mask_bias, dim=-1).to(x.dtype)
         probs = dropout(probs, rate, gen)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, h)
         ctx = module_tap(ctx, LayerKind.ATTENTION, self.tap, tap_ctx)
@@ -185,9 +196,11 @@ class BertForSequenceClassification(nn.Module):
     attention mask and token types."""
 
     def __init__(self, cfg: BertConfig, num_labels: int = 2, tap: TapConfig | None = None,
-                 freeze_encoder: bool = False, seed: int = 0):
+                 freeze_encoder: bool = False, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.tap, self.freeze_encoder = cfg, tap, freeze_encoder
+        self.compute_dtype = dtype
         h = cfg.hidden_size
         self.word_embeddings = Embed(cfg.vocab_size, h)
         self.position_embeddings = Embed(cfg.max_position_embeddings, h)
@@ -216,7 +229,7 @@ class BertForSequenceClassification(nn.Module):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         emb = (self.word_embeddings(input_ids) + self.position_embeddings(pos)[None]
                + self.token_type_embeddings(token_type_ids))
-        x = dropout(self.embeddings_norm(emb, tap_ctx), rate, gen)
+        x = dropout(self.embeddings_norm(emb.to(self.compute_dtype), tap_ctx), rate, gen)
         x = module_tap(x, LayerKind.EMBED, tap, tap_ctx)
         mask_bias = (1.0 - attention_mask.float()[:, None, None, :]) * -1e9
         for name in self.layer_names:

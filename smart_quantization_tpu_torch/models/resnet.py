@@ -11,6 +11,16 @@ fc and the model output (68 sites in ResNet-18).
 Module and attribute names follow the flax ones (``conv1``, ``bn1``,
 ``layer1_0.downsample_conv`` ...), so ``convert.params_from_jax`` maps one
 tree onto the other by name.
+
+``dtype`` is the compute dtype (``--compute_dtype``), with flax's
+semantics of ``dtype=`` on each module, by explicit casts: the input is
+cast to it; each conv and the fc cast their float32 weight to it at use
+and compute in it; a BatchNorm takes its statistics and normalizes in
+float32 (flax's ``_compute_stats`` and ``_normalize`` promote to float32)
+and returns its input's dtype; ReLU, the residual add and the pool run in
+it, and the logits come back float32.  Parameters and running statistics
+stay float32.  Under bfloat16 every tap sees bfloat16 feature maps and
+gradient maps.
 """
 
 from __future__ import annotations
@@ -26,10 +36,25 @@ from smart_quantization_tpu_torch.inject.policy import LayerKind
 from smart_quantization_tpu_torch.inject.tap import TapConfig, TapContext, module_tap
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: the float32 weight is cast at
+    use, as flax's ``nn.Conv(dtype=...)`` casts its kernel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype (flax's ``nn.Dense(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
     # flax 'SAME' on the 1x1 stride-2 downsample is padding 0; the 3x3 convs
     # pad 1 explicitly in both
-    conv = nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
+    conv = Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
     nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
     return conv
 
@@ -39,7 +64,9 @@ class TappedBatchNorm(nn.Module):
     with flax's statistics: momentum 0.9
     (torch's 0.1), eps 1e-5, and the running variance updated with the
     BIASED batch variance, as ``flax.linen.BatchNorm`` does (torch's own
-    BatchNorm2d uses the unbiased one, so the update is written here)."""
+    BatchNorm2d uses the unbiased one, so the update is written here).  The
+    statistics and the normalization are float32 whatever ``x``'s dtype,
+    and the output takes ``x``'s dtype, as flax's ``BatchNorm(dtype=...)``."""
 
     momentum = 0.9
     eps = 1e-5
@@ -55,17 +82,19 @@ class TappedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, tap_ctx: TapContext | None = None) -> torch.Tensor:
+        xf = x.float()
         if self.training:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
-            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0, self.eps)
         else:
             y = F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
+                xf, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
+        y = y.to(x.dtype)
         # --use_batch_norm folds gamma and beta into the forward compress;
         # they are detached: their gradient comes from F.batch_norm alone
         return module_tap(y, LayerKind.NORM, self.tap, tap_ctx,
@@ -137,12 +166,14 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """CIFAR ResNet; ``num_classes`` logits from (N, 3, 32, 32) input."""
+    """CIFAR ResNet; ``num_classes`` float32 logits from (N, 3, 32, 32)
+    input, computed in ``dtype``."""
 
     def __init__(self, stage_sizes, block_cls, num_classes: int = 10,
-                 tap: TapConfig | None = None):
+                 tap: TapConfig | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.tap = tap
+        self.compute_dtype = dtype
         self.conv1 = _conv(3, 64, 3)
         self.bn1 = TappedBatchNorm(64, tap)
         cin = 64
@@ -155,20 +186,20 @@ class ResNet(nn.Module):
                 self.add_module(name, block_cls(cin, filters, stride, tap))
                 self.block_names.append(name)
                 cin = filters * block_cls.expansion
-        self.fc = nn.Linear(cin, num_classes)
+        self.fc = Linear(cin, num_classes)
         bound = 1.0 / math.sqrt(cin)  # variance_scaling(1/3, fan_in, uniform)
         nn.init.uniform_(self.fc.weight, -bound, bound)
         nn.init.zeros_(self.fc.bias)
 
     def forward(self, x: torch.Tensor, tap_ctx: TapContext | None = None) -> torch.Tensor:
         tap, ctx = self.tap, tap_ctx
-        x = module_tap(self.conv1(x), LayerKind.CONV, tap, ctx)
+        x = module_tap(self.conv1(x.to(self.compute_dtype)), LayerKind.CONV, tap, ctx)
         x = module_tap(F.relu(self.bn1(x, ctx)), LayerKind.ACTIVATION, tap, ctx)
         for name in self.block_names:
             x = getattr(self, name)(x, ctx)
         x = module_tap(x.mean(dim=(2, 3)), LayerKind.POOL, tap, ctx)
         x = module_tap(self.fc(x), LayerKind.LINEAR, tap, ctx)
-        return module_tap(x, LayerKind.BLOCK, tap, ctx)
+        return module_tap(x, LayerKind.BLOCK, tap, ctx).float()
 
 
 resnet18 = partial(ResNet, (2, 2, 2, 2), BasicBlock)

@@ -102,22 +102,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     u32 = ctypes.c_uint
     quant = [f, f, f, f, f, f, f, i, i]  # SmaQ's threshold, ranges, clamp and bits
-    lib.smaq_stats.argtypes = [p, ll, i, *quant, p, p, i, i, p]
+    # the elementwise kernels take x, y, n and the elements' dtype (launch.DTYPES)
+    lib.smaq_stats.argtypes = [p, ll, i, i, *quant, p, p, i, i, p]
     lib.smaq_stats.restype = i
     # a stochastic kernel takes a pointer to its step key and a call index
-    lib.smaq_quantize.argtypes = [p, p, ll, p, p, i, i, p, u32, i, i, i, *quant, p, p, i, i, p]
+    lib.smaq_quantize.argtypes = [p, p, ll, i, p, p, i, i, p, u32, i, i, i, *quant, p, p, i, i, p]
     lib.smaq_quantize.restype = i
     lib.smaq_quantize_bn.argtypes = [
-        p, p, ll, p, p, i, p, p, i, ll, p, u32, i, i, i, *quant, p, p, i, i, p,
+        p, p, ll, i, p, p, i, p, p, i, ll, p, u32, i, i, i, *quant, p, p, i, i, p,
     ]
     lib.smaq_quantize_bn.restype = i
     lib.smaq_occupancy.argtypes = [i, i, ll, p]
     lib.smaq_occupancy.restype = i
-    lib.float_quantize.argtypes = [p, p, ll, i, i, u32, u32, f, f, p, u32, i, i, i, i, p]
+    lib.float_quantize.argtypes = [p, p, ll, i, i, i, u32, u32, f, f, p, u32, i, i, i, i, p]
     lib.float_quantize.restype = i
-    lib.s2fp8_stats.argtypes = [p, ll, p, i, i, p]
+    lib.s2fp8_stats.argtypes = [p, ll, i, p, i, i, p]
     lib.s2fp8_stats.restype = i
-    lib.s2fp8_quantize.argtypes = [p, p, ll, p, p, u32, i, i, i, i, p]
+    lib.s2fp8_quantize.argtypes = [p, p, ll, i, p, p, u32, i, i, i, i, p]
     lib.s2fp8_quantize.restype = i
     lib.s2fp8_occupancy.argtypes = [i, i, i, i, p]
     lib.s2fp8_occupancy.restype = i

@@ -13,6 +13,10 @@ gives the design.  Here:
 - ``float_quantize_fused_or_reference`` sends a CUDA tensor to the kernel
   and a CPU tensor to the plain version.  There is no size threshold.
 
+The kernel reads and writes float32 or bfloat16 (``launch.DTYPES``): a
+bfloat16 tensor goes to the bfloat16 form as it is, another dtype is cast
+to float32.
+
 Stochastic rounding keys the kernel's Philox words by a step key in device
 memory and a call index (``launch.key_for``); the plain version draws its
 words from the caller's key by ``ops/rounding.py``, which gives other bits,
@@ -25,19 +29,24 @@ import torch
 
 from smart_quantization_tpu_torch.ops.cuda import build
 from smart_quantization_tpu_torch.ops.cuda.launch import (
+    DTYPES,
     THREADS,
     check_input,
     check_key,
+    form_name,
+    kernel_input,
     key_for,
     ptr,
     quant_blocks,
     raise_on,
     stream,
+    with_bf16_forms,
 )
 from smart_quantization_tpu_torch.ops.float_format import FloatFormat, f32_bits, float_quantize
 
-# Launches of the kernel since the last reset (one per launch, nowhere else).
-LAUNCHES = {"float_quantize": 0}
+# Launches of the kernel since the last reset (one per launch, nowhere
+# else), its bfloat16 form under "float_quantize_bf16".
+LAUNCHES = with_bf16_forms(("float_quantize",))
 
 
 def reset_launch_counts() -> None:
@@ -56,19 +65,19 @@ def float_quantize_launch(
     xf: torch.Tensor, fmt: FloatFormat, *, key: torch.Tensor | None, call: int = 0,
     stochastic: bool, check_inf: bool
 ) -> torch.Tensor:
-    """Launch the kernel on a flat float32 CUDA tensor; stochastic rounding
-    draws (``key``, ``call``), ``key`` a 1-element int64 step key on the
-    card.  Returns the output."""
+    """Launch the kernel on a flat float32 or bfloat16 CUDA tensor;
+    stochastic rounding draws (``key``, ``call``), ``key`` a 1-element
+    int64 step key on the card.  Returns the output, of ``xf``'s dtype."""
     check_input(xf)
     check_key(key, xf, stochastic)
     n = xf.numel()
     y = torch.empty_like(xf)
     rc = build.library().float_quantize(
-        xf.data_ptr(), y.data_ptr(), n, *format_args(fmt), ptr(key), call, int(stochastic),
-        int(check_inf), quant_blocks(n), THREADS, stream(xf),
+        xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], *format_args(fmt), ptr(key), call,
+        int(stochastic), int(check_inf), quant_blocks(n), THREADS, stream(xf),
     )
     raise_on(rc, "float_quantize")
-    LAUNCHES["float_quantize"] += 1
+    LAUNCHES[form_name("float_quantize", xf)] += 1
     return y
 
 
@@ -80,13 +89,14 @@ def float_quantize_fused(
     stochastic: bool = True,
     check_inf: bool = True,
 ) -> torch.Tensor:
-    """``float_quantize`` of a CUDA tensor through the kernel; float32 of
-    ``x``'s shape."""
+    """``float_quantize`` of a CUDA tensor through the kernel, of ``x``'s
+    shape: bfloat16 for a bfloat16 ``x`` (the float32 result rounded to
+    nearest-even, as the JAX wrapper's ``astype``), float32 otherwise."""
     if not x.is_cuda:
         raise ValueError(f"float_quantize_fused takes CUDA tensors, got {x.device}")
     if x.numel() == 0:
-        return x.to(torch.float32)
-    xf = x.reshape(-1).to(torch.float32).contiguous()
+        return x if x.dtype in DTYPES else x.to(torch.float32)
+    xf = kernel_input(x)
     key, call = key_for(gen, stochastic, x.device)
     y = float_quantize_launch(
         xf, fmt, key=key, call=call, stochastic=stochastic, check_inf=check_inf

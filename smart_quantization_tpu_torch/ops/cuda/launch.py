@@ -1,6 +1,7 @@
 """What every kernel wrapper of the port shares: the launch shapes, the SM
-count, the per-stream workspaces, the key of a stochastic launch, the input
-checks, the stream and the error check after a launch."""
+count, the per-stream workspaces, the key of a stochastic launch, the
+element types, the input checks, the stream and the error check after a
+launch."""
 
 from __future__ import annotations
 
@@ -9,6 +10,23 @@ import torch
 from smart_quantization_tpu_torch.ops.keys import DeviceKey, draw_seed, key_tensor
 
 THREADS = 256
+# The element types the elementwise kernels read and write (csrc/elem.cuh),
+# as their C interface's dtype argument.  A bfloat16 tensor goes to the
+# bfloat16 form as it is; a tensor of any other dtype is cast to float32
+# first and its result cast back (kernel_input).
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# a bfloat16 form's launches count under its kernel's name with this suffix
+BF16_SUFFIX = "_bf16"
+
+
+def form_name(name: str, xf: torch.Tensor) -> str:
+    """The launch counter of kernel ``name`` in ``xf``'s element form."""
+    return name + BF16_SUFFIX if xf.dtype == torch.bfloat16 else name
+
+
+def with_bf16_forms(names) -> dict[str, int]:
+    """Zeroed launch counters of ``names`` and of their bfloat16 forms."""
+    return {n: 0 for name in names for n in (name, name + BF16_SUFFIX)}
 # float_quantize and smaq_quantize_bn: a float4 for each thread per loop
 # step, at most 1056 blocks (8 blocks of 256 threads fill an SM); larger
 # tensors loop inside the block.
@@ -87,12 +105,23 @@ def raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
 
 
-def check_input(x: torch.Tensor) -> None:
-    """The kernels take contiguous float32 tensors on the current card."""
+def kernel_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` flat and contiguous in a dtype the kernels take: float32 and
+    bfloat16 as they are, any other dtype cast to float32."""
+    flat = x.reshape(-1)
+    if flat.dtype not in DTYPES:
+        flat = flat.to(torch.float32)
+    return flat.contiguous()
+
+
+def check_input(x: torch.Tensor, dtypes=tuple(DTYPES)) -> None:
+    """The kernels take contiguous tensors of ``dtypes`` (float32 or
+    bfloat16 elements; their scalars and per-channel constants float32
+    only) on the current card."""
     if not x.is_cuda:
         raise ValueError(f"the kernels take CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the kernels take float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"the kernels take {', '.join(map(str, dtypes))}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the kernels take contiguous tensors")
     if x.device.index != torch.cuda.current_device():

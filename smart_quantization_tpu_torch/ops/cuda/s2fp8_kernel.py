@@ -19,6 +19,10 @@ design.  Here:
   the kernels read it, a table over the e5m2 grid;
 - ``s2fp8_fused_or_reference`` sends a CUDA tensor to the kernels and a CPU
   tensor to ``ops/s2fp8.py``.  There is no size threshold.
+
+The kernels read and write float32 or bfloat16 (``launch.DTYPES``): a
+bfloat16 tensor goes to the bfloat16 forms as it is, another dtype is cast
+to float32.
 """
 
 from __future__ import annotations
@@ -28,15 +32,19 @@ import torch
 from smart_quantization_tpu_torch.ops.cuda import build, launch
 from smart_quantization_tpu_torch.ops.cuda.launch import (
     BLOCKS_PER_SM,
+    DTYPES,
     THREADS,
     check_input,
     check_key,
+    form_name,
+    kernel_input,
     key_for,
     ptr,
     raise_on,
     sm_count,
     split_blocks,
     stream,
+    with_bf16_forms,
 )
 from smart_quantization_tpu_torch.ops.float_format import (
     FP8_FORMAT,
@@ -46,8 +54,9 @@ from smart_quantization_tpu_torch.ops.float_format import (
 )
 from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize, squeeze_coefs
 
-# Launches of each kernel since the last reset (one per launch, nowhere else).
-LAUNCHES = {"s2fp8_stats": 0, "s2fp8_quantize": 0}
+# Launches of each kernel since the last reset (one per launch, nowhere
+# else), its bfloat16 form under the name with "_bf16".
+LAUNCHES = with_bf16_forms(("s2fp8_stats", "s2fp8_quantize"))
 
 # The small form: one block of SMALL_THREADS computes the stats, the
 # constants and the table, then quantizes, one launch.  It is one SM's
@@ -97,7 +106,8 @@ def workspace(xf: torch.Tensor) -> torch.Tensor:
 
 
 def s2fp8_stats(xf: torch.Tensor) -> torch.Tensor:
-    """Launch the stats kernel; returns the constants its last block
+    """Launch the stats kernel on a flat float32 or bfloat16 tensor;
+    returns the constants its last block
     writes, float32 ``[mu, m, alpha, beta, 1/alpha, 0, 0, 0, table[128]]``
     (``read_consts`` names them).  They live in the stream's workspace: the
     next stats launch on the stream overwrites them."""
@@ -107,11 +117,11 @@ def s2fp8_stats(xf: torch.Tensor) -> torch.Tensor:
         raise ValueError("s2fp8_stats takes a non-empty tensor")
     ws = workspace(xf)
     rc = build.library().s2fp8_stats(
-        xf.data_ptr(), n, ws.data_ptr(), split_blocks(n, sm_count(xf.device)), THREADS,
-        stream(xf),
+        xf.data_ptr(), n, DTYPES[xf.dtype], ws.data_ptr(), split_blocks(n, sm_count(xf.device)),
+        THREADS, stream(xf),
     )
     raise_on(rc, "s2fp8_stats")
-    LAUNCHES["s2fp8_stats"] += 1
+    LAUNCHES[form_name("s2fp8_stats", xf)] += 1
     return ws[_COUNTER_WORDS:_COUNTER_WORDS + _CONST_WORDS].view(torch.float32)
 
 
@@ -138,7 +148,7 @@ def s2fp8_quantize(
     without them, the small form (``SMALL_MAX`` elements at most): one
     block computes the stats itself, then quantizes.  Stochastic rounding
     draws (``key``, ``call``): ``key`` a 1-element int64 step key on the
-    card.  Returns the flat output."""
+    card.  Returns the flat output, of ``xf``'s dtype."""
     check_input(xf)
     check_key(key, xf, stochastic)
     n = xf.numel()
@@ -155,12 +165,13 @@ def s2fp8_quantize(
         blocks, threads = split_blocks(n, sm_count(xf.device)), THREADS
     y = torch.empty_like(xf)
     rc = build.library().s2fp8_quantize(
-        xf.data_ptr(), y.data_ptr(), n, ptr(consts), ptr(key), call, int(stochastic),
+        xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(consts), ptr(key), call,
+        int(stochastic),
         int(check_inf),
         blocks, threads, stream(xf),
     )
     raise_on(rc, "s2fp8_quantize")
-    LAUNCHES["s2fp8_quantize"] += 1
+    LAUNCHES[form_name("s2fp8_quantize", xf)] += 1
     return y
 
 
@@ -200,7 +211,7 @@ def s2fp8_fused(
         raise ValueError(f"s2fp8_fused takes CUDA tensors, got {x.device}")
     if x.numel() == 0:
         return x
-    xf = x.reshape(-1).to(torch.float32).contiguous()
+    xf = kernel_input(x)
     small = s2fp8_plan(xf.numel(), sm_count(xf.device))[0] == "small"
     key, call = key_for(gen, stochastic, x.device)
     y = s2fp8_quantize(

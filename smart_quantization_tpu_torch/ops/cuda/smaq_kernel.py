@@ -25,6 +25,12 @@ its BatchNorm-folded variant ``smaq_fused_bn``.  The source note in
 BatchNorm tensors are NCHW: gamma and beta are per channel (dim 1), or 0-d
 for one scalar pair.
 
+Each kernel reads and writes float32 or bfloat16 elements
+(``launch.DTYPES``; a bfloat16 call is the float32 kernel on the widened
+tensor, its output rounded to nearest-even, bit for bit); sizes count 32
+original bits an element whatever the dtype, as the JAX package does.  A
+tensor of another dtype is cast to float32 and back.
+
 Stochastic rounding keys the kernel's Philox stream by a step key in device
 memory and a call index (``launch.key_for``: a ``DeviceKey``'s next index,
 or one draw from a host ``torch.Generator``); the plain versions draw their
@@ -42,9 +48,12 @@ from smart_quantization_tpu_torch.ops.cuda import build
 from smart_quantization_tpu_torch.ops.cuda import launch
 from smart_quantization_tpu_torch.ops.cuda.launch import (
     BLOCKS_PER_SM,
+    DTYPES,
     THREADS,
     check_input,
     check_key,
+    form_name,
+    kernel_input,
     key_for,
     ptr,
     quant_blocks,
@@ -52,12 +61,14 @@ from smart_quantization_tpu_torch.ops.cuda.launch import (
     sm_count,
     split_blocks,
     stream,
+    with_bf16_forms,
 )
 from smart_quantization_tpu_torch.ops.rounding import uniform
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams, smaq_quantize_dequantize
 
-# Launches of each kernel since the last reset (one per launch, nowhere else).
-LAUNCHES = {"smaq_stats": 0, "smaq_quantize": 0, "smaq_quantize_bn": 0}
+# Launches of each kernel since the last reset (one per launch, nowhere
+# else), its bfloat16 form under the name with "_bf16".
+LAUNCHES = with_bf16_forms(("smaq_stats", "smaq_quantize", "smaq_quantize_bn"))
 
 # The TPU kernel's in-kernel sample spans its first block of 512 x 1024.
 _SAMPLE_SPAN = 512 * 1024
@@ -116,20 +127,20 @@ def _quant_args(params: SmaQParams) -> tuple:
 
 
 def smaq_stats(xf: torch.Tensor, params: SmaQParams) -> torch.Tensor:
-    """Launch the stats kernel; returns the per-tensor constants its last
-    block folds, float32 ``[mean, std, a, b, std / range_main,
+    """Launch the stats kernel on a flat float32 or bfloat16 tensor; returns
+    the per-tensor constants its last block folds, float32 ``[mean, std, a, b, std / range_main,
     std / range_outlier, t * std, 0]`` (std after the zero-std guard and
     the clamp; ``consts_reference`` is their plain version)."""
     check_input(xf)
     n = xf.numel()
     consts = torch.empty(8, dtype=torch.float32, device=xf.device)
     rc = build.library().smaq_stats(
-        xf.data_ptr(), n, int(params.use_range_std_dev), *_quant_args(params),
+        xf.data_ptr(), n, DTYPES[xf.dtype], int(params.use_range_std_dev), *_quant_args(params),
         workspace(xf).data_ptr(), consts.data_ptr(), split_blocks(n, sm_count(xf.device)),
         THREADS, stream(xf),
     )
     raise_on(rc, "smaq_stats")
-    LAUNCHES["smaq_stats"] += 1
+    LAUNCHES[form_name("smaq_stats", xf)] += 1
     return consts
 
 
@@ -171,8 +182,8 @@ def smaq_quantize(
     small form (``SMALL_MAX`` elements at most): one block computes the
     full stats itself, then quantizes.  Stochastic rounding draws
     (``key``, ``call``): ``key`` a 1-element int64 step key on the card.
-    Returns the flat output and the size in bits as a 0-d float32 device
-    tensor."""
+    Returns the flat output, of ``xf``'s dtype, and the size in bits as a
+    0-d float32 device tensor."""
     check_input(xf)
     check_key(key, xf, params.stochastic_rounding)
     stats, consts, mode = _stats_args(xf, stats, consts)
@@ -185,13 +196,13 @@ def smaq_quantize(
     blocks, threads = (
         (1, SMALL_THREADS) if mode == _SMALL else (split_blocks(n, sm_count(xf.device)), THREADS))
     rc = build.library().smaq_quantize(
-        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
+        xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(stats), ptr(consts), mode,
         int(params.use_range_std_dev), ptr(key), call, int(params.stochastic_rounding),
         int(all_positive), int(compute_size), *_quant_args(params),
         workspace(xf).data_ptr(), size.data_ptr(), blocks, threads, stream(xf),
     )
     raise_on(rc, "smaq_quantize")
-    LAUNCHES["smaq_quantize"] += 1
+    LAUNCHES[form_name("smaq_quantize", xf)] += 1
     return y, size
 
 
@@ -217,7 +228,7 @@ def smaq_quantize_bn(
     check_input(xf)
     check_key(key, xf, params.stochastic_rounding)
     for v in (gamma, beta):
-        check_input(v)
+        check_input(v, (torch.float32,))
         if v.numel() != channels:
             raise ValueError(f"gamma and beta need {channels} values, got {v.numel()}")
     if not 1 <= channels <= MAX_BN_CHANNELS:
@@ -229,14 +240,14 @@ def smaq_quantize_bn(
     y = torch.empty_like(xf)
     size = torch.empty((), dtype=torch.float32, device=xf.device)
     rc = build.library().smaq_quantize_bn(
-        xf.data_ptr(), y.data_ptr(), n, ptr(stats), ptr(consts), mode,
+        xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(stats), ptr(consts), mode,
         gamma.data_ptr(), beta.data_ptr(), channels, inner,
         ptr(key), call, int(params.stochastic_rounding), int(all_positive), int(compute_size),
         *_quant_args(params), workspace(xf).data_ptr(), size.data_ptr(),
         quant_blocks(n), THREADS, stream(xf),
     )
     raise_on(rc, "smaq_quantize_bn")
-    LAUNCHES["smaq_quantize_bn"] += 1
+    LAUNCHES[form_name("smaq_quantize_bn", xf)] += 1
     return y, size
 
 
@@ -327,7 +338,7 @@ def smaq_fused(
     n = x.numel()
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
-    xf = x.reshape(-1).to(torch.float32).contiguous()
+    xf = kernel_input(x)
     key, call = key_for(gen, params.stochastic_rounding, x.device)
     stats, consts = _device_stats(xf, params, mean, std, small_form=True)
     y, size = smaq_quantize(
@@ -370,7 +381,7 @@ def smaq_fused_bn(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     channels, inner = channel_layout(x, gamma)
-    xf = x.reshape(-1).to(torch.float32).contiguous()
+    xf = kernel_input(x)
     key, call = key_for(gen, params.stochastic_rounding, x.device)
     stats, consts = _device_stats(xf, params, mean, std, small_form=False)
     y, size = smaq_quantize_bn(

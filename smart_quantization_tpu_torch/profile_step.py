@@ -24,7 +24,7 @@ under K > 1 the graph's private pool is allocated by the capture and held
 (reserved) from then on.  The last line is one JSON object with the
 same numbers.  Any other flags go to the trainer's command line as they
 are (``--momentum_rowwise --momentum_log_nu``, ``--packed_momentum
---packed_weights``).
+--packed_weights``, ``--compute_dtype bfloat16``).
 """
 
 from __future__ import annotations

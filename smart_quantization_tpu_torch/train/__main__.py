@@ -14,6 +14,8 @@ Examples:
       --momentum_rowwise --momentum_log_nu --limit_train_batches 4
   python -m smart_quantization_tpu_torch.train --compress smart --packed_momentum \\
       --packed_weights --checkpoint_dir ckpt   # then --resume_from ckpt/epoch_0000.pt
+  python -m smart_quantization_tpu_torch.train --resnet_model resnet18 --compress smart \\
+      --compute_dtype bfloat16 --batch_size 128 --auto_lr_find --git
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ def build_trainer(args):
     from smart_quantization_tpu_torch.data.cifar import CIFAR10Data, CIFAR100Data
     from smart_quantization_tpu_torch.models.resnet import resnet18, resnet34, resnet50
     from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
-    from smart_quantization_tpu_torch.train.metrics import MetricLogger
-    from smart_quantization_tpu_torch.utils.config import build_components, check_ported
+    from smart_quantization_tpu_torch.train.metrics import run_logger
+    from smart_quantization_tpu_torch.utils.config import (
+        build_components,
+        check_ported,
+        compute_dtype,
+    )
 
     check_ported(args)
     data_cls = {"cifar10": CIFAR10Data, "cifar100": CIFAR100Data}[args.dataset]
@@ -41,15 +47,17 @@ def build_trainer(args):
     model_fn = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}[
         args.resnet_model
     ]
-    model = model_fn(num_classes=data.num_classes, tap=comps["tap_cfg"])
+    model = model_fn(num_classes=data.num_classes, tap=comps["tap_cfg"],
+                     dtype=compute_dtype(args))
     cfg = TrainConfig.from_args(args)
     return Trainer(
         model,
         data,
         comps["optimizer_spec"],
         optim_comp=comps["optim_comp"],
+        loss_compressor=comps["compressor"],
         config=cfg,
-        logger=MetricLogger(args.logdir, args.name),
+        logger=run_logger(args),
         device=args.device,
     )
 
@@ -64,14 +72,21 @@ def main(argv=None) -> dict:
 
     from smart_quantization_tpu_torch.train.bert_loop import run_bert
     from smart_quantization_tpu_torch.train.loop import run
-    from smart_quantization_tpu_torch.utils.config import parse_args
+    from smart_quantization_tpu_torch.train.tune import tune_from_args
+    from smart_quantization_tpu_torch.utils.config import git_run_tag, parse_args
 
     args = parse_args(argv)
     print(f"run name: {args.name}")
+    if args.git:
+        args.git_commit = git_run_tag(args.name)
+        if args.git_commit:
+            print(f"git: tagged run/{args.name} at {args.git_commit[:12]}")
     if args.model == "bert":
         return run_bert(args)  # its weights come from a generator of --seed
     torch.manual_seed(args.seed)  # the model's initial weights
-    return run(build_trainer(args), args.resume_from)
+    trainer = build_trainer(args)
+    tune_from_args(trainer, args)
+    return run(trainer, args.resume_from)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,8 @@ sequence-classification task.
 Counterpart of ``smart_quantization_tpu/train/bert_loop.py``
 (``BertTrainer`` and ``run_bert``, the CLI path of ``--model bert``): the
 regression head for STSB and cross-entropy otherwise, GLUE metrics on the
-validation split, compression wired exactly as on the image path.
-``--auto_lr_find`` and ``--auto_scale_batch_size`` are not flags of the
-port yet (ROADMAP Queue 1 item 12).
+validation split, compression, ``--compute_dtype``, ``--auto_lr_find`` and
+``--auto_scale_batch_size`` wired exactly as on the image path.
 """
 
 from __future__ import annotations
@@ -32,8 +31,12 @@ def build_bert_trainer(args) -> BertTrainer:
     from smart_quantization_tpu_torch.data.glue import GLUEData, IMDBData
     from smart_quantization_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
     from smart_quantization_tpu_torch.train.loop import TrainConfig
-    from smart_quantization_tpu_torch.train.metrics import MetricLogger
-    from smart_quantization_tpu_torch.utils.config import build_components, check_ported
+    from smart_quantization_tpu_torch.train.metrics import run_logger
+    from smart_quantization_tpu_torch.utils.config import (
+        build_components,
+        check_ported,
+        compute_dtype,
+    )
 
     check_ported(args)
     kw = dict(batch_size=args.batch_size, val_batch_size=args.val_batch_size,
@@ -48,7 +51,7 @@ def build_bert_trainer(args) -> BertTrainer:
     cfg = BertConfig.tiny() if args.bert_size == "tiny" else BertConfig()
     model = BertForSequenceClassification(
         cfg, num_labels=data.num_labels, tap=comps["tap_cfg"],
-        freeze_encoder=args.freeze_bert_encoder, seed=args.seed,
+        freeze_encoder=args.freeze_bert_encoder, seed=args.seed, dtype=compute_dtype(args),
     )
     if args.pretrained and args.bert_size == "base":
         state = load_pretrained(args.bert_model, cfg.num_layers, data.num_labels)
@@ -57,12 +60,16 @@ def build_bert_trainer(args) -> BertTrainer:
     config = TrainConfig.from_args(args)
     return BertTrainer(
         model, data, comps["optimizer_spec"], task=task,
-        optim_comp=comps["optim_comp"], config=config,
-        logger=MetricLogger(args.logdir, args.name), device=args.device,
+        optim_comp=comps["optim_comp"], loss_compressor=comps["compressor"], config=config,
+        logger=run_logger(args), device=args.device,
     )
 
 
 def run_bert(args) -> dict:
-    """The CLI path of ``--model bert``: resume, fit, evaluate, print
-    ``final:``."""
-    return run(build_bert_trainer(args), args.resume_from)
+    """The CLI path of ``--model bert``: tune (``--auto_scale_batch_size``,
+    ``--auto_lr_find``), resume, fit, evaluate, print ``final:``."""
+    from smart_quantization_tpu_torch.train.tune import tune_from_args
+
+    trainer = build_bert_trainer(args)
+    tune_from_args(trainer, args)
+    return run(trainer, args.resume_from)

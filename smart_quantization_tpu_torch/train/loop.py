@@ -48,7 +48,12 @@ gives.
 On CUDA the trainer turns TF32 off for cuDNN convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.
 allow_tf32``), so the card trains in full float32 like the reference, and
-makes every kernel deterministic (:func:`make_reproducible`), so a seeded
+bfloat16 products keep float32 accumulation (``allow_bf16_reduced_
+precision_reduction`` off, as XLA's) when the model computes in bfloat16
+(``--compute_dtype``); ``compress_loss`` passes the loss through the run's
+encoder (``inject/tap.py::compress_loss``) and ``measure_average_grad_norm``
+logs ``avg_grad_norm``, both on the device.  It makes every kernel
+deterministic (:func:`make_reproducible`), so a seeded
 run gives the same losses and parameters bit for bit, as the JAX package's
 does, and a K-step replay gives those of K eager steps.
 """
@@ -66,8 +71,8 @@ import numpy as np
 import torch
 
 from smart_quantization_tpu_torch import resolve_device
-from smart_quantization_tpu_torch.compress.base import SizeTotals
-from smart_quantization_tpu_torch.inject.tap import TapContext
+from smart_quantization_tpu_torch.compress.base import CompressorBase, SizeTotals
+from smart_quantization_tpu_torch.inject.tap import TapContext, compress_loss
 from smart_quantization_tpu_torch.ops.codebook import SmaQCodes
 from smart_quantization_tpu_torch.ops.keys import DeviceKey, as_int64, key_tensor, step_key
 from smart_quantization_tpu_torch.optim.compressed import (
@@ -122,6 +127,10 @@ class TrainConfig:
     # a torch.profiler trace of the first profile_steps steps, written here
     profile_dir: str | None = None
     profile_steps: int = 10
+    # the loss through the run's encoder (tag "loss", not counted)
+    compress_loss: bool = False
+    # log avg_grad_norm: the mean of the per-leaf L2 norms of the raw gradients
+    measure_average_grad_norm: bool = False
 
     @staticmethod
     def from_args(args) -> "TrainConfig":
@@ -140,6 +149,8 @@ class TrainConfig:
             steps_per_call=args.steps_per_call,
             profile_dir=args.profile_dir,
             profile_steps=args.profile_steps,
+            compress_loss=args.compress_loss,
+            measure_average_grad_norm=args.measure_average_grad_norm,
         )
 
 
@@ -191,6 +202,7 @@ class Trainer:
         spec: OptimizerSpec,
         *,
         optim_comp: OptimizerCompression | None = None,
+        loss_compressor: CompressorBase | None = None,
         config: TrainConfig = TrainConfig(),
         logger: MetricLogger | None = None,
         device: str | torch.device | None = None,
@@ -202,14 +214,17 @@ class Trainer:
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            # bfloat16 products accumulate in float32 throughout, as XLA's do
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
             print("NOTE: TF32 is off for convolutions and matmuls; the card trains "
-                  "in float32.")
+                  "in the model's compute dtype with float32 accumulation.")
             make_reproducible()
         self.model = model.to(self.device)
         self.data = data
         self.spec = spec
         self.task = task or ImageClassificationTask()
         self.optim_comp = optim_comp or OptimizerCompression()
+        self.loss_compressor = loss_compressor
         self.cfg = config
         self.logger = logger or MetricLogger(None)
         self.ratio_acc = RatioAccumulator()
@@ -293,6 +308,8 @@ class Trainer:
         model.train()
         logits = model(*self.task.model_args(inputs), TapContext(gen_fwd, sizes, gen_drop))
         loss = self.task.loss(logits, labels)
+        if self.cfg.compress_loss and self.loss_compressor is not None:
+            loss = compress_loss(loss, self.loss_compressor, gen_fwd)
         named = list(model.named_parameters())
         for _, p in named:
             p.grad = None
@@ -300,6 +317,10 @@ class Trainer:
 
         params = {n: p.detach() for n, p in named}
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in named}
+        grad_norm = None
+        if self.cfg.measure_average_grad_norm:
+            # the raw gradients' norms in one fused launch; no host sync
+            grad_norm = torch.stack(torch._foreach_norm(list(grads.values()))).mean()
         new_params, opt_state, opt_metrics = compressed_optimizer_step(
             self.spec, params, grads, state.opt_state, gen_opt, self.optim_comp,
             weight_exempt=self.weight_exempt, scalars=scalars,
@@ -322,6 +343,8 @@ class Trainer:
 
         metrics = {"train_loss": loss.detach()}
         metrics.update(self.task.train_metrics(logits.detach(), labels))
+        if grad_norm is not None:
+            metrics["avg_grad_norm"] = grad_norm
         if sizes is not None:
             for tag, pair in {**sizes.totals, **opt_metrics}.items():
                 metrics[f"_ratio/{tag}"] = pair

@@ -77,6 +77,15 @@ class MetricLogger:
                     self._tb = SummaryWriter(log_dir=os.path.join(logdir, name))
         self._t0 = time.time()
 
+    def header(self, info: Mapping[str, str]) -> None:
+        """Write a one-off run-metadata line ``{"header": {...}}`` (the git
+        commit ``--git`` records), and the same as TensorBoard text."""
+        if self._fh:
+            self._fh.write(json.dumps({"header": dict(info)}) + "\n")
+            self._fh.flush()
+        if self._tb is not None:
+            self._tb.add_text("run_info", "\n".join(f"{k}: {v}" for k, v in info.items()), 0)
+
     def log(self, step: int, scalars: Mapping[str, float], echo: bool = True) -> None:
         rec = {"step": int(step), "time": round(time.time() - self._t0, 3)}
         rec.update(
@@ -105,3 +114,13 @@ class MetricLogger:
             self._fh.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def run_logger(args) -> MetricLogger:
+    """The logger of a parsed command line, with the header line of the
+    commit ``--git`` recorded (``args.git_commit``)."""
+    logger = MetricLogger(args.logdir, args.name)
+    commit = getattr(args, "git_commit", None)
+    if commit:
+        logger.header({"git_commit": commit, "name": args.name})
+    return logger

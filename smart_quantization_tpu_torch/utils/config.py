@@ -6,7 +6,7 @@ CIFAR-10/100 and BERT on GLUE and IMDB, with any of the six encoders.
 Phase 1 parses the class selectors and the per-structure toggles; phase 2
 re-parses with the selected encoder's, model's and dataset's own flags
 (the JAX package's defaults: batch 8 on CIFAR, 32 and length 512 on text).
-Flags of paths not yet ported are accepted and raise
+Flags of paths not yet ported (Inception, DP/FSDP) are accepted and raise
 ``NotImplementedError`` naming their ROADMAP item; ``--no_pallas`` is gone
 (the port has no Pallas), ``--device`` and ``--checkpoint_every_epochs``
 are new.
@@ -70,6 +70,9 @@ def add_model_base_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--beta1", type=float)
     parser.add_argument("--beta2", type=float)
     parser.add_argument("--epsilon", type=float)
+    parser.add_argument("--measure_average_grad_norm", action="store_true",
+                        help="log avg_grad_norm, the mean of the per-leaf L2 norms of the raw "
+                             "gradients")
 
 
 def add_resnet_args(parser: argparse.ArgumentParser) -> None:
@@ -156,8 +159,18 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
              "--steps_per_call K > 1 the replayed steps show as graph launches, not "
              "regions")
     parser.add_argument("--profile_steps", type=int, default=10)
+    parser.add_argument(
+        "--compute_dtype", default="float32", choices=("float32", "bfloat16"),
+        help="the models' compute dtype: convolutions, matmuls, activations and the "
+             "feature and gradient maps the taps compress (parameters, BatchNorm and "
+             "LayerNorm statistics, the softmax, the loss and the optimizer stay float32)")
+    parser.add_argument("--auto_lr_find", action="store_true",
+                        help="run the learning-rate range test first (50 steps, 1e-6 to 1) "
+                             "and train at its suggestion")
+    parser.add_argument("--auto_scale_batch_size", action="store_true",
+                        help="double the batch size from --batch_size until a step runs out "
+                             "of memory, and train at the largest that fit")
     # not yet ported: each raises at build time (see _NOT_YET_PORTED)
-    parser.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"))
     parser.add_argument("--dp", type=int)
     parser.add_argument("--fsdp", type=int, default=1)
 
@@ -175,8 +188,6 @@ MODEL_DATASETS = {"bert": ("glue", "imdb"), "inception": ("cifar10", "cifar100")
 # (is it asked for?, what, ROADMAP Queue 1 item)
 _NOT_YET_PORTED = (
     (lambda a: a.model == "inception", "--model inception", 13),
-    (lambda a: a.compress_loss, "--compress_loss", 12),
-    (lambda a: a.compute_dtype != "float32", "--compute_dtype bfloat16", 12),
     (lambda a: (a.dp or 1) > 1 or a.fsdp > 1, "DP/FSDP (--dp/--fsdp)", 15),
 )
 
@@ -215,6 +226,12 @@ def parse_args(argv: list[str] | str | None = None) -> argparse.Namespace:
         dest="compress_momentum_vectors",
     )
     phase1.add_argument("--compress_loss", action="store_true")
+    phase1.add_argument(
+        "--git", action="store_true",
+        help="tag the repository with run/<name> and record the commit hash in the "
+             "run's metrics header")
+    # parsed as the JAX package parses it; nothing reads it there either
+    phase1.add_argument("--no_add_tags", action="store_false", dest="add_tags")
     phase1.add_argument("--name", type=str)
     phase1.add_argument("--logdir", type=str, default="lightning_logs")
     phase1.add_argument("--tags", type=str)
@@ -250,6 +267,31 @@ def parse_max_time(s: str) -> float:
         raise argparse.ArgumentTypeError(f"--max_time wants DD:HH:MM:SS or seconds, got {s!r}")
     d, h, m, sec = (int(p) for p in parts)
     return float(((d * 24 + h) * 60 + m) * 60 + sec)
+
+
+def git_run_tag(name: str, create_tag: bool = True) -> str | None:
+    """The current commit of the repository a run starts in, tagged
+    ``run/<name>`` unless ``create_tag`` is False (the JAX package's
+    ``git_run_tag``); None outside a git checkout."""
+    import subprocess
+
+    try:
+        commit = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True, check=True,
+            timeout=10,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    if create_tag:
+        subprocess.run(["git", "tag", "-f", f"run/{name}"], capture_output=True, timeout=10)
+    return commit or None
+
+
+def compute_dtype(args: argparse.Namespace):
+    """``--compute_dtype`` as a torch dtype."""
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.compute_dtype]
 
 
 def check_ported(args: argparse.Namespace) -> None:

@@ -6,7 +6,8 @@ index as a pointer) is cut or misread without any error on the CPU, and
 only a chip run would show it.  So every ``extern "C"`` entry point's C
 signature is parsed here and held against the ``argtypes`` that
 ``build._declare`` sets on a stand-in library; every stochastic kernel
-takes its step key by pointer and its call index by value.  ``smaq_plan`` and ``s2fp8_plan``, and the launch
+takes its step key by pointer and its call index by value, and every
+elementwise kernel its element dtype.  ``smaq_plan`` and ``s2fp8_plan``, and the launch
 constants and workspace layouts that the wrappers and ``csrc/smaq.cu`` or
 ``csrc/s2fp8.cu`` both state, are pinned too.
 """
@@ -16,12 +17,13 @@ import math
 import re
 
 import pytest
+import torch
 
 from smart_quantization_tpu_torch.ops.cuda import build
 from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
 from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
 from smart_quantization_tpu_torch.ops.cuda.float_kernel import format_args
-from smart_quantization_tpu_torch.ops.cuda.launch import BLOCKS_PER_SM, THREADS
+from smart_quantization_tpu_torch.ops.cuda.launch import BLOCKS_PER_SM, DTYPES, THREADS
 from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT
 
 _SCALARS = {
@@ -106,6 +108,22 @@ def test_stochastic_kernels_read_their_key_from_device_memory(name):
     i = params.index("const unsigned long long* key")
     assert params[i + 1] == "unsigned int call"
     assert not any(p.endswith(" seed") for p in params)
+
+
+@pytest.mark.parametrize(
+    "name", ["smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize", "s2fp8_stats",
+             "s2fp8_quantize"])
+def test_elementwise_kernels_take_the_element_dtype(name):
+    """Each elementwise kernel reads and writes float32 or bfloat16
+    elements: x (and y) untyped, then n, then the ``int dtype`` the wrappers
+    pass as ``launch.DTYPES`` gives it (csrc/elem.cuh)."""
+    params = SIGNATURES[name]
+    i = params.index("long long n")
+    assert params[i + 1] == "int dtype"
+    assert params[0] == "const void* x" and (i == 1 or params[1] == "void* y")
+    assert DTYPES == {torch.float32: 0, torch.bfloat16: 1}
+    src = _read(f"{build.CSRC}/smaq.cu")
+    assert "constexpr int kFloat32 = 0, kBFloat16 = 1;" in src
 
 
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe

@@ -213,13 +213,120 @@ def test_cli_builds_every_encoder(argv):
         assert comp.use_batch_norm and comp.bn_scalar_params == ("--bn_scalar_params" in argv)
 
 
-@pytest.mark.parametrize("argv", ["--compress_loss", "--compute_dtype bfloat16",
+@pytest.mark.parametrize("argv", ["--model inception --dataset cifar100", "--dp 2 --fsdp 2",
                                   "--model inception", "--dp 2", "--fsdp 2"])
 def test_cli_deferred_flags_still_raise(argv):
     from smart_quantization_tpu_torch.utils.config import build_components, parse_args
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         build_components(parse_args(f"--device cpu --compress fp8 {argv}"))
+
+
+LOSS_ENCODERS = [("smart", {}), ("fp8", {"stochastic": False}), ("s2fp8", {"stochastic": False}),
+                 ("fp16", {"stochastic": False}), ("bf16", {"stochastic": False}), ("fp32", {})]
+
+
+@pytest.mark.parametrize("name,kw", LOSS_ENCODERS, ids=[n for n, _ in LOSS_ENCODERS])
+def test_compress_loss_matches_jax(name, kw):
+    """``--compress_loss``: the loss through the encoder and its gradient, as
+    JAX's autodiff gives them through ``compressor(loss[None], key)[0]``:
+    the identity for SmaQ (one element is below ``min_size``), S2FP8 (its
+    value follows the loss through its statistics) and FP32; zero for FP8,
+    FP16 and BF16 (bit arithmetic).  The value bitwise, S2FP8's to float32's
+    log2/exp2 (1e-6); the gradient to 1e-6 of the raw one."""
+    from smart_quantization_tpu_torch.inject.tap import compress_loss
+
+    r = np.random.RandomState(3)
+    w0, x = r.randn(6).astype(np.float32), r.randn(6).astype(np.float32)
+    jcomp = jax_build_compressor(name, **kw)
+
+    def jax_loss(w):
+        loss = jnp.sum((w * x + 0.3) ** 2)
+        loss_q, _ = jcomp(loss[None], jax.random.key(4))
+        return loss_q[0]
+
+    value_ref, grad_ref = jax.value_and_grad(jax_loss)(jnp.asarray(w0))
+    w = torch.from_numpy(w0.copy()).requires_grad_()
+    loss = compress_loss(((w * torch.from_numpy(x) + 0.3) ** 2).sum(), build_compressor(name, **kw),
+                         torch.Generator().manual_seed(4))
+    loss.backward()
+    assert loss.shape == () and loss.dtype == torch.float32
+    np.testing.assert_allclose(float(loss.detach()), float(value_ref),
+                               rtol=1e-6 if name == "s2fp8" else 0)
+    raw = np.abs(np.asarray(jax.grad(lambda w: jnp.sum((w * x + 0.3) ** 2))(jnp.asarray(w0))))
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(grad_ref), rtol=0, atol=1e-6 * raw.max())
+    assert (np.asarray(grad_ref) == 0).all() == (name in ("fp8", "fp16", "bf16"))
+
+
+def test_compress_loss_and_grad_norm_in_a_step():
+    """A trainer step with ``compress_loss`` (FP8, nearest) logs the rounded
+    loss and steps on zero gradients (the weight decay alone); with
+    ``measure_average_grad_norm`` it logs the mean of the raw gradients'
+    per-leaf L2 norms as JAX computes it (``jnp.linalg.norm`` of each leaf,
+    ``loop.py:342-346``) on the same gradients, to 1e-6."""
+    from smart_quantization_tpu_torch.models.tiny import TinyCNN
+    from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT, float_quantize
+    from smart_quantization_tpu_torch.train.task import cross_entropy
+
+    x = torch.from_numpy(np.random.RandomState(1).randn(4, 3, 16, 16).astype(np.float32))
+    labels = torch.tensor([1, 4, 7, 9])
+
+    def trainer_of(**cfg):
+        torch.manual_seed(0)
+        model = TinyCNN(num_classes=10)
+        comp = build_compressor("fp8", stochastic=False)
+        return Trainer(model, None, build_optimizer("sgd", 0.1, momentum=0.9, weight_decay=1e-2),
+                       loss_compressor=comp, config=TrainConfig(**cfg), device="cpu")
+
+    t = trainer_of(compress_loss=True)
+    w0 = {n: p.detach().clone() for n, p in t.model.named_parameters()}
+    plain = cross_entropy(t.model(x), labels).detach()
+    metrics = t.train_step(t.init_state(), x, labels)
+    assert float(metrics["train_loss"]) == float(float_quantize(plain, FP8_FORMAT, stochastic=False))
+    for n, p in t.model.named_parameters():
+        torch.testing.assert_close(p.detach(), w0[n] - 0.1 * 1e-2 * w0[n], rtol=0, atol=1e-7)
+
+    t = trainer_of(measure_average_grad_norm=True)
+    ref = trainer_of()
+    ref.model.train()
+    cross_entropy(ref.model(x), labels).backward()
+    norms = [jnp.linalg.norm(jnp.asarray(p.grad.numpy())) for p in ref.model.parameters()]
+    metrics = t.train_step(t.init_state(), x, labels)
+    assert "avg_grad_norm" not in ref.train_step(ref.init_state(), x, labels)
+    np.testing.assert_allclose(float(metrics["avg_grad_norm"]), float(jnp.mean(jnp.stack(norms))),
+                               rtol=1e-6)
+
+
+def test_git_tags_the_run_and_writes_the_header(tmp_path, monkeypatch):
+    """``--git`` in a git repository: the commit comes back, ``run/<name>``
+    is tagged, and the run's metrics file starts with the header line;
+    outside a repository there is no commit.  ``--no_add_tags`` parses as
+    the JAX package's (``add_tags``, read by nothing)."""
+    from smart_quantization_tpu_torch.train.metrics import run_logger
+    from smart_quantization_tpu_torch.utils.config import git_run_tag, parse_args
+
+    monkeypatch.setenv("SMAQ_DISABLE_TB", "1")  # the JSONL header alone
+    repo = tmp_path / "repo"
+    repo.mkdir()
+    git = ["git", "-c", "user.name=t", "-c", "user.email=t@example.com"]
+    for cmd in (["init", "-q"], ["commit", "-q", "--allow-empty", "-m", "first"]):
+        subprocess.run(git + cmd, cwd=repo, check=True, capture_output=True)
+    head = subprocess.run(["git", "rev-parse", "HEAD"], cwd=repo, check=True,
+                          capture_output=True, text=True).stdout.strip()
+    monkeypatch.chdir(repo)
+    args = parse_args(
+        f"--device cpu --git --no_add_tags --name probe --logdir {tmp_path / 'logs'}")
+    assert args.git and not args.add_tags
+    args.git_commit = git_run_tag(args.name)
+    assert args.git_commit == head
+    tags = subprocess.run(["git", "tag"], cwd=repo, check=True, capture_output=True, text=True)
+    assert tags.stdout.split() == ["run/probe"]
+    run_logger(args).close()
+    with open(tmp_path / "logs" / "probe.metrics.jsonl") as f:
+        assert json.loads(f.readline()) == {"header": {"git_commit": head, "name": "probe"}}
+    monkeypatch.chdir(tmp_path)
+    assert git_run_tag("outside", create_tag=False) is None
+    assert parse_args("--device cpu").add_tags
 
 
 def test_cli_reports_every_tag(tmp_path):
