@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --s2fp8_times_of DIR
+    python3 chip_smoke.py --bf16_times_of DIR
 
 With no arguments, phases, each printing its own lines; any failure exits
 non-zero:
@@ -33,7 +34,14 @@ non-zero:
    in bf16 bitwise against its float32 form on the widened input rounded
    to nearest-even (outputs and sizes, truncation and stochastic) and
    against its plain version by the rules above, and 1000 back-to-back
-   bf16 calls;
+   bf16 calls; the bf16 forms redesigned for the card (the one-launch
+   SmaQ form ``smaq_onepass``, the two-launch bf16 path, float_quantize's
+   16-byte loop) bitwise the float32 form on the widened input and each
+   other, in outputs, sizes and SmaQ's constants, at the one-launch
+   form's capacity -1 / +0 / +1, bert-base's 12 582 912 elements, a
+   ragged size and a misaligned pointer, a launch one slot beyond the
+   card's shared memory (refused), captured in a CUDA graph and over 1000
+   back-to-back calls (every counter back to 0);
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -78,7 +86,12 @@ non-zero:
    its forms at its threshold and at 8192 elements; the Philox fill of
    bert-base's largest dropout mask; the bfloat16 forms beside the
    float32 form between a cast in and a cast out (the path they replace),
-   against their 4 bytes an element;
+   against their 4 bytes an element, with ``xb.sum()`` and ``yb.copy_(xb)``
+   in bf16 as yardsticks; the bf16 SmaQ call by size in a stream of 20,
+   truncation beside stochastic rounding, the SmaQ calls of a bf16
+   ResNet-18 step and of a bf16 bert-base codecs step in one CUDA graph
+   each, the float_quantize calls of a bf16 FP8 ResNet-18 step in one
+   graph, and the new kernels' blocks resident per SM;
 6. the kernel table as one JSON line (the bfloat16 forms as rows of their
    own), then the result as the last line.
 
@@ -86,7 +99,10 @@ non-zero:
 (``s2fp8_fused`` by size, alone at 8 388 608 elements and in streams of 20,
 and a ResNet-18 step's calls in one CUDA graph) with this script's timer
 and prints them as one JSON line: one chip call can run it on two trees in
-turns.
+turns.  ``--bf16_times_of DIR`` does the same for the bf16 forms
+(``bf16_call_times``: the SmaQ call and float_quantize at 8 388 608
+elements, the SmaQ call by size, a bf16 ResNet-18 step's and a bf16
+bert-base codecs step's calls in one CUDA graph each).
 
 Needs the repository beside it (or in DIR) and one CUDA card.
 """
@@ -151,7 +167,8 @@ TPU = "smart_quantization_tpu/ops/pallas"
 # forms count under the same name with "_bf16"
 BF16_KERNELS = ("smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize",
                 "s2fp8_stats", "s2fp8_quantize")
-KERNEL_NAMES = (*BF16_KERNELS, "philox_fill", *(f"{k}_bf16" for k in BF16_KERNELS))
+KERNEL_NAMES = (*BF16_KERNELS, "philox_fill", *(f"{k}_bf16" for k in BF16_KERNELS),
+                "smaq_onepass_bf16")
 CSRC = "smart_quantization_tpu_torch/csrc"
 # the other CLI paths: (label, arguments after MAIN_ARGV's, overall ratio
 # range, the loss must be finite); argparse takes the last --compress
@@ -1096,6 +1113,176 @@ def check_bf16_kernels(device) -> dict:
     return errs
 
 
+def check_bf16_redesign(device) -> dict:
+    """The bfloat16 forms redesigned in PR 9, bitwise against the float32
+    form on the widened input with the output rounded to nearest-even, and
+    against each other: ``smaq_onepass`` (one cooperative launch, x held in
+    shared memory) and the two-launch bfloat16 path (``smaq_stats`` +
+    ``smaq_quantize``) in outputs, sizes and
+    the 8 constants, in truncation, stochastic, ``all_positive`` and
+    ``compute_size=False`` modes, at ACT_SHAPE, bert-base's 12 582 912,
+    the one-launch capacity -1 / +0 / +1, SMALL_MAX + 1, a ragged size and
+    a misaligned pointer, each call in the form ``smaq_plan`` names; a
+    launch with one slot more than the card holds is refused; both in a
+    captured CUDA graph replayed twice; 1000 back-to-back calls with every
+    workspace counter back to 0 after them; and ``float_quantize``'s bf16
+    loop (16-byte loads) in every format, both roundings and with and
+    without check_inf at ragged sizes and at pointers 2 and 8 bytes off 16,
+    and in a graph.  Returns the largest difference of the one-launch form
+    from its plain version."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import build
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.cuda.launch import DTYPES, THREADS, stream
+    from smart_quantization_tpu_torch.ops.float_format import (
+        BF16_FORMAT,
+        FP8_FORMAT,
+        FP16_FORMAT,
+    )
+    from smart_quantization_tpu_torch.ops.keys import key_tensor
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(23)
+    trunc, stoch = SmaQParams(stochastic_rounding=False), SmaQParams()
+    key = key_tensor(29, device)
+    sms = K.sm_count(device)
+    slots = K.onepass_slots(device)
+    cap = K.onepass_capacity(sms, slots)
+    say(f"  smaq_onepass: {slots} slots of {K.SLOT_BYTES} B a thread at {K.BLOCKS_PER_SM} "
+        f"blocks of {THREADS} a SM on {sms} SMs: {cap} elements at most")
+    if cap < math.prod(ACT_SHAPE):
+        fail(f"the one-launch form holds {cap} elements, fewer than ResNet-18's largest map")
+    big = (torch.randn(cap + 64, generator=gen, device=device) * 0.05 - 0.01).to(bf)
+    sizes = [("act 128x64x32x32", math.prod(ACT_SHAPE), 0),
+             ("bert hidden 12582912", 32 * 512 * 768, 0),
+             ("capacity - 1", cap - 1, 0), ("capacity", cap, 0), ("capacity + 1", cap + 1, 0),
+             ("SMALL_MAX + 1", K.SMALL_MAX + 1, 0), ("ragged 300001", 300_001, 0),
+             ("misaligned 8388607", math.prod(ACT_SHAPE) - 1, 1)]
+    modes = (("trunc", trunc, {}), ("stochastic", stoch, {}),
+             ("all_positive", trunc, {"all_positive": True}),
+             ("compute_size=False", stoch, {"compute_size": False}))
+    err = 0.0
+    for name, n, off in sizes:
+        xb = big[off:off + n]
+        form = K.smaq_plan(n, sms, slots)[0]
+        for mode, p, kw in modes:
+            xin = xb - xb.mean() if kw.get("all_positive") else xb
+            xw = xin.float()
+            cw = K.smaq_stats(xw, p)
+            yw, sw = K.smaq_quantize(xw, p, key=key, call=4, consts=cw, **kw)
+            cb = K.smaq_stats(xin, p)
+            yb, sb = K.smaq_quantize(xin, p, key=key, call=4, consts=cb, **kw)
+            same_bits(f"smaq two launches {name} {mode}", yb, yw)
+            if not (bitwise_equal(sb, sw) and bitwise_equal(cb, cw)):
+                fail(f"bf16 smaq two launches {name} {mode}: size or constants apart")
+            if form == "onepass":
+                yo, so, co = K.smaq_onepass(xin, p, key=key, call=4, **kw)
+                same_bits(f"smaq_onepass {name} {mode}", yo, yw)
+                if not (bitwise_equal(so, sw) and bitwise_equal(co, cw)):
+                    fail(f"smaq_onepass {name} {mode}: size {float(so)} against {float(sw)}, or "
+                         "constants apart")
+            before = dict(K.LAUNCHES)
+            yf, sf = K.smaq_fused(xin, fresh_key(device) if p.stochastic_rounding else None, p, **kw)
+            got = {k: K.LAUNCHES[k] - before[k] for k in
+                   ("smaq_onepass_bf16", "smaq_stats_bf16", "smaq_quantize_bf16")}
+            want = {"smaq_onepass_bf16": int(form == "onepass"),
+                    "smaq_stats_bf16": int(form == "split"),
+                    "smaq_quantize_bf16": int(form != "onepass")}
+            if got != want:
+                fail(f"smaq_fused on {name} did not take the {form} form: {got}")
+            if mode == "trunc":
+                y_ref, s_ref = K.smaq_fused_reference(xin, None, p)
+                quantum = K.pivot_stats_reference(xw, p)[1] / p.range_main
+                d = flip_check(f"bf16 {name} ({form} form) against its plain version",
+                               yf.float(), y_ref.float(), sf, s_ref, quantum)
+                if form == "onepass":
+                    err = max(err, d)
+        say(f"  bf16 {name} ({form} form): one launch, two launches and the float32 form "
+            f"rounded bitwise in outputs, sizes and constants ({', '.join(m for m, _, _ in modes)})"
+            " -> ok")
+    # one slot more than the card holds: the cooperative launch is refused
+    n = K.onepass_capacity(sms, slots + 1)
+    xb = torch.empty(n, dtype=bf, device=device)
+    y, size, consts = torch.empty_like(xb), torch.empty((), device=device), torch.empty(8, device=device)
+    rc = build.library().smaq_onepass(
+        xb.data_ptr(), y.data_ptr(), n, DTYPES[bf], 0, None, 0, 0, 0, 1,
+        *K._quant_args(trunc), K.workspace(xb).data_ptr(), consts.data_ptr(), size.data_ptr(),
+        sms * K.BLOCKS_PER_SM, THREADS, stream(xb))
+    say(f"  smaq_onepass with {slots + 1} slots a thread: cudaError {rc} (720: too large for "
+        f"a cooperative launch) -> {'ok' if rc == 720 else 'MISMATCH'}")
+    if rc != 720:
+        fail(f"a one-launch call beyond the card's shared memory returned {rc}, not 720")
+    del xb, y
+    # in a CUDA graph, captured on a side stream as train/graph.py does
+    x8 = big[:math.prod(ACT_SHAPE)]
+    eager = [K.smaq_onepass(x8, stoch, key=key, call=6),
+             (F.float_quantize_launch(x8, FP8_FORMAT, key=key, call=6, stochastic=True,
+                                      check_inf=True),)]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        K.smaq_onepass(x8, stoch, key=key, call=6)  # the side stream's workspace
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = [K.smaq_onepass(x8, stoch, key=key, call=6),
+                    (F.float_quantize_launch(x8, FP8_FORMAT, key=key, call=6, stochastic=True,
+                                             check_inf=True),)]
+    for replay in range(2):
+        for outs in captured:
+            for o in outs:
+                o.zero_()
+        graph.replay()
+        torch.cuda.synchronize(device)
+        for want, got in zip(eager, captured):
+            if not all(bitwise_equal(a, b) for a, b in zip(want, got)):
+                fail(f"replay {replay} of a captured smaq_onepass / float_quantize bf16 differs "
+                     "from the eager call")
+    say("  smaq_onepass and float_quantize bf16 captured in a CUDA graph: two replays bitwise "
+        "the eager calls -> ok")
+    del graph
+    # 1000 back-to-back calls: the grid barrier's words and the tickets reset
+    ragged = big[:300_001]
+    small = big[:K.SMALL_MAX]
+    calls = [lambda: K.smaq_fused(x8, None, trunc), lambda: K.smaq_fused(ragged, None, trunc),
+             lambda: K.smaq_fused(small, None, trunc),
+             lambda: K.smaq_fused(big[:cap + 1], None, trunc)]
+    firsts = [fn() for fn in calls]
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    for i in range(1000 - len(calls)):
+        y, s = calls[i % len(calls)]()
+        y0, s0 = firsts[i % len(calls)]
+        bad += (y.view(torch.int16) != y0.view(torch.int16)).sum() + (s != s0).int()
+    words = K.workspace(x8)[:K._COUNTER_WORDS].tolist()
+    say(f"  1000 back-to-back bf16 calls (one launch at 8388608 and 300001, the small form, "
+        f"two launches at capacity + 1): {int(bad)} elements or sizes apart from the first of "
+        f"their kind; counters after them {words} -> "
+        f"{'ok' if int(bad) == 0 and not any(words) else 'MISMATCH'}")
+    if int(bad) or any(words):
+        fail("a bf16 SmaQ call changed over back-to-back calls, or a counter kept its count")
+    # float_quantize's bf16 loop: ragged sizes, pointers 2 and 8 bytes off 16
+    for n in (10, 64, 300_001, math.prod(ACT_SHAPE) + 7):
+        for off in (0, 1, 4):
+            xb = big[off:off + n]
+            xw = xb.float()
+            for fname, fmt in (("fp8", FP8_FORMAT), ("fp16", FP16_FORMAT), ("bf16", BF16_FORMAT)):
+                for st in (False, True):
+                    for ci in (True, False):
+                        same_bits(f"float_quantize {fname} n={n} offset {2 * off} B stochastic={st} "
+                                  f"check_inf={ci}",
+                                  F.float_quantize_launch(xb, fmt, key=key, call=8, stochastic=st,
+                                                          check_inf=ci),
+                                  F.float_quantize_launch(xw, fmt, key=key, call=8, stochastic=st,
+                                                          check_inf=ci))
+    say("  float_quantize bf16 (16-byte loads) at 10, 64, 300001 and 8388615 elements, 0, 2 "
+        "and 8 bytes off 16: fp8/fp16/bf16, nearest and stochastic, check_inf on and off, "
+        "bitwise the float32 form rounded -> ok")
+    return {"smaq_onepass_bf16": err}
+
+
 def squeeze_coefs_of(mu, m):
     from smart_quantization_tpu_torch.ops.s2fp8 import squeeze_coefs
 
@@ -1136,7 +1323,12 @@ def path_kernels(args) -> tuple[str, ...]:
     """The kernels a parsed command line's training runs through.  Under
     ``--compute_dtype bfloat16`` the taps' feature and gradient maps go to
     the bfloat16 forms and the optimizer's float32 leaves to the float32
-    ones."""
+    ones.  A bfloat16 SmaQ map takes ``smaq_plan``'s form: the one-launch
+    form for every map of ResNet-18 at batch 128 but the small ones (the
+    logits), whose small form is ``smaq_quantize`` alone; bert-base's
+    largest maps (the FFN's 50 331 648 elements, the attention
+    probabilities) are above the one-launch capacity and take the two
+    launches, as the BN kernel's stats do."""
     fill = ("philox_fill",) if draws_noise(args) else ()
     if args.compress in ("fp8", "fp16", "bf16"):
         opt, taps = ("float_quantize",), ()
@@ -1146,6 +1338,10 @@ def path_kernels(args) -> tuple[str, ...]:
         # sampled stats take the TPU kernel's fixed positions: no stats launch
         opt = (() if args.use_sample_stats else ("smaq_stats",)) + ("smaq_quantize",)
         taps = ("smaq_quantize_bn",) if args.use_batch_norm else ()
+        if args.compute_dtype == "bfloat16" and not args.use_sample_stats:
+            split = args.model == "bert" or args.use_batch_norm
+            bf16 = (("smaq_stats",) if split else ()) + ("smaq_quantize",) + taps
+            return (*opt, "smaq_onepass_bf16", *(f"{k}_bf16" for k in bf16), *fill)
     if args.compute_dtype == "bfloat16":
         return (*opt, *(f"{k}_bf16" for k in opt + taps), *fill)
     return (*opt, *taps, *fill)
@@ -1213,7 +1409,8 @@ def expected_launches(args, calls) -> dict:
     for the float formats; for S2FP8 and SmaQ, a stats launch where
     ``s2fp8_plan`` or ``smaq_plan`` takes the split form (and for every
     BN-kernel call) and one quantize launch per call, in the element form
-    of the call (``BF16_FORM``); for SmaQ's other
+    of the call (``BF16_FORM``), or one ``smaq_onepass`` launch where
+    ``smaq_plan`` takes the one-launch form (bfloat16 only); for SmaQ's other
     forms (``step_calls``) the quantize alone (``given``), the stats alone
     (``encode``) or nothing (``rows``); none for a SmaQ call below
     ``--min_size`` elements (it passes through); under --use_batch_norm
@@ -1226,9 +1423,10 @@ def expected_launches(args, calls) -> dict:
 
     from smart_quantization_tpu_torch.ops.cuda.launch import sm_count
     from smart_quantization_tpu_torch.ops.cuda.s2fp8_kernel import s2fp8_plan
-    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import smaq_plan
+    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import onepass_slots, smaq_plan
 
-    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
+    device = torch.device("cuda", torch.cuda.current_device())
+    sms = sm_count(device)
     kernels = path_kernels(args)
     out = dict.fromkeys(kernels, 0)
 
@@ -1263,9 +1461,15 @@ def expected_launches(args, calls) -> dict:
                 add("smaq_stats", form, stats)
             elif base == "given":
                 add("smaq_quantize", form)
-            else:
-                add("smaq_stats", form, stats * (smaq_plan(n, sms)[0] == "split"))
+            elif not stats:
                 add("smaq_quantize", form)
+            else:
+                plan = smaq_plan(n, sms, onepass_slots(device) if form != base else 0)[0]
+                if plan == "onepass":
+                    add("smaq_onepass", form)
+                else:
+                    add("smaq_stats", form, int(plan == "split"))
+                    add("smaq_quantize", form)
     out.update(fills)
     return {k: v for k, v in out.items() if k in kernels}
 
@@ -1540,7 +1744,7 @@ def check_ratio(label, sizes, ratio_range) -> float:
     return ratio
 
 
-def bf16_cells(card) -> tuple[dict, dict]:
+def bf16_cells(card) -> tuple[dict, dict, dict]:
     """Phase 4 under ``--compute_dtype bfloat16``: ResNet-18 SmaQ 6/8 through
     the CLI and its steps (with ``--measure_average_grad_norm``), FP8,
     FP16, BF16, S2FP8 and SmaQ ``--use_batch_norm`` steps, and bert-base's
@@ -1548,7 +1752,8 @@ def bf16_cells(card) -> tuple[dict, dict]:
     finite loss, launches per step equal to the plan with no cast around an
     encoder call and no host sync (``time_steps``), and bert-base's loss
     after 17 steps within 1.25x of the plain bf16 run's.  Returns the main
-    path's launches and the median steps (ms)."""
+    path's launches, the median steps (ms) and the encoder calls of a
+    ResNet-18 and of a bert-base codecs step (``step_calls``)."""
     launches, steps = {}, {}
     got, _ = run_main_path(BF16_ARGV, label="bf16 smart")
     for k, v in got.items():
@@ -1558,6 +1763,7 @@ def bf16_cells(card) -> tuple[dict, dict]:
     if norm is None or not math.isfinite(norm) or norm <= 0:
         fail(f"[bf16 smart] avg_grad_norm {norm} is not a finite positive number")
     steps["bf16 smart"] = run["ms"]
+    calls = {"ResNet-18 bf16": run["calls"]}
     say(f"  [bf16 smart] median step {run['ms']:.2f} ms (loss {run['loss']:.4f}, avg_grad_norm "
         f"{norm:.4f}), peak memory {run['peak_gb']:.2f} GB, held {run['resident_gb']:.2f} GB "
         f"on {card}")
@@ -1582,6 +1788,7 @@ def bf16_cells(card) -> tuple[dict, dict]:
         fail(f"[bert codecs bf16] loss {codec['loss']} is not finite or above 1.25x the plain "
              f"loss {plain['loss']}")
     steps.update({"bert codecs bf16": codec["ms"], "bert no_compress bf16": plain["ms"]})
+    calls["bert-base codecs bf16"] = codec["calls"]
     for label, extra, ratio_range in (
             ("bf16 smart compress_loss", [], (4.5, 5.5)),
             ("bf16 fp8 compress_loss", ["--compress", "fp8"], (4.0, 4.0))):
@@ -1589,7 +1796,7 @@ def bf16_cells(card) -> tuple[dict, dict]:
                                train_batches=3, label=label)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    return launches, steps
+    return launches, steps, calls
 
 
 def tuned_run(card) -> dict:
@@ -2082,7 +2289,9 @@ def time_bf16_kernels(device, timed):
         return lambda: F.float_quantize_launch(x, fmt, key=tkey, stochastic=stochastic,
                                                check_inf=True)
 
+    yb = torch.empty_like(xb)
     t = {
+        "smaq_onepass_bf16": timed(lambda: K.smaq_onepass(xb, params, key=tkey)),
         "smaq_stats_bf16": timed(lambda: K.smaq_stats(xb, params)),
         "smaq_quantize_bf16": timed(lambda: K.smaq_quantize(xb, params, key=tkey, consts=consts)),
         "smaq_call_bf16": timed(lambda: K.smaq_fused(xb, dkey, params)),
@@ -2114,9 +2323,12 @@ def time_bf16_kernels(device, timed):
             key=tkey, consts=consts)[0].to(bf)),
         "plain_bn_bf16": timed(lambda: K.smaq_fused_bn_reference(
             xb.view(BN_SHAPE), host, gamma, beta, params, mean=mean, std=std)),
+        # yardsticks that move the same bytes: a read, and a read and a write
+        "torch_sum_bf16": timed(lambda: xb.sum()),
+        "torch_copy_bf16": timed(lambda: yb.copy_(xb)),
     }
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
-    bound = {k: 4 * n / rate for k in t if not k.startswith(("plain", "library"))}
+    bound = {k: 4 * n / rate for k in t if not k.startswith(("plain", "library", "torch"))}
     bound["smaq_stats_bf16"] = bound["s2fp8_stats_bf16"] = 2 * n / rate
     bound["smaq_quantize_bn_bf16"] = (4 * n + 8 * channels) / rate
     bound["smaq_quantize_bn_cast"] = bound["smaq_quantize_bn_bf16"]
@@ -2238,6 +2450,180 @@ def time_smaq(device, timed, per_call, step_calls_of, card):
     with open(os.path.join(OUT, "smaq_times.json"), "w") as f:
         json.dump(out, f, indent=1)
     return out
+
+
+def bf16_call_times(device, timed, per_call, step_calls_of) -> dict:
+    """The bfloat16 forms through the port's public calls only
+    (``smaq_fused``, ``float_quantize_fused``), so that it times any tree
+    of the port the same way: the SmaQ call (stochastic, size counted) at
+    8 388 608 elements alone and in truncation, by size in a stream of 20
+    (a CUDA graph); ``float_quantize`` at 8 388 608 elements (FP8
+    stochastic, FP8/FP16/BF16 nearest); and for each model in
+    ``step_calls_of`` (its calls as ``step_calls`` gives them) the SmaQ
+    calls of one step (the ``plain`` ones of ``--min_size`` or more, in
+    their element form) in one CUDA graph, and with FP8 the
+    ``float_quantize`` calls of the same step in one graph; and, so that
+    two trees' float32 forms compare in one call, the float32 SmaQ call and
+    float_quantize at 8 388 608 elements.  Times in µs, a step's in ms."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.float_format import (
+        BF16_FORMAT,
+        FP8_FORMAT,
+        FP16_FORMAT,
+    )
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    params, trunc = SmaQParams(), SmaQParams(stochastic_rounding=False)
+    dkey = call_key(device, 8)
+    largest = max([math.prod(ACT_SHAPE)] + [n for calls in step_calls_of.values()
+                                            for n, _ in calls])
+    xw = torch.randn(largest, device=device,
+                     generator=torch.Generator(device=device).manual_seed(12))
+    xb = xw.to(torch.bfloat16)
+    x8 = xb[:math.prod(ACT_SHAPE)]
+    out = {
+        "smaq_call_us": timed(lambda: K.smaq_fused(x8, dkey, params)) * 1e3,
+        "smaq_call_trunc_us": timed(lambda: K.smaq_fused(x8, None, trunc)) * 1e3,
+        "smaq_call_stream_us": {
+            n: per_call((lambda xn: lambda: K.smaq_fused(xn, dkey, params))(xb[:n])) * 1e3
+            for n in CALL_SIZES},
+        "float_us": {
+            name: timed((lambda fmt, st: lambda: F.float_quantize_fused(
+                x8, fmt, dkey if st else None, stochastic=st))(fmt, st)) * 1e3
+            for name, fmt, st in (("fp8 stochastic", FP8_FORMAT, True),
+                                  ("fp8 nearest", FP8_FORMAT, False),
+                                  ("fp16 nearest", FP16_FORMAT, False),
+                                  ("bf16 nearest", BF16_FORMAT, False))},
+        "step_smaq_ms": {}, "step_smaq_calls": {}, "step_float_ms": {},
+    }
+    xw8 = xw[:math.prod(ACT_SHAPE)]
+    out["float32_us"] = {
+        "smaq call": timed(lambda: K.smaq_fused(xw8, dkey, params)) * 1e3,
+        "float_quantize fp8 stochastic": timed(
+            lambda: F.float_quantize_fused(xw8, FP8_FORMAT, dkey)) * 1e3,
+        "float_quantize fp8 nearest": timed(
+            lambda: F.float_quantize_fused(xw8, FP8_FORMAT, None, stochastic=False)) * 1e3}
+    for model, calls in step_calls_of.items():
+        src = [(xb if form.endswith(BF16_FORM) else xw)[:n] for n, form in calls
+               if form.removesuffix(BF16_FORM) == "plain" and n >= params.min_size]
+        smaq = [(lambda xn: lambda: K.smaq_fused(xn, dkey, params))(xn) for xn in src]
+        out["step_smaq_ms"][model] = per_call(lambda: [f() for f in smaq], reps=1)
+        out["step_smaq_calls"][model] = len(smaq)
+        if model.startswith("ResNet"):
+            fp8 = [(lambda xn: lambda: F.float_quantize_fused(xn, FP8_FORMAT, dkey))(
+                (xb if form.endswith(BF16_FORM) else xw)[:n]) for n, form in calls]
+            out["step_float_ms"][model] = per_call(lambda: [f() for f in fp8], reps=1)
+    return out
+
+
+def time_bf16_redesign(device, timed, per_call, step_calls_of, card) -> dict:
+    """Phase 5's lines for the bfloat16 forms redesigned in PR 9: the
+    public calls of ``bf16_call_times`` beside their 4 bytes an element,
+    the one-launch kernel alone in stochastic and truncation modes, the
+    float32 SmaQ call and ``float_quantize`` at 8 388 608 elements for the
+    same call's comparison, and the blocks each new kernel has resident on
+    an SM at its shared memory; into ``chiprun_out/bf16_redesign_times.json``."""
+    import ctypes
+
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import build
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.cuda.launch import THREADS
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    params, trunc = SmaQParams(), SmaQParams(stochastic_rounding=False)
+    tkey = timing_key(device)
+    out = {"card": card, **bf16_call_times(device, timed, per_call, step_calls_of)}
+    n8 = math.prod(ACT_SHAPE)
+    b8 = 4 * n8 / rate * 1e3
+    x8 = torch.randn(n8, device=device, generator=torch.Generator(device=device).manual_seed(13))
+    xb8 = x8.to(torch.bfloat16)
+    out["onepass_us"] = {
+        "stochastic": timed(lambda: K.smaq_onepass(xb8, params, key=tkey)) * 1e3,
+        "trunc": timed(lambda: K.smaq_onepass(xb8, trunc, key=None)) * 1e3}
+    say(f"  bf16 SmaQ call (smaq_fused, stochastic) at {n8}: {out['smaq_call_us']:.2f} us, "
+        f"truncation {out['smaq_call_trunc_us']:.2f} us; smaq_onepass alone stochastic "
+        f"{out['onepass_us']['stochastic']:.2f} us, truncation {out['onepass_us']['trunc']:.2f} "
+        f"us; bound {b8:.2f} us (4 B/element), {b8 / out['smaq_call_us']:.1%} of it, on {card}")
+    say("  the bf16 SmaQ call by size, in a stream of 20:")
+    sms, slots = K.sm_count(device), K.onepass_slots(device)
+    for n, us in out["smaq_call_stream_us"].items():
+        b = 4 * n / rate * 1e3
+        say(f"    {n}: {us:.2f} us ({K.smaq_plan(n, sms, slots)[0]} form); bound {b:.3f} us "
+            f"(4 B/element), {b / us:.1%} of it")
+    for name, us in out["float_us"].items():
+        say(f"  float_quantize bf16 {name} at {n8}: {us:.2f} us, bound {b8:.2f} us, "
+            f"{b8 / us:.1%} of it, on {card}")
+    for model, ms in out["step_smaq_ms"].items():
+        say(f"  {model} step's SmaQ calls ({out['step_smaq_calls'][model]}: the bf16 maps' and "
+            f"the float32 leaves') in one CUDA graph: {ms:.3f} ms on {card}")
+    for model, ms in out["step_float_ms"].items():
+        say(f"  {model} step's float_quantize calls under FP8 in one CUDA graph: {ms:.3f} ms "
+            f"on {card}")
+    lib = build.library()
+    c, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    if lib.smaq_occupancy(3, THREADS, 0, ctypes.addressof(c)) or lib.smaq_onepass_smem(
+            K.BLOCKS_PER_SM, THREADS, ctypes.addressof(smem)):
+        fail("the occupancy or shared-memory query failed for smaq_onepass")
+    out["blocks_per_sm"] = {"smaq_onepass by registers": c.value,
+                            "float_quantize bf16": F.bf16_resident(device)}
+    out["onepass_smem_bytes"] = smem.value
+    say(f"  smaq_onepass: {c.value} blocks of {THREADS} resident per SM by registers, "
+        f"{K.BLOCKS_PER_SM} with {smem.value} B of shared memory each (the SM's shared memory "
+        f"split {K.BLOCKS_PER_SM} ways: {slots} slots a thread; phase 3: one slot more is "
+        f"refused); float_quantize bf16: {out['blocks_per_sm']['float_quantize bf16']} blocks of "
+        f"{THREADS} per SM")
+    if c.value < K.BLOCKS_PER_SM or smem.value < slots * THREADS * K.SLOT_BYTES:
+        fail(f"smaq_onepass fits fewer than the planned {K.BLOCKS_PER_SM} blocks per SM")
+    with open(os.path.join(OUT, "bf16_redesign_times.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def bf16_times_of(root: str) -> int:
+    """``--bf16_times_of DIR``: build the port in DIR and print its
+    ``bf16_call_times`` (a bf16 ResNet-18 step's calls and a bert-base
+    codecs bf16 step's) as one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from smart_quantization_tpu_torch.ops.cuda import build
+
+    build.library()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    timed, per_call = make_timer(device)
+    calls = {"ResNet-18 bf16": model_step_calls(MAIN_ARGV + BF16_ARGV),
+             "bert-base codecs bf16": model_step_calls(BERT_ARGV + CODEC_ARGV + BF16_ARGV)}
+    times = bf16_call_times(device, timed, per_call, calls)
+    say(json.dumps({"tree": os.path.abspath(root), "card": card_line(), **times}))
+    return 0
+
+
+def model_step_calls(argv) -> list[tuple[int, str]]:
+    """``step_calls`` of the trainer that ``argv`` builds, on a batch of its
+    data."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    torch.manual_seed(0)
+    trainer = build_trainer(parse_args(argv + ["--logdir", ""]))
+    inputs, _ = next(iter(trainer.data.device_train_batches(0, trainer.device)))
+    calls = step_calls(trainer, trainer.task.model_args(trainer.task.prepare_eval(inputs)))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
 
 
 def s2fp8_call_times(device, timed, per_call, calls) -> dict:
@@ -2390,8 +2776,10 @@ def main() -> int:
         fail("CUDA is not available")
     if len(sys.argv) == 3 and sys.argv[1] == "--s2fp8_times_of":
         return s2fp8_times_of(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--bf16_times_of":
+        return bf16_times_of(sys.argv[2])
     if len(sys.argv) > 1:
-        fail(f"usage: {sys.argv[0]} [--s2fp8_times_of DIR]")
+        fail(f"usage: {sys.argv[0]} [--s2fp8_times_of DIR | --bf16_times_of DIR]")
     sys.path.insert(0, ROOT)
     try:
         from smart_quantization_tpu_torch.ops.cuda import build
@@ -2411,7 +2799,8 @@ def main() -> int:
     kernel = "?"
     for line in build.build_log.splitlines():
         if "Compiling entry function" in line:
-            names = [k for k in KERNEL_NAMES if f"{k}_kernel" in line]
+            names = [k for k in KERNEL_NAMES if f"{k}_kernel" in line] or (
+                ["smaq_onepass_bf16"] if "smaq_onepass_kernel" in line else [])
             kernel = names[0] if names else line.split("'")[1]
         elif "registers" in line or "spill" in line:
             say(f"    ptxas {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
@@ -2431,6 +2820,8 @@ def main() -> int:
     errs["philox_fill"] = check_philox_fill(device)
     say("  the bfloat16 forms (--compute_dtype bfloat16)")
     errs.update(check_bf16_kernels(device))
+    say("  the redesigned bfloat16 forms: one-launch SmaQ, two-launch SmaQ, float_quantize")
+    errs.update(check_bf16_redesign(device))
 
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[4] training: ResNet-18, batch 128, full coverage")
@@ -2503,7 +2894,7 @@ def main() -> int:
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("  --compute_dtype bfloat16: ResNet-18 batch 128 (SmaQ 6/8 and the other encoders) "
         "and bert-base 32 x 512 (SmaQ 6/8 with the stable codecs, AdamW 2e-5)")
-    got, bf16_steps = bf16_cells(card)
+    got, bf16_steps, bf16_calls = bf16_cells(card)
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     steps.update(bf16_steps)
@@ -2600,6 +2991,7 @@ def main() -> int:
     t.update(tb)
     bound.update(bound_b)
     for k, plain, lib, cast in (
+            ("smaq_onepass_bf16", "plain_call_bf16", None, "smaq_call_cast"),
             ("smaq_stats_bf16", "plain_stats_bf16", None, None),
             ("smaq_quantize_bf16", "plain_quantize_bf16", None, None),
             ("smaq_call_bf16", "plain_call_bf16", None, "smaq_call_cast"),
@@ -2619,6 +3011,9 @@ def main() -> int:
         if lib:
             line += f", {lib} {t[lib] * 1e3:.1f} us"
         say(line + f", bound {bound[k] * 1e3:.1f} us (bytes), {bound[k] / t[k]:.1%} of it, on {card}")
+    say(f"  PyTorch moving the same bf16 bytes: xb.sum() {t['torch_sum_bf16'] * 1e3:.1f} us (a "
+        f"read), yb.copy_(xb) {t['torch_copy_bf16'] * 1e3:.1f} us (a read and a write)")
+    time_bf16_redesign(device, timed, per_call, bf16_calls, card)
     with open(os.path.join(OUT, "bf16_times.json"), "w") as f:
         json.dump({"card": card, "ms": tb, "bound_ms": bound_b}, f, indent=1)
 
@@ -2644,6 +3039,8 @@ def main() -> int:
          "replaces": "smart_quantization_tpu/ops/rounding.py:25"},
         # the bfloat16 forms (--compute_dtype bfloat16): the same kernels
         # and TPU functions, bf16 in and out
+        # the one-launch bf16 form: the whole call, stats and quantize
+        row("smaq_onepass_bf16", "smaq.cu", "smaq_kernel.py:212", "plain_call_bf16"),
         row("smaq_stats_bf16", "smaq.cu", "smaq_kernel.py:268", "plain_stats_bf16"),
         row("smaq_quantize_bf16", "smaq.cu", "smaq_kernel.py:212", "plain_quantize_bf16"),
         row("smaq_quantize_bn_bf16", "smaq.cu", "smaq_kernel.py:486", "plain_bn_bf16"),

@@ -26,10 +26,31 @@ struct FloatFmt {
   float c1, c2;           // 1 / quantum as two exact powers of two
 };
 
+// The rounding's last steps, once the bits to add (`r`) and to clear
+// (`mask`) are known, and whether x lies below one quantum (`below`).
+__device__ __forceinline__ uint32_t fp_round_finish(uint32_t bits, uint32_t r, uint32_t mask,
+                                                    bool below, uint32_t rand,
+                                                    const FloatFmt& f, bool stochastic,
+                                                    bool check_inf) {
+  const uint32_t sign = bits & 0x80000000u;
+  const uint32_t mag = bits & 0x7FFFFFFFu;
+  uint32_t out = (mag + r) & ~mask;
+  if (below) {  // below one quantum: 0 or the quantum
+    const float t = __uint_as_float(mag) * f.c1 * f.c2;
+    const bool up = stochastic ? t > static_cast<float>(rand >> 8) * 0x1p-24f : t > 0.5f;
+    out = up ? f.quantum_bits : 0u;
+  }
+  if (out > f.maxv_bits) out = f.maxv_bits;  // saturate
+  if (mag == 0u) out = 0u;
+  if (check_inf && out == f.maxv_bits && sign == 0u) out = 0x7F800000u;  // +max -> +inf
+  out |= sign;
+  if ((mag & 0x7F800000u) == 0x7F800000u) out = bits;  // inf and NaN pass through
+  return out;
+}
+
 // `rand` is this element's 32-bit word (read only when stochastic).
 __device__ __forceinline__ uint32_t fp_round(uint32_t bits, uint32_t rand, const FloatFmt& f,
                                              bool stochastic, bool check_inf) {
-  const uint32_t sign = bits & 0x80000000u;
   const uint32_t mag = bits & 0x7FFFFFFFu;
   // fp32 lattice bits below the target grid: 23 - man on the normal range,
   // one more per binade below emin (fp32 subnormals share e == -126)
@@ -43,18 +64,29 @@ __device__ __forceinline__ uint32_t fp_round(uint32_t bits, uint32_t rand, const
   } else {  // nearest even: add half - 1 + the kept lsb, then truncate
     r = p > 0 ? (1u << (p - 1)) - 1u + ((mag >> p) & 1u) : 0u;
   }
-  uint32_t out = (mag + r) & ~mask;
-  if (p_raw > 23) {  // below one quantum: 0 or the quantum
-    const float t = __uint_as_float(mag) * f.c1 * f.c2;
-    const bool up = stochastic ? t > static_cast<float>(rand >> 8) * 0x1p-24f : t > 0.5f;
-    out = up ? f.quantum_bits : 0u;
-  }
-  if (out > f.maxv_bits) out = f.maxv_bits;  // saturate
-  if (mag == 0u) out = 0u;
-  if (check_inf && out == f.maxv_bits && sign == 0u) out = 0x7F800000u;  // +max -> +inf
-  out |= sign;
-  if ((mag & 0x7F800000u) == 0x7F800000u) out = bits;  // inf and NaN pass through
-  return out;
+  return fp_round_finish(bits, r, mask, p_raw > 23, rand, f, stochastic, check_inf);
+}
+
+// fp_round's mask, the kept grid's last bit (0 where no bit is rounded
+// away) and "below one quantum", which depend on x's exponent field alone,
+// packed for a table of the 256 exponents: the mask with "below" in bit
+// 31, and the lsb.  With them, nearest adds half - 1 and the kept lsb:
+// the same r as fp_round's.
+__device__ __forceinline__ uint2 grid_shift(uint32_t exponent, const FloatFmt& f) {
+  const int e_x = static_cast<int>(exponent) - 127;
+  const int p_raw = (23 - f.man) + max(f.emin - max(e_x, -126), 0);
+  const int p = min(max(p_raw, 0), 23);
+  const uint32_t mask = (1u << p) - 1u;
+  return make_uint2(mask | (p_raw > 23 ? 0x80000000u : 0u), p > 0 ? mask + 1u : 0u);
+}
+
+__device__ __forceinline__ uint32_t fp_round_shift(uint32_t bits, uint32_t rand, uint2 shift,
+                                                   const FloatFmt& f, bool stochastic,
+                                                   bool check_inf) {
+  const uint32_t mask = shift.x & 0x7FFFFFFFu;
+  const uint32_t r = stochastic ? rand & mask
+                                : (mask >> 1) + ((bits & shift.y) != 0u ? 1u : 0u);
+  return fp_round_finish(bits, r, mask, (shift.x >> 31) != 0u, rand, f, stochastic, check_inf);
 }
 
 }  // namespace smaq

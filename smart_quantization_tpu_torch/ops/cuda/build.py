@@ -30,6 +30,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# preprocessor names defined for every source: a profiling build (e.g.
+# SMAQ_PHASES, profile_onepass.py) sets them before the library loads, and
+# gets a library of its own (they are part of the key)
+DEFINES: tuple[str, ...] = ()
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output (register and spill report) of the last build
@@ -52,8 +57,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
 
 
+def _flags() -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in DEFINES))
+
+
 def _library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for src in sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
@@ -75,7 +84,7 @@ def build() -> str:
     nvcc = _nvcc()
     cus = [s for s in sources() if s.endswith(".cu")]
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)]
+    compiles = [[nvcc, *_flags(), "-c", "-o", o, s] for s, o in zip(cus, objs)]
     link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", f"{tmp}.so", *objs]
     try:
         with ThreadPoolExecutor(len(compiles)) as pool:
@@ -112,10 +121,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, ll, i, p, p, i, p, p, i, ll, p, u32, i, i, i, *quant, p, p, i, i, p,
     ]
     lib.smaq_quantize_bn.restype = i
+    lib.smaq_onepass.argtypes = [p, p, ll, i, i, p, u32, i, i, i, *quant, p, p, p, i, i, p]
+    lib.smaq_onepass.restype = i
+    lib.smaq_onepass_smem.argtypes = [i, i, p]
+    lib.smaq_onepass_smem.restype = i
     lib.smaq_occupancy.argtypes = [i, i, ll, p]
     lib.smaq_occupancy.restype = i
     lib.float_quantize.argtypes = [p, p, ll, i, i, i, u32, u32, f, f, p, u32, i, i, i, i, p]
     lib.float_quantize.restype = i
+    lib.float_occupancy.argtypes = [i, i, p]
+    lib.float_occupancy.restype = i
     lib.s2fp8_stats.argtypes = [p, ll, i, p, i, i, p]
     lib.s2fp8_stats.restype = i
     lib.s2fp8_quantize.argtypes = [p, p, ll, i, p, p, u32, i, i, i, i, p]

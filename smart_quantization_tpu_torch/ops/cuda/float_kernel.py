@@ -15,7 +15,10 @@ gives the design.  Here:
 
 The kernel reads and writes float32 or bfloat16 (``launch.DTYPES``): a
 bfloat16 tensor goes to the bfloat16 form as it is, another dtype is cast
-to float32.
+to float32.  The two forms launch differently (``launch_blocks``): the
+float32 form on ``launch.quant_blocks``' grid, the bfloat16 form (16-byte
+loads, several in flight a thread) on every block the card holds at once,
+read from the card's occupancy once.
 
 Stochastic rounding keys the kernel's Philox words by a step key in device
 memory and a call index (``launch.key_for``); the plain version draws its
@@ -24,6 +27,8 @@ so stochastic outputs compare by statistics only.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,6 +44,7 @@ from smart_quantization_tpu_torch.ops.cuda.launch import (
     ptr,
     quant_blocks,
     raise_on,
+    sm_count,
     stream,
     with_bf16_forms,
 )
@@ -47,6 +53,11 @@ from smart_quantization_tpu_torch.ops.float_format import FloatFormat, f32_bits,
 # Launches of the kernel since the last reset (one per launch, nowhere
 # else), its bfloat16 form under "float_quantize_bf16".
 LAUNCHES = with_bf16_forms(("float_quantize",))
+
+
+# bf16 elements in one 16-byte load of the bfloat16 form (two groups)
+BF16_LOAD_ELEMS = 8
+_BF16_RESIDENT: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -61,6 +72,26 @@ def format_args(fmt: FloatFormat) -> tuple:
     return fmt.man, fmt.emin, f32_bits(fmt.max_value), f32_bits(fmt.quantum), c1, c2
 
 
+def bf16_resident(device: torch.device) -> int:
+    """Blocks of THREADS of the bfloat16 form resident on one SM of
+    ``device``'s card, asked of the card once."""
+    if device.index not in _BF16_RESIDENT:
+        c = ctypes.c_int(0)
+        raise_on(build.library().float_occupancy(DTYPES[torch.bfloat16], THREADS,
+                                                 ctypes.addressof(c)), "float_occupancy")
+        _BF16_RESIDENT[device.index] = c.value
+    return _BF16_RESIDENT[device.index]
+
+
+def launch_blocks(n: int, dtype: torch.dtype, sms: int = 0, resident: int = 0) -> int:
+    """Blocks of THREADS for ``n`` elements: ``quant_blocks`` for float32;
+    for bfloat16 the ``resident`` blocks a SM on ``sms`` SMs, and no more
+    than give each thread one 16-byte load."""
+    if dtype == torch.bfloat16:
+        return max(1, min(sms * resident, -(-n // (BF16_LOAD_ELEMS * THREADS))))
+    return quant_blocks(n)
+
+
 def float_quantize_launch(
     xf: torch.Tensor, fmt: FloatFormat, *, key: torch.Tensor | None, call: int = 0,
     stochastic: bool, check_inf: bool
@@ -72,9 +103,13 @@ def float_quantize_launch(
     check_key(key, xf, stochastic)
     n = xf.numel()
     y = torch.empty_like(xf)
+    if xf.dtype == torch.bfloat16:
+        blocks = launch_blocks(n, xf.dtype, sm_count(xf.device), bf16_resident(xf.device))
+    else:
+        blocks = launch_blocks(n, xf.dtype)
     rc = build.library().float_quantize(
         xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], *format_args(fmt), ptr(key), call,
-        int(stochastic), int(check_inf), quant_blocks(n), THREADS, stream(xf),
+        int(stochastic), int(check_inf), blocks, THREADS, stream(xf),
     )
     raise_on(rc, "float_quantize")
     LAUNCHES[form_name("float_quantize", xf)] += 1

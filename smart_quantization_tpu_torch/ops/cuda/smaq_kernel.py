@@ -6,11 +6,14 @@ The port of ``smart_quantization_tpu/ops/pallas/smaq_kernel.py::smaq_fused``
 its BatchNorm-folded variant ``smaq_fused_bn``.  The source note in
 ``csrc/smaq.cu`` gives the design.  Here:
 
-- ``smaq_stats``, ``smaq_quantize`` and ``smaq_quantize_bn`` launch the
-  kernels on PyTorch's current stream and count their launches in
-  ``LAUNCHES``;
-- ``smaq_plan`` picks a call's form from its size: one ``smaq_quantize``
-  block that computes its own stats (``SMALL_MAX`` elements or fewer), or
+- ``smaq_stats``, ``smaq_quantize``, ``smaq_quantize_bn`` and
+  ``smaq_onepass`` launch the kernels on PyTorch's current stream and
+  count their launches in ``LAUNCHES``;
+- ``smaq_plan`` picks a full-stats call's form from its size and the card:
+  one ``smaq_quantize`` block that computes its own stats (``SMALL_MAX``
+  elements or fewer); for bfloat16, up to what the card's shared memory
+  holds (``onepass_capacity``), ``smaq_onepass``: one cooperative launch
+  that keeps x on chip between its stats and its quantize pass; else
   ``smaq_stats`` then ``smaq_quantize``;
 - ``smaq_fused`` and ``smaq_fused_bn`` are the kernel paths of one SmaQ
   call on a CUDA tensor, without and with (gamma, beta);
@@ -40,6 +43,7 @@ so stochastic outputs compare by statistics only.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -67,8 +71,10 @@ from smart_quantization_tpu_torch.ops.rounding import uniform
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams, smaq_quantize_dequantize
 
 # Launches of each kernel since the last reset (one per launch, nowhere
-# else), its bfloat16 form under the name with "_bf16".
-LAUNCHES = with_bf16_forms(("smaq_stats", "smaq_quantize", "smaq_quantize_bn"))
+# else), its bfloat16 form under the name with "_bf16"; the one-launch form
+# has only a bfloat16 form.
+LAUNCHES = {**with_bf16_forms(("smaq_stats", "smaq_quantize", "smaq_quantize_bn")),
+            "smaq_onepass_bf16": 0}
 
 # The TPU kernel's in-kernel sample spans its first block of 512 x 1024.
 _SAMPLE_SPAN = 512 * 1024
@@ -87,6 +93,12 @@ SMALL_MAX = 16384
 # The workspace of a (device, stream): the kernels' counters, then 4
 # float64 partials per stats block (csrc/smaq.cu: kCounterWords).
 _COUNTER_WORDS = 4
+# The one-launch form holds each thread's groups of four bf16 in slots of
+# SLOT_BYTES of shared memory (csrc/smaq.cu: kSlotBytes); a card holds as
+# many slots a thread as leave BLOCKS_PER_SM blocks of THREADS resident on
+# an SM (asked of the card once: onepass_slots; 27 on an H100).
+SLOT_BYTES = 8
+_ONEPASS_SLOTS: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -100,14 +112,52 @@ def workspace_words(sms: int) -> int:
     return _COUNTER_WORDS + 4 * sms * BLOCKS_PER_SM
 
 
-def smaq_plan(n: int, sms: int) -> tuple[str, int]:
+def onepass_capacity(sms: int, slots: int) -> int:
+    """Elements the one-launch form takes on a card of ``sms`` SMs that
+    holds ``slots`` slots a thread: every thread of BLOCKS_PER_SM blocks a
+    SM holds ``slots`` groups of four."""
+    return sms * BLOCKS_PER_SM * THREADS * 4 * slots
+
+
+def smaq_plan(n: int, sms: int, slots: int = 0) -> tuple[str, int]:
     """The form of a full-stats SmaQ call of ``n`` elements on a card of
     ``sms`` SMs: ``("small", 1)`` (one ``smaq_quantize`` block of
-    SMALL_THREADS, no stats launch) or ``("split", blocks)`` (``smaq_stats``
-    then ``smaq_quantize``, each on ``blocks`` blocks of THREADS)."""
+    SMALL_THREADS, no stats launch), ``("onepass", blocks)`` (one
+    cooperative ``smaq_onepass`` launch; a bfloat16 call whose card holds
+    ``slots`` slots a thread, ``onepass_slots``, up to ``onepass_capacity``)
+    or ``("split", blocks)`` (``smaq_stats`` then ``smaq_quantize``).  Every
+    form but the small one runs on ``split_blocks(n, sms)`` blocks of
+    THREADS.  ``slots=0``: no one-launch form (float32)."""
     if n <= SMALL_MAX:
         return "small", 1
+    if n <= onepass_capacity(sms, slots):
+        return "onepass", split_blocks(n, sms)
     return "split", split_blocks(n, sms)
+
+
+def onepass_slots(device: torch.device) -> int:
+    """The most slots a thread of ``smaq_onepass`` can hold with
+    BLOCKS_PER_SM blocks of THREADS resident on each SM of ``device``'s card
+    (from the card's shared memory a SM, its reserve a block and the
+    kernel's static shared memory: ``csrc/smaq.cu::smaq_onepass_smem``),
+    asked of the card once."""
+    if device.index not in _ONEPASS_SLOTS:
+        smem = ctypes.c_longlong(0)
+        raise_on(build.library().smaq_onepass_smem(BLOCKS_PER_SM, THREADS,
+                                                   ctypes.addressof(smem)), "smaq_onepass_smem")
+        _ONEPASS_SLOTS[device.index] = smem.value // (THREADS * SLOT_BYTES)
+    return _ONEPASS_SLOTS[device.index]
+
+
+def plan_slots(xf: torch.Tensor) -> int:
+    """The ``slots`` argument of ``smaq_plan`` for ``xf``: its card's for a
+    bfloat16 tensor, 0 (no one-launch form) for float32."""
+    return onepass_slots(xf.device) if xf.dtype == torch.bfloat16 else 0
+
+
+def full_stats_form(xf: torch.Tensor) -> str:
+    """``smaq_plan``'s form of a full-stats call on ``xf``."""
+    return smaq_plan(xf.numel(), sm_count(xf.device), plan_slots(xf))[0]
 
 
 def workspace(xf: torch.Tensor) -> torch.Tensor:
@@ -204,6 +254,43 @@ def smaq_quantize(
     raise_on(rc, "smaq_quantize")
     LAUNCHES[form_name("smaq_quantize", xf)] += 1
     return y, size
+
+
+def smaq_onepass(
+    xf: torch.Tensor,
+    params: SmaQParams,
+    *,
+    key: torch.Tensor | None,
+    call: int = 0,
+    all_positive: bool = False,
+    compute_size: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the one-launch form on a flat bfloat16 tensor that
+    ``smaq_plan`` gives it (more than ``SMALL_MAX`` elements, no more than
+    the card's ``onepass_capacity``): the full stats, then the quantize pass
+    on the groups held in shared memory.  ``key`` and ``call`` as
+    ``smaq_quantize``'s.  Returns the flat bfloat16 output, the size in
+    bits as a 0-d float32 device tensor and the 8 constants ``smaq_stats``
+    would write."""
+    check_input(xf, (torch.bfloat16,))
+    check_key(key, xf, params.stochastic_rounding)
+    n = xf.numel()
+    form, blocks = smaq_plan(n, sm_count(xf.device), onepass_slots(xf.device))
+    if form != "onepass":
+        raise ValueError(f"the one-launch form does not take {n} elements on this card "
+                         f"({form} form)")
+    y = torch.empty_like(xf)
+    size = torch.empty((), dtype=torch.float32, device=xf.device)
+    consts = torch.empty(8, dtype=torch.float32, device=xf.device)
+    rc = build.library().smaq_onepass(
+        xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], int(params.use_range_std_dev),
+        ptr(key), call, int(params.stochastic_rounding), int(all_positive), int(compute_size),
+        *_quant_args(params), workspace(xf).data_ptr(), consts.data_ptr(), size.data_ptr(),
+        blocks, THREADS, stream(xf),
+    )
+    raise_on(rc, "smaq_onepass")
+    LAUNCHES["smaq_onepass_bf16"] += 1
+    return y, size, consts
 
 
 def smaq_quantize_bn(
@@ -307,15 +394,26 @@ def _given_stats(mean, std, device) -> torch.Tensor:
     )
 
 
-def _device_stats(xf, params, mean, std, small_form):
-    """(stats, consts) for a quantize launch: the caller's (mean, std), the
-    sampled stats, (None, None) where ``small_form`` and ``smaq_plan`` let
-    the quantize block compute them, or the stats kernel's constants."""
+def _stats_form(xf, params, mean, std) -> str:
+    """Where a call's stats come from: ``given`` (the caller's (mean,
+    std)), ``sampled``, or the form ``smaq_plan`` gives a full-stats call."""
     if mean is not None and std is not None:
-        return _given_stats(mean, std, xf.device), None
+        return "given"
     if params.use_sample_stats and xf.numel() > params.num_samples:
+        return "sampled"
+    return full_stats_form(xf)
+
+
+def _device_stats(xf, params, mean, std, form):
+    """(stats, consts) for a quantize launch of ``_stats_form``'s ``form``:
+    the caller's (mean, std), the sampled stats, (None, None) for the small
+    form (the quantize block computes them), or the stats kernel's
+    constants."""
+    if form == "given":
+        return _given_stats(mean, std, xf.device), None
+    if form == "sampled":
         return sample_stats(xf, params), None
-    if small_form and smaq_plan(xf.numel(), sm_count(xf.device))[0] == "small":
+    if form == "small":
         return None, None
     return None, smaq_stats(xf, params)
 
@@ -340,11 +438,16 @@ def smaq_fused(
         return x, torch.full((), float(n * 32), device=x.device)
     xf = kernel_input(x)
     key, call = key_for(gen, params.stochastic_rounding, x.device)
-    stats, consts = _device_stats(xf, params, mean, std, small_form=True)
-    y, size = smaq_quantize(
-        xf, params, key=key, call=call, stats=stats, consts=consts,
-        all_positive=all_positive, compute_size=compute_size,
-    )
+    form = _stats_form(xf, params, mean, std)
+    if form == "onepass":
+        y, size, _ = smaq_onepass(xf, params, key=key, call=call, all_positive=all_positive,
+                                  compute_size=compute_size)
+    else:
+        stats, consts = _device_stats(xf, params, mean, std, form)
+        y, size = smaq_quantize(
+            xf, params, key=key, call=call, stats=stats, consts=consts,
+            all_positive=all_positive, compute_size=compute_size,
+        )
     return y.view(x.shape).to(x.dtype), size
 
 
@@ -383,7 +486,10 @@ def smaq_fused_bn(
     channels, inner = channel_layout(x, gamma)
     xf = kernel_input(x)
     key, call = key_for(gen, params.stochastic_rounding, x.device)
-    stats, consts = _device_stats(xf, params, mean, std, small_form=False)
+    form = _stats_form(xf, params, mean, std)
+    # the BN kernel always reads given, sampled or smaq_stats' constants
+    stats, consts = _device_stats(xf, params, mean, std,
+                                  form if form in ("given", "sampled") else "split")
     y, size = smaq_quantize_bn(
         xf, gamma.reshape(-1).to(torch.float32).contiguous(),
         beta.reshape(-1).to(torch.float32).contiguous(), channels, inner, params,

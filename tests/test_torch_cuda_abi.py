@@ -7,9 +7,11 @@ only a chip run would show it.  So every ``extern "C"`` entry point's C
 signature is parsed here and held against the ``argtypes`` that
 ``build._declare`` sets on a stand-in library; every stochastic kernel
 takes its step key by pointer and its call index by value, and every
-elementwise kernel its element dtype.  ``smaq_plan`` and ``s2fp8_plan``, and the launch
-constants and workspace layouts that the wrappers and ``csrc/smaq.cu`` or
-``csrc/s2fp8.cu`` both state, are pinned too.
+elementwise kernel its element dtype.  ``smaq_plan`` (with its one-launch
+bfloat16 form and that form's capacity) and ``s2fp8_plan``, the bfloat16
+``float_quantize`` launch shape, and the launch constants and workspace
+layouts that the wrappers and ``csrc/smaq.cu``, ``csrc/float_quantize.cu``
+or ``csrc/s2fp8.cu`` both state, are pinned too.
 """
 
 import ctypes
@@ -22,8 +24,18 @@ import torch
 from smart_quantization_tpu_torch.ops.cuda import build
 from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
 from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
-from smart_quantization_tpu_torch.ops.cuda.float_kernel import format_args
-from smart_quantization_tpu_torch.ops.cuda.launch import BLOCKS_PER_SM, DTYPES, THREADS
+from smart_quantization_tpu_torch.ops.cuda.float_kernel import (
+    BF16_LOAD_ELEMS,
+    format_args,
+    launch_blocks,
+)
+from smart_quantization_tpu_torch.ops.cuda.launch import (
+    BLOCKS_PER_SM,
+    DTYPES,
+    THREADS,
+    quant_blocks,
+    split_blocks,
+)
 from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT
 
 _SCALARS = {
@@ -91,15 +103,15 @@ def test_ctypes_declaration_matches_c_signature(name):
 
 
 def test_every_declaration_has_an_entry_point():
-    assert {"smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_occupancy",
-            "float_quantize", "s2fp8_stats", "s2fp8_quantize",
-            "s2fp8_occupancy", "philox_fill"} <= set(ENTRY_POINTS)
+    assert {"smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_onepass",
+            "smaq_onepass_smem", "smaq_occupancy", "float_quantize", "float_occupancy",
+            "s2fp8_stats", "s2fp8_quantize", "s2fp8_occupancy", "philox_fill"} <= set(ENTRY_POINTS)
     assert set(_declared()) == set(ENTRY_POINTS)
 
 
 @pytest.mark.parametrize(
-    "name", ["smaq_quantize", "smaq_quantize_bn", "float_quantize", "s2fp8_quantize",
-             "philox_fill"])
+    "name", ["smaq_quantize", "smaq_quantize_bn", "smaq_onepass", "float_quantize",
+             "s2fp8_quantize", "philox_fill"])
 def test_stochastic_kernels_read_their_key_from_device_memory(name):
     """A CUDA graph bakes a launch's arguments: the key goes by pointer
     (each replay reads the slot the host wrote) and the call index by value,
@@ -111,8 +123,8 @@ def test_stochastic_kernels_read_their_key_from_device_memory(name):
 
 
 @pytest.mark.parametrize(
-    "name", ["smaq_stats", "smaq_quantize", "smaq_quantize_bn", "float_quantize", "s2fp8_stats",
-             "s2fp8_quantize"])
+    "name", ["smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_onepass",
+             "float_quantize", "s2fp8_stats", "s2fp8_quantize"])
 def test_elementwise_kernels_take_the_element_dtype(name):
     """Each elementwise kernel reads and writes float32 or bfloat16
     elements: x (and y) untyped, then n, then the ``int dtype`` the wrappers
@@ -149,7 +161,8 @@ def test_smaq_plan(n, sms):
     "c_name, value",
     [("kThreads", THREADS), ("kMinBlocks", K.BLOCKS_PER_SM),
      ("kSmallThreads", K.SMALL_THREADS), ("kCounterWords", K._COUNTER_WORDS),
-     ("kGiven", K._GIVEN), ("kConsts", K._CONSTS), ("kSmall", K._SMALL)],
+     ("kGiven", K._GIVEN), ("kConsts", K._CONSTS), ("kSmall", K._SMALL),
+     ("kSlotBytes", K.SLOT_BYTES)],
 )
 def test_launch_constants_match_smaq_cu(c_name, value):
     src = _read(f"{build.CSRC}/smaq.cu")
@@ -213,3 +226,72 @@ def test_s2fp8_consts_layout_matches_read_consts():
     assert "float mu, m, alpha, beta, inv_alpha, unused[3];" in src
     assert "float table[kTableSize];" in src
     assert S._CONST_FLOATS == 8 + S.TABLE_SIZE
+
+
+# the H100's slots a thread: (233 472 B of shared memory a SM / 4 blocks
+# - 1 KB reserved a block - 1 072 B static) // (256 threads x 8 B)
+H100_SLOTS = 27
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe
+@pytest.mark.parametrize(
+    "n", [10, K.SMALL_MAX, K.SMALL_MAX + 1, 300_001, 8_388_608, 12_582_912, 14_598_144,
+          14_598_145, 50_331_648])
+def test_smaq_plan_onepass_form(n, sms):
+    """A bfloat16 call's three forms: the small form up to SMALL_MAX, the
+    one-launch form up to the capacity (every thread of BLOCKS_PER_SM
+    blocks of THREADS a SM holding ``slots`` groups of four), on the split
+    form's grid, and the two launches above it; with no slots (float32)
+    there is no one-launch form."""
+    cap = K.onepass_capacity(sms, H100_SLOTS)
+    assert cap == sms * BLOCKS_PER_SM * THREADS * 4 * H100_SLOTS
+    form, blocks = K.smaq_plan(n, sms, H100_SLOTS)
+    assert K.smaq_plan(n, sms) == K.smaq_plan(n, sms, 0)
+    if n <= K.SMALL_MAX:
+        assert (form, blocks) == ("small", 1)
+        return
+    assert blocks == split_blocks(n, sms)
+    assert form == ("onepass" if n <= cap else "split")
+    assert K.smaq_plan(n, sms)[0] == "split"
+    if form == "onepass":
+        # the slots the kernel takes for n on that grid fit what the card holds
+        slots = -(-n // (4 * blocks * THREADS))
+        assert slots <= H100_SLOTS
+
+
+def test_onepass_capacity_covers_the_main_paths_maps():
+    """On an H100 (132 SMs, or 114) every ResNet-18 batch-128 map and
+    bert-base's 32 x 512 x 768 maps take one launch; bert-base's FFN map
+    does not."""
+    for sms in (132, 114):
+        cap = K.onepass_capacity(sms, H100_SLOTS)
+        assert 128 * 64 * 32 * 32 <= cap
+        assert 32 * 512 * 768 <= cap
+        assert 32 * 512 * 3072 > cap
+    assert K.onepass_capacity(132, H100_SLOTS) == 14_598_144
+
+
+def test_onepass_barrier_word_is_a_counter():
+    """The grid barrier counts in a workspace word of its own, before the
+    stats partials, and the one-launch form holds one group of four bf16 a
+    slot."""
+    src = _read(f"{build.CSRC}/smaq.cu")
+    m = re.search(r"kStatsTicket = 0, kQuantCount = 1, kArrive = (\d+), kCounterWords = (\d+);", src)
+    assert m is not None
+    arrive, words = map(int, m.groups())
+    assert 1 < arrive < words == K._COUNTER_WORDS
+    assert K.SLOT_BYTES == 4 * torch.finfo(torch.bfloat16).bits // 8
+
+
+@pytest.mark.parametrize("sms, resident", [(132, 5), (132, 8), (114, 5)])
+@pytest.mark.parametrize("n", [1, 10, 2048, 2049, 300_001, 8_388_608, 50_331_648])
+def test_float_bf16_launch_shape(n, sms, resident):
+    """The bfloat16 float_quantize form reads 8 bf16 (16 bytes) a load, on
+    every block the card holds at once and no more than one load a thread
+    needs; the float32 form keeps quant_blocks' grid."""
+    assert BF16_LOAD_ELEMS * torch.finfo(torch.bfloat16).bits // 8 == 16
+    blocks = launch_blocks(n, torch.bfloat16, sms, resident)
+    assert blocks == max(1, min(sms * resident, math.ceil(n / (BF16_LOAD_ELEMS * THREADS))))
+    assert launch_blocks(n, torch.float32) == quant_blocks(n)
+    src = _read(f"{build.CSRC}/float_quantize.cu")
+    assert "const int64_t pairs = wide ? n >> 3 : 0;" in src
