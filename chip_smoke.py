@@ -41,7 +41,18 @@ non-zero:
    form's capacity -1 / +0 / +1, bert-base's 12 582 912 elements, a
    ragged size and a misaligned pointer, a launch one slot beyond the
    card's shared memory (refused), captured in a CUDA graph and over 1000
-   back-to-back calls (every counter back to 0);
+   back-to-back calls (every counter back to 0); the bf16 forms of S2FP8's
+   split path (the stats' log2 table on all 32 768 bf16 magnitudes against
+   log2f, the quantize's per-block table of the element function) and of
+   the BN kernel (16-byte loads, a running channel) bitwise the float32
+   form on the widened input, rounded, in S2FP8's constants and outputs and
+   BN's outputs and sizes, at 8 388 608, 12 582 912, S2FP8's SMALL_MAX -1 /
+   +1, 16 385 and 300 001 elements, the sizes where the tables take over,
+   a tensor of zeros, tiny, huge and
+   subnormal values, BN_SHAPE, RAGGED_BN_SHAPE, inner 9 and inner 4 maps,
+   a scalar and a zero gamma, one channel and a pointer 2 bytes off, on
+   two tensors of other stats in turn, in a CUDA graph and over 1000
+   back-to-back calls;
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -91,7 +102,11 @@ non-zero:
    truncation beside stochastic rounding, the SmaQ calls of a bf16
    ResNet-18 step and of a bf16 bert-base codecs step in one CUDA graph
    each, the float_quantize calls of a bf16 FP8 ResNet-18 step in one
-   graph, and the new kernels' blocks resident per SM;
+   graph, the bf16 S2FP8 call alone and by size and a bf16 S2FP8
+   ResNet-18 step's S2FP8 calls in one graph, the bf16 BN call and a bf16
+   ``--use_batch_norm`` step's BN calls in one graph, the float32 calls
+   beside them and digests of their outputs, and the new kernels' blocks
+   resident per SM;
 6. the kernel table as one JSON line (the bfloat16 forms as rows of their
    own), then the result as the last line.
 
@@ -102,7 +117,11 @@ and prints them as one JSON line: one chip call can run it on two trees in
 turns.  ``--bf16_times_of DIR`` does the same for the bf16 forms
 (``bf16_call_times``: the SmaQ call and float_quantize at 8 388 608
 elements, the SmaQ call by size, a bf16 ResNet-18 step's and a bf16
-bert-base codecs step's calls in one CUDA graph each).
+bert-base codecs step's calls in one CUDA graph each; the S2FP8 call at
+8 388 608 elements and by size, a bf16 S2FP8 ResNet-18 step's calls in one
+graph; the BN call at BN_SHAPE and a bf16 ``--use_batch_norm`` step's BN
+calls in one graph; the float32 calls at the same sizes and digests of the
+S2FP8 and BN outputs): run parent, change, change, parent in one call.
 
 Needs the repository beside it (or in DIR) and one CUDA card.
 """
@@ -1047,11 +1066,12 @@ def check_bf16_kernels(device) -> dict:
         if n_diff > max(1e-3 * n, 1) or steps > 1.01:
             fail(f"bf16 s2fp8 {name}: {n_diff} of {n} apart from the plain version, "
                  f"{steps:.3f} e5m2 steps")
-        errs["s2fp8_quantize_bf16"] = max(errs["s2fp8_quantize_bf16"],
-                                          float((yb.float() - y_ref.float()).abs().max()))
+        table, window = S.split_forms(n, torch.bfloat16)
+        qk = "s2fp8_quantize_window_bf16" if window else "s2fp8_quantize_bf16"
+        errs[qk] = max(errs.get(qk, 0.0), float((yb.float() - y_ref.float()).abs().max()))
         mu_k, m_k = (S.read_consts(S.s2fp8_stats(xb.reshape(-1)))[k] for k in ("mu", "m"))
-        errs["s2fp8_stats_bf16"] = max(errs["s2fp8_stats_bf16"], float((mu_k - mu_r).abs()),
-                                       float((m_k - m_r).abs()))
+        sk = "s2fp8_stats_table_bf16" if table else "s2fp8_stats_bf16"
+        errs[sk] = max(errs.get(sk, 0.0), float((mu_k - mu_r).abs()), float((m_k - m_r).abs()))
         mean_k, std_k = K.read_consts(K.smaq_stats(xb.reshape(-1), trunc))
         mean_p, std_p = K.pivot_stats_reference(xw.reshape(-1), trunc)
         errs["smaq_stats_bf16"] = max(errs["smaq_stats_bf16"], float((mean_k - mean_p).abs()),
@@ -1283,6 +1303,287 @@ def check_bf16_redesign(device) -> dict:
     return {"smaq_onepass_bf16": err}
 
 
+def host_key(seed):
+    """A host generator: each call with it draws the same step key."""
+    import torch
+
+    return torch.Generator().manual_seed(seed)
+
+
+def check_bf16_s2fp8_bn(device) -> dict:
+    """The bfloat16 forms of S2FP8's split path and of the BN kernel (their
+    own kernels: the stats' log2 table, the quantize's per-block table of
+    the element function, the BN loop with 16-byte loads and a running
+    channel; csrc/s2fp8.cu, csrc/smaq.cu), bitwise against the float32 form
+    on the widened input with the output rounded to nearest-even:
+
+    - the log2 table: each of the 32 768 bf16 magnitudes among the least
+      subnormals, in a tensor of BF16_TABLE_MIN elements, gives
+      ``s2fp8_stats`` a max bitwise the float32 kernel's (log2f's);
+    - S2FP8 at 8 388 608, 12 582 912, SMALL_MAX -1 / +1, 16 385 and 300 001
+      elements, BF16_WINDOW_MIN and BF16_TABLE_MIN -1 / +0 (where the
+      tables take over), a pointer 2 bytes off, and a tensor of zeros,
+      tiny, huge and subnormal values (elements off the table's window,
+      the stats' table rows of subnormals): the constants (mu, max, alpha,
+      beta, 1/alpha, the unsqueeze table) and the outputs, nearest and
+      stochastic, check_inf on and off; the constants of tensors with an
+      inf, and with -inf and a NaN (the stats' path by log2f);
+    - BN on BN_SHAPE, RAGGED_BN_SHAPE, inner 9 and inner 4 maps, a scalar
+      pair, a zero gamma, one channel and a pointer 2 bytes off: outputs and
+      sizes in truncation, stochastic, ``all_positive`` and
+      ``compute_size=False`` modes;
+    - two tensors of other stats in turn, each call against its own
+      tensor's float32 form (a second kernel must read its own call's
+      constants, not the last call's);
+    - both calls captured in a CUDA graph and replayed twice;
+    - 1000 back-to-back calls of the S2FP8 split and small forms and of the
+      BN call, every workspace counter back to 0 after them.
+
+    Returns the largest difference of each form from its plain version
+    (S2FP8 by e5m2 steps as phase 3 holds it, BN by the flip rule)."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.keys import key_tensor
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(31)
+    trunc, stoch = SmaQParams(stochastic_rounding=False), SmaQParams()
+    errs = {"s2fp8_quantize_bf16": 0.0, "s2fp8_quantize_window_bf16": 0.0,
+            "s2fp8_stats_table_bf16": 0.0, "smaq_quantize_bn_bf16": 0.0}
+    s2fp8_counters = ("s2fp8_stats_bf16", "s2fp8_quantize_bf16", "s2fp8_stats_table_bf16",
+                      "s2fp8_quantize_window_bf16")
+
+    # the log2 table against log2f: each magnitude in a tensor of the least
+    # subnormal (log2 -133, below every other but zero's 0), of a size that
+    # takes the table, so that the stats' max is that magnitude's log2
+    mags = torch.arange(1 << 15, dtype=torch.int32, device=device).to(torch.int16).view(bf)
+    xb = torch.ones(S.BF16_TABLE_MIN, dtype=torch.int16, device=device).view(bf)
+    xw = xb.float()
+    got = torch.empty(1 << 15, device=device)
+    want = torch.empty_like(got)
+    for i in range(1 << 15):
+        xb[0] = mags[i]
+        xw[0] = mags[i].float()
+        got[i] = S.s2fp8_stats(xb, table=True)[1]
+        want[i] = S.s2fp8_stats(xw)[1]
+    if not bitwise_equal(got, want):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        fail(f"the bf16 stats' log2 disagrees with log2f on {bad} of 32768 magnitudes")
+    finite = torch.isfinite(S.log2_table_reference(device))
+    ulps = ulps_apart(got[finite], S.log2_table_reference(device)[finite])
+    say(f"  bf16 s2fp8_stats' log2 table: all 32768 magnitudes bitwise log2f (the float32 "
+        f"kernel's); within {ulps} ulp of log2_table_reference -> ok")
+    if ulps > 1:
+        fail(f"log2_table_reference is {ulps} ulp from the kernels' log2")
+
+    # S2FP8: constants and outputs
+    big = torch.randn(12_582_912 + 8, generator=gen, device=device)
+    wide = torch.randn(1_000_000, generator=gen, device=device)
+    wide[::7] = 0.0
+    wide[1::11] *= 1e-20
+    wide[2::13] *= 1e15
+    wide[3::17] = 1e-39  # a bf16 subnormal
+    cases = [("8388608", big[:8_388_608] * 1.7 + 0.3), ("12582912", big[:12_582_912] * 0.05),
+             (f"SMALL_MAX - 1 {S.SMALL_MAX - 1}", big[:S.SMALL_MAX - 1]),
+             (f"SMALL_MAX + 1 {S.SMALL_MAX + 1}", big[:S.SMALL_MAX + 1] * 3.0),
+             ("16385", big[:16_385]), ("300001", big[:300_001] * 2.5 - 0.7),
+             *((f"{label} {n}", big[:n] * 0.7) for label, n in (
+                 ("BF16_WINDOW_MIN - 1", S.BF16_WINDOW_MIN - 1),
+                 ("BF16_WINDOW_MIN", S.BF16_WINDOW_MIN),
+                 ("BF16_TABLE_MIN - 1", S.BF16_TABLE_MIN - 1),
+                 ("BF16_TABLE_MIN", S.BF16_TABLE_MIN))),
+             ("wide range 1000000", wide)]
+    sms = S.sm_count(device)
+    for name, x in cases:
+        xb = x.to(bf)
+        xw = xb.float()
+        for label, xin in (("", xb), (", 2 bytes off", torch.cat([xb[:1], xb])[1:])):
+            form = S.s2fp8_plan(xin.numel(), sms)[0]
+            table, window = S.split_forms(xin.numel(), bf) if form == "split" else (False, False)
+            want_launched = dict.fromkeys(s2fp8_counters, 0)
+            want_launched["s2fp8_quantize_window_bf16" if window else "s2fp8_quantize_bf16"] = 1
+            if form == "split":
+                want_launched["s2fp8_stats_table_bf16" if table else "s2fp8_stats_bf16"] = 1
+                cb, cw = S.read_consts(S.s2fp8_stats(xin)), S.read_consts(S.s2fp8_stats(xw))
+                if not all(bitwise_equal(cb[k], cw[k]) for k in cb):
+                    fail(f"bf16 s2fp8_stats {name}{label}: constants apart from the float32 form's")
+            for st in (False, True):
+                for ci in (True, False):
+                    before = dict(S.LAUNCHES)
+                    yb = S.s2fp8_fused(xin, fresh_key(device) if st else None, stochastic=st,
+                                       check_inf=ci)
+                    launched = {k: S.LAUNCHES[k] - before[k] for k in s2fp8_counters}
+                    if launched != want_launched:
+                        fail(f"bf16 s2fp8 {name}{label} did not take the {form} form "
+                             f"{want_launched}: {launched}")
+                    same_bits(f"s2fp8 {name}{label} stochastic={st} check_inf={ci}", yb,
+                              S.s2fp8_fused(xw, fresh_key(device) if st else None,
+                                            stochastic=st, check_inf=ci))
+        if name != "wide range 1000000":
+            y_ref = S.s2fp8_fused_reference(xb, stochastic=False)
+            yb = S.s2fp8_fused(xb, None, stochastic=False)
+            mu_r, m_r = S.stats_reference(xw)
+            alpha, beta = (v.double() for v in squeeze_coefs_of(mu_r, m_r))
+
+            def squeezed(y):
+                a = y.reshape(-1).double().abs()
+                return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
+
+            diff = (yb.view(torch.int16) != y_ref.view(torch.int16)).reshape(-1)
+            n_diff = int(diff.sum())
+            steps = (float(e5m2_steps(squeezed(yb)[diff], squeezed(y_ref)[diff]).max())
+                     if n_diff else 0.0)
+            if n_diff > max(1e-3 * xb.numel(), 1) or steps > 1.01:
+                fail(f"bf16 s2fp8 {name}: {n_diff} apart from the plain version, {steps:.3f} "
+                     "e5m2 steps")
+            qk = ("s2fp8_quantize_window_bf16" if S.split_forms(xb.numel(), bf)[1]
+                  else "s2fp8_quantize_bf16")
+            errs[qk] = max(errs[qk], float((yb.float() - y_ref.float()).abs().max()))
+            if S.split_forms(xb.numel(), bf)[0]:
+                c = S.read_consts(S.s2fp8_stats(xb))
+                errs["s2fp8_stats_table_bf16"] = max(
+                    errs["s2fp8_stats_table_bf16"], float((c["mu"] - mu_r).abs()),
+                    float((c["m"] - m_r).abs()))
+        say(f"  bf16 s2fp8 {name} ({S.s2fp8_plan(xb.numel(), sms)[0]} form): constants and "
+            "outputs (nearest, stochastic; check_inf on and off; aligned and 2 bytes off) "
+            "bitwise the float32 form rounded -> ok")
+
+    # inf and NaN: the stats' table gives them 128 or more, and a thread
+    # that meets one sums again by log2f (the outputs are NaN, whose bf16
+    # bits the two roundings need not share: the constants only)
+    for label, vals in (("inf", (float("inf"),)), ("inf and NaN", (float("-inf"), float("nan")))):
+        xi = big[:S.BF16_TABLE_MIN].clone()
+        xi[12_345:12_345 + len(vals)] = torch.tensor(vals, device=device)
+        cb = S.read_consts(S.s2fp8_stats(xi.to(bf)))
+        cw = S.read_consts(S.s2fp8_stats(xi.to(bf).float()))
+        if not all(bitwise_equal(cb[k], cw[k]) for k in cb):
+            fail(f"bf16 s2fp8_stats with {label}: constants apart from the float32 form's")
+    say("  bf16 s2fp8_stats with an inf, and with -inf and a NaN: constants bitwise the float32 "
+        "form's -> ok")
+
+    # BN: outputs and sizes
+    def affine(c):
+        return (torch.randn(c, generator=gen, device=device) * 0.3 + 1.0,
+                torch.randn(c, generator=gen, device=device) * 0.2)
+
+    g, b = affine(BN_SHAPE[1])
+    g_zero = g.clone()
+    g_zero[::3] = 0.0
+    x = big[:math.prod(BN_SHAPE)].view(BN_SHAPE) * 1.3 + 0.2
+    bn_cases = [("128x64x32x32", x, g, b), ("zero gamma", x, g_zero, b),
+                ("scalar pair", x, g.mean(), b.mean()),
+                ("ragged 3x10x7x5", big[:math.prod(RAGGED_BN_SHAPE)].view(RAGGED_BN_SHAPE),
+                 *affine(RAGGED_BN_SHAPE[1])),
+                ("inner 9 (128x64x3x3)", big[:128 * 64 * 9].view(128, 64, 3, 3), g, b),
+                ("inner 4 (128x64x2x2)", big[:128 * 64 * 4].view(128, 64, 2, 2), g, b),
+                ("one channel", x.reshape(128, 1, -1), g[:1], b[:1])]
+    modes = (("trunc", trunc, {}), ("stochastic", stoch, {}),
+             ("all_positive", trunc, {"all_positive": True}),
+             ("compute_size=False", stoch, {"compute_size": False}))
+    for name, xx, gg, bb in bn_cases:
+        xb = xx.to(bf)
+        flat = xb.reshape(-1)
+        for label, xin in (("", xb), (", 2 bytes off", torch.cat([flat[:1], flat])[1:].view(xb.shape))):
+            for mode, p, kw in modes:
+                xi = xin - 0.2 if kw.get("all_positive") else xin
+                yb, sb = K.smaq_fused_bn(xi, fresh_key(device) if p.stochastic_rounding else None,
+                                         gg, bb, p, **kw)
+                yw, sw = K.smaq_fused_bn(xi.float(), fresh_key(device) if p.stochastic_rounding
+                                         else None, gg, bb, p, **kw)
+                same_bits(f"bn {name}{label} {mode}", yb, yw)
+                if not bitwise_equal(sb, sw):
+                    fail(f"bf16 bn {name}{label} {mode}: size {float(sb)} against {float(sw)}")
+        y_ref, s_ref = K.smaq_fused_bn_reference(xb, None, gg, bb, trunc)
+        yb, sb = K.smaq_fused_bn(xb, None, gg, bb, trunc)
+        std = K.pivot_stats_reference(xb.float().reshape(-1), trunc)[1]
+        g_safe = torch.where(gg == 0, torch.ones_like(gg), gg)
+        errs["smaq_quantize_bn_bf16"] = max(errs["smaq_quantize_bn_bf16"], flip_check(
+            f"bf16 bn {name} against its plain version", yb.float(), y_ref.float(), sb, s_ref,
+            std * g_safe.abs().max() / trunc.range_main))
+        say(f"  bf16 bn {name}: outputs and sizes ({', '.join(m for m, _, _ in modes)}; aligned "
+            "and 2 bytes off) bitwise the float32 form rounded -> ok")
+
+    # tensors of other stats in turn: a second kernel that read the
+    # constants before its stats kernel wrote them would read the last call's
+    xa, xc = (big[:math.prod(BN_SHAPE)].view(BN_SHAPE) * s + t
+              for s, t in ((1.0, 0.0), (300.0, 40.0)))
+    want = {}
+    for name, xx in (("a", xa), ("c", xc)):
+        xr = xx.to(bf).float()
+        want[name] = (S.s2fp8_fused(xr, None, stochastic=False), S.s2fp8_fused(xr, host_key(5)),
+                      *K.smaq_fused_bn(xr, None, g, b, trunc))
+    for turn in range(3):
+        for name, xx in (("a", xa), ("c", xc)):
+            xq = xx.to(bf)
+            got = (S.s2fp8_fused(xq, None, stochastic=False), S.s2fp8_fused(xq, host_key(5)),
+                   *K.smaq_fused_bn(xq, None, g, b, trunc))
+            for label, gv, wv in zip(("s2fp8 nearest", "s2fp8 stochastic", "bn", "bn size"),
+                                     got, want[name]):
+                if label == "bn size":
+                    if not bitwise_equal(gv, wv):
+                        fail(f"bf16 {label} of tensor {name}, turn {turn}: {float(gv)} against "
+                             f"{float(wv)}")
+                else:
+                    same_bits(f"{label} of tensor {name}, turn {turn}", gv, wv)
+    say("  bf16 S2FP8 and BN on two tensors of other stats in turn (3 turns): each call bitwise "
+        "the float32 form of its own tensor -> ok")
+
+    # in a CUDA graph, captured on a side stream as train/graph.py does
+    xb8, gb, bbn = x.to(bf), g, b
+    key = key_tensor(33, device)
+
+    def both():
+        return [S.s2fp8_quantize(xb8.reshape(-1), S.s2fp8_stats(xb8.reshape(-1)), key=key,
+                                 call=3, stochastic=True, check_inf=True),
+                *K.smaq_quantize_bn(xb8.reshape(-1), gb, bbn, BN_SHAPE[1],
+                                    math.prod(BN_SHAPE[2:]), stoch, key=key, call=3,
+                                    consts=K.smaq_stats(xb8.reshape(-1), stoch))]
+
+    eager = both()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        both()  # the side stream's workspaces
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = both()
+    for replay in range(2):
+        for o in captured:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize(device)
+        if not all(bitwise_equal(a, c) for a, c in zip(eager, captured)):
+            fail(f"replay {replay} of a captured bf16 S2FP8 / BN call differs from the eager call")
+    say("  bf16 S2FP8 and BN calls captured in a CUDA graph: two replays bitwise the eager "
+        "calls -> ok")
+    del graph
+
+    # 1000 back-to-back calls: the tickets and counters reset themselves
+    split, small = big[:300_001].to(bf), big[:1728].to(bf)
+    calls = [lambda: (S.s2fp8_fused(split, None, stochastic=False),),
+             lambda: (S.s2fp8_fused(small, None, stochastic=False),),
+             lambda: K.smaq_fused_bn(xb8, None, g, b, trunc)]
+    firsts = [fn() for fn in calls]
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    for i in range(1000 - len(calls)):
+        for out, first in zip(calls[i % len(calls)](), firsts[i % len(calls)]):
+            bad += (out.reshape(-1).view(torch.int16 if out.dtype == bf else torch.int32)
+                    != first.reshape(-1).view(torch.int16 if first.dtype == bf
+                                              else torch.int32)).sum()
+    words = (S.workspace(split)[:S._COUNTER_WORDS].tolist()
+             + K.workspace(split)[:K._COUNTER_WORDS].tolist())
+    say(f"  1000 back-to-back bf16 calls (s2fp8 split and small, bn): {int(bad)} elements or "
+        f"sizes apart from the first of their kind; counters after them {words} -> "
+        f"{'ok' if int(bad) == 0 and not any(words) else 'MISMATCH'}")
+    if int(bad) or any(words):
+        fail("a bf16 S2FP8 or BN call changed over back-to-back calls, or a counter kept its count")
+    return errs
+
+
 def squeeze_coefs_of(mu, m):
     from smart_quantization_tpu_torch.ops.s2fp8 import squeeze_coefs
 
@@ -1334,6 +1635,11 @@ def path_kernels(args) -> tuple[str, ...]:
         opt, taps = ("float_quantize",), ()
     elif args.compress == "s2fp8":
         opt, taps = ("s2fp8_stats", "s2fp8_quantize"), ()
+        if args.compute_dtype == "bfloat16":
+            # ResNet-18's maps at batch 128 reach both tables' sizes
+            # (s2fp8_kernel.split_forms), and the smaller ones stay below
+            return (*opt, *(f"{k}_bf16" for k in opt), "s2fp8_stats_table_bf16",
+                    "s2fp8_quantize_window_bf16")
     else:
         # sampled stats take the TPU kernel's fixed positions: no stats launch
         opt = (() if args.use_sample_stats else ("smaq_stats",)) + ("smaq_quantize",)
@@ -1409,7 +1715,8 @@ def expected_launches(args, calls) -> dict:
     for the float formats; for S2FP8 and SmaQ, a stats launch where
     ``s2fp8_plan`` or ``smaq_plan`` takes the split form (and for every
     BN-kernel call) and one quantize launch per call, in the element form
-    of the call (``BF16_FORM``), or one ``smaq_onepass`` launch where
+    of the call (``BF16_FORM``; a large bfloat16 S2FP8 call's are the table
+    kernels where ``s2fp8_kernel.split_forms`` says), or one ``smaq_onepass`` launch where
     ``smaq_plan`` takes the one-launch form (bfloat16 only); for SmaQ's other
     forms (``step_calls``) the quantize alone (``given``), the stats alone
     (``encode``) or nothing (``rows``); none for a SmaQ call below
@@ -1422,7 +1729,7 @@ def expected_launches(args, calls) -> dict:
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda.launch import sm_count
-    from smart_quantization_tpu_torch.ops.cuda.s2fp8_kernel import s2fp8_plan
+    from smart_quantization_tpu_torch.ops.cuda.s2fp8_kernel import s2fp8_plan, split_forms
     from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import onepass_slots, smaq_plan
 
     device = torch.device("cuda", torch.cuda.current_device())
@@ -1444,8 +1751,13 @@ def expected_launches(args, calls) -> dict:
             fills["philox_fill"] += 3 * BERT_LAYERS + 2
     if args.compress == "s2fp8":
         for n, _, form in forms:
-            add("s2fp8_stats", form, int(s2fp8_plan(n, sms)[0] == "split"))
-            add("s2fp8_quantize", form)
+            if s2fp8_plan(n, sms)[0] == "small":
+                add("s2fp8_quantize", form)
+                continue
+            table, window = split_forms(
+                n, torch.bfloat16 if form.endswith(BF16_FORM) else torch.float32)
+            add("s2fp8_stats_table" if table else "s2fp8_stats", form)
+            add("s2fp8_quantize_window" if window else "s2fp8_quantize", form)
     elif args.compress in ("fp8", "fp16", "bf16"):
         for _, _, form in forms:
             add("float_quantize", form)
@@ -2280,7 +2592,7 @@ def time_bf16_kernels(device, timed):
     n = xb.numel()
     consts = K.smaq_stats(xb, params)
     mean, std = K.read_consts(consts)
-    s2_consts = S.s2fp8_stats(xb)
+    s2_consts = S.s2fp8_stats(xb).clone()
     channels = BN_SHAPE[1]
     gamma = torch.randn(channels, generator=gen, device=device) * 0.3 + 1.0
     beta = torch.randn(channels, generator=gen, device=device) * 0.2
@@ -2308,9 +2620,14 @@ def time_bf16_kernels(device, timed):
         "plain_float_bf16": timed(lambda: float_quantize(xb, FP8_FORMAT, host).to(bf)),
         "library_fp8_bf16": timed(lambda: xb.to(torch.float8_e5m2).to(bf)),
         "library_fp16_bf16": timed(lambda: xb.half().to(bf)),
-        "s2fp8_stats_bf16": timed(lambda: S.s2fp8_stats(xb)),
+        # the float32 kernels' bf16 instances and the table kernels, each
+        # at this size (the call takes the table kernels here)
+        "s2fp8_stats_bf16": timed(lambda: S.s2fp8_stats(xb, table=False)),
         "s2fp8_quantize_bf16": timed(lambda: S.s2fp8_quantize(
-            xb, s2_consts, key=tkey, stochastic=True, check_inf=True)),
+            xb, s2_consts, key=tkey, stochastic=True, check_inf=True, window=False)),
+        "s2fp8_stats_table_bf16": timed(lambda: S.s2fp8_stats(xb, table=True)),
+        "s2fp8_quantize_window_bf16": timed(lambda: S.s2fp8_quantize(
+            xb, s2_consts, key=tkey, stochastic=True, check_inf=True, window=True)),
         "s2fp8_pair_bf16": timed(lambda: S.s2fp8_fused(xb, dkey)),
         "s2fp8_pair_cast": timed(lambda: S.s2fp8_fused(xb.float(), dkey).to(bf)),
         "plain_s2fp8_stats_bf16": timed(lambda: S.stats_reference(xb.float())),
@@ -2330,6 +2647,7 @@ def time_bf16_kernels(device, timed):
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
     bound = {k: 4 * n / rate for k in t if not k.startswith(("plain", "library", "torch"))}
     bound["smaq_stats_bf16"] = bound["s2fp8_stats_bf16"] = 2 * n / rate
+    bound["s2fp8_stats_table_bf16"] = 2 * n / rate
     bound["smaq_quantize_bn_bf16"] = (4 * n + 8 * channels) / rate
     bound["smaq_quantize_bn_cast"] = bound["smaq_quantize_bn_bf16"]
     return t, bound
@@ -2452,22 +2770,33 @@ def time_smaq(device, timed, per_call, step_calls_of, card):
     return out
 
 
-def bf16_call_times(device, timed, per_call, step_calls_of) -> dict:
+def bf16_call_times(device, timed, per_call, step_calls_of, s2fp8_maps=(), bn_taps=()) -> dict:
     """The bfloat16 forms through the port's public calls only
-    (``smaq_fused``, ``float_quantize_fused``), so that it times any tree
-    of the port the same way: the SmaQ call (stochastic, size counted) at
-    8 388 608 elements alone and in truncation, by size in a stream of 20
-    (a CUDA graph); ``float_quantize`` at 8 388 608 elements (FP8
-    stochastic, FP8/FP16/BF16 nearest); and for each model in
-    ``step_calls_of`` (its calls as ``step_calls`` gives them) the SmaQ
-    calls of one step (the ``plain`` ones of ``--min_size`` or more, in
-    their element form) in one CUDA graph, and with FP8 the
-    ``float_quantize`` calls of the same step in one graph; and, so that
-    two trees' float32 forms compare in one call, the float32 SmaQ call and
-    float_quantize at 8 388 608 elements.  Times in µs, a step's in ms."""
+    (``smaq_fused``, ``float_quantize_fused``, ``s2fp8_fused``,
+    ``smaq_fused_bn``), so that it times any tree of the port the same way:
+    the SmaQ call (stochastic, size counted) at 8 388 608 elements alone and
+    in truncation, by size in a stream of 20 (a CUDA graph);
+    ``float_quantize`` at 8 388 608 elements (FP8 stochastic, FP8/FP16/BF16
+    nearest); for each model in ``step_calls_of`` (its calls as
+    ``step_calls`` gives them) the SmaQ calls of one step (the ``plain``
+    ones of ``--min_size`` or more, in their element form) in one CUDA
+    graph, and with FP8 the ``float_quantize`` calls of the same step in one
+    graph; the S2FP8 call (stochastic) at 8 388 608 elements alone and by
+    size in a stream of 20, and ``s2fp8_maps`` (``model_s2fp8_maps``: the
+    tensors the bf16 S2FP8 cell's calls take in a training step, by step)
+    in one graph a step; the BN call at BN_SHAPE (stochastic,
+    and in truncation) and ``bn_taps`` (``model_bn_taps``: a bf16
+    ``--use_batch_norm`` step's BN calls) in one graph; and, so that two
+    trees' float32 forms compare in one call, the float32 SmaQ call,
+    float_quantize, the S2FP8 call and the BN call at the same sizes, with
+    digests of S2FP8's and BN's outputs in both element types (truncation,
+    and stochastic from fixed keys).  Times in µs, a step's in ms."""
+    import hashlib
+
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
     from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
     from smart_quantization_tpu_torch.ops.float_format import (
         BF16_FORMAT,
@@ -2516,22 +2845,79 @@ def bf16_call_times(device, timed, per_call, step_calls_of) -> dict:
             fp8 = [(lambda xn: lambda: F.float_quantize_fused(xn, FP8_FORMAT, dkey))(
                 (xb if form.endswith(BF16_FORM) else xw)[:n]) for n, form in calls]
             out["step_float_ms"][model] = per_call(lambda: [f() for f in fp8], reps=1)
+
+    # S2FP8 and BN
+    def s2fp8(xn):
+        return lambda: S.s2fp8_fused(xn, dkey)
+
+    out["s2fp8_pair_us"] = timed(s2fp8(x8)) * 1e3
+    out["s2fp8_pair_nearest_us"] = timed(lambda: S.s2fp8_fused(x8, None, stochastic=False)) * 1e3
+    out["s2fp8_stream_us"] = {n: per_call(s2fp8(xb[:n])) * 1e3 for n in CALL_SIZES}
+    if s2fp8_maps:
+        out["step_s2fp8_ms"], out["step_s2fp8_calls"] = {}, {}
+        for k, maps in s2fp8_maps.items():
+            step = [s2fp8(t) for t in maps]
+            out["step_s2fp8_ms"][k] = per_call(lambda: [f() for f in step], reps=1)
+            out["step_s2fp8_calls"][k] = len(step)
+    nbn = math.prod(BN_SHAPE)
+    gen = torch.Generator(device=device).manual_seed(14)
+    gamma = torch.randn(BN_SHAPE[1], generator=gen, device=device) * 0.3 + 1.0
+    beta = torch.randn(BN_SHAPE[1], generator=gen, device=device) * 0.2
+    xbn, xwn = xb[:nbn].view(BN_SHAPE), xw[:nbn].view(BN_SHAPE)
+    out["bn_call_us"] = timed(lambda: K.smaq_fused_bn(xbn, dkey, gamma, beta, params)) * 1e3
+    out["bn_call_trunc_us"] = timed(lambda: K.smaq_fused_bn(xbn, None, gamma, beta, trunc)) * 1e3
+    if bn_taps:
+        affine = {c: (torch.randn(c, generator=gen, device=device) * 0.3 + 1.0,
+                      torch.randn(c, generator=gen, device=device) * 0.2)
+                  for c in {c for _, c in bn_taps if c}}
+        affine[0] = (gamma.mean(), beta.mean())  # a scalar pair
+        step = [(lambda xn, gb: lambda: K.smaq_fused_bn(xn, dkey, *gb, params))(
+            xb[:math.prod(shape)].view(shape), affine[c]) for shape, c in bn_taps]
+        out["step_bn_ms"] = per_call(lambda: [f() for f in step], reps=1)
+        out["step_bn_calls"] = len(step)
+    out["float32_us"]["s2fp8 pair"] = timed(s2fp8(xw8)) * 1e3
+    out["float32_us"]["bn call"] = timed(lambda: K.smaq_fused_bn(xwn, dkey, gamma, beta,
+                                                                 params)) * 1e3
+
+    def digest(y):
+        y = y[0] if isinstance(y, tuple) else y
+        return hashlib.sha256(y.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+    def host(seed):
+        return torch.Generator().manual_seed(seed)
+
+    out["output_sha256"] = {
+        "s2fp8 float32 nearest": digest(S.s2fp8_fused(xw8, None, stochastic=False)),
+        "s2fp8 float32 stochastic": digest(S.s2fp8_fused(xw8, host(9))),
+        "s2fp8 bf16 nearest": digest(S.s2fp8_fused(x8, None, stochastic=False)),
+        "s2fp8 bf16 stochastic": digest(S.s2fp8_fused(x8, host(9))),
+        "bn float32 trunc": digest(K.smaq_fused_bn(xwn, None, gamma, beta, trunc)),
+        "bn float32 stochastic": digest(K.smaq_fused_bn(xwn, host(10), gamma, beta, params)),
+        "bn float32 scalar stochastic": digest(K.smaq_fused_bn(
+            xwn, host(11), gamma.mean(), beta.mean(), params)),
+        "bn bf16 trunc": digest(K.smaq_fused_bn(xbn, None, gamma, beta, trunc)),
+        "bn bf16 stochastic": digest(K.smaq_fused_bn(xbn, host(10), gamma, beta, params)),
+    }
     return out
 
 
-def time_bf16_redesign(device, timed, per_call, step_calls_of, card) -> dict:
-    """Phase 5's lines for the bfloat16 forms redesigned in PR 9: the
-    public calls of ``bf16_call_times`` beside their 4 bytes an element,
-    the one-launch kernel alone in stochastic and truncation modes, the
-    float32 SmaQ call and ``float_quantize`` at 8 388 608 elements for the
-    same call's comparison, and the blocks each new kernel has resident on
-    an SM at its shared memory; into ``chiprun_out/bf16_redesign_times.json``."""
+def time_bf16_redesign(device, timed, per_call, step_calls_of, card, s2fp8_maps=(),
+                       bn_taps=()) -> dict:
+    """Phase 5's lines for the redesigned bfloat16 forms: the public calls
+    of ``bf16_call_times`` beside their 4 bytes an element (SmaQ,
+    float_quantize, S2FP8 and BN, a step's calls of each in one graph), the
+    one-launch SmaQ kernel alone in stochastic and truncation modes, the
+    float32 calls at the same sizes for the same call's comparison, the
+    output digests, and the blocks each new kernel has resident on an SM at
+    its shared memory, and ``window_share`` of ``s2fp8_maps``; into
+    ``bf16_redesign_times.json`` in OUT."""
     import ctypes
 
     import torch
 
     from smart_quantization_tpu_torch.ops.cuda import build
     from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
     from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
     from smart_quantization_tpu_torch.ops.cuda.launch import THREADS
     from smart_quantization_tpu_torch.ops.smaq import SmaQParams
@@ -2539,7 +2925,8 @@ def time_bf16_redesign(device, timed, per_call, step_calls_of, card) -> dict:
     rate = HBM_BYTES_PER_S / 1e3  # bytes per ms
     params, trunc = SmaQParams(), SmaQParams(stochastic_rounding=False)
     tkey = timing_key(device)
-    out = {"card": card, **bf16_call_times(device, timed, per_call, step_calls_of)}
+    out = {"card": card, **bf16_call_times(device, timed, per_call, step_calls_of, s2fp8_maps,
+                                           bn_taps)}
     n8 = math.prod(ACT_SHAPE)
     b8 = 4 * n8 / rate * 1e3
     x8 = torch.randn(n8, device=device, generator=torch.Generator(device=device).manual_seed(13))
@@ -2581,6 +2968,49 @@ def time_bf16_redesign(device, timed, per_call, step_calls_of, card) -> dict:
         f"{THREADS} per SM")
     if c.value < K.BLOCKS_PER_SM or smem.value < slots * THREADS * K.SLOT_BYTES:
         fail(f"smaq_onepass fits fewer than the planned {K.BLOCKS_PER_SM} blocks per SM")
+    say(f"  bf16 S2FP8 call (s2fp8_fused, stochastic) at {n8}: {out['s2fp8_pair_us']:.2f} us, "
+        f"nearest {out['s2fp8_pair_nearest_us']:.2f} us; bound {b8:.2f} us (4 B/element), "
+        f"{b8 / out['s2fp8_pair_us']:.1%} of it; float32 {out['float32_us']['s2fp8 pair']:.2f} us; "
+        f"on {card}")
+    say("  the bf16 S2FP8 call by size, in a stream of 20:")
+    for n, us in out["s2fp8_stream_us"].items():
+        b = 4 * n / rate * 1e3
+        say(f"    {n}: {us:.2f} us ({S.s2fp8_plan(n, sms)[0]} form); bound {b:.3f} us "
+            f"(4 B/element), {b / us:.1%} of it")
+    nbn = math.prod(BN_SHAPE)
+    bbn = (4 * nbn + 8 * BN_SHAPE[1]) / rate * 1e3
+    say(f"  bf16 BN call (smaq_fused_bn, stochastic) at {BN_SHAPE}: {out['bn_call_us']:.2f} us, "
+        f"truncation {out['bn_call_trunc_us']:.2f} us; bound {bbn:.2f} us (4 B/element), "
+        f"{bbn / out['bn_call_us']:.1%} of it; float32 {out['float32_us']['bn call']:.2f} us; "
+        f"on {card}")
+    out["window_share"] = {}
+    for k, ms in out.get("step_s2fp8_ms", {}).items():
+        say(f"  bf16 S2FP8 ResNet-18 training step {k}'s S2FP8 calls "
+            f"({out['step_s2fp8_calls'][k]}: its bf16 maps' and float32 leaves' real tensors) in "
+            f"one CUDA graph: {ms:.3f} ms on {card}")
+        w = out["window_share"][k] = window_share(s2fp8_maps[k], sms)
+        say(f"    s2fp8_quantize_window on its {w['tensors']} bf16 tensors of "
+            f"{w['elements']} elements: {w['off_share']:.6%} of the elements off the window "
+            f"(maps {w['maps_off_share']:.6%}, gradients {w['grads_off_share']:.6%}), "
+            f"{w['warp_share']:.4%} of the 256-element warp steps take the full expression; "
+            f"the worst tensor {w['worst']}")
+    if "step_bn_ms" in out:
+        say(f"  bf16 --use_batch_norm ResNet-18 step's BN calls ({out['step_bn_calls']}) in one "
+            f"CUDA graph: {out['step_bn_ms']:.3f} ms on {card}")
+    say(f"  output digests (float32 forms: the parent's tree gives the same): "
+        f"{out['output_sha256']}")
+    q, st, b = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    if lib.s2fp8_occupancy(2, 1, 1, S.BF16_THREADS, ctypes.addressof(q)) or lib.s2fp8_occupancy(
+            3, 0, 0, THREADS, ctypes.addressof(st)) or lib.smaq_occupancy(
+            4, THREADS, BN_SHAPE[1] * 16, ctypes.addressof(b)):
+        fail("the occupancy query failed for the bf16 S2FP8 table kernels or the BN kernel")
+    out["blocks_per_sm"].update({"s2fp8_quantize_window": q.value, "s2fp8_stats_table": st.value,
+                                 "smaq_quantize_bn bf16": b.value})
+    say(f"  s2fp8_quantize_window: {q.value} block of {S.BF16_THREADS} resident per SM; "
+        f"s2fp8_stats_table: {st.value} blocks of {THREADS}; smaq_quantize_bn bf16 "
+        f"({BN_SHAPE[1]} channels): {b.value} blocks of {THREADS}")
+    if q.value < 1 or st.value < K.BLOCKS_PER_SM or b.value < K.BLOCKS_PER_SM:
+        fail("a bf16 S2FP8 table kernel or the BN kernel fits fewer blocks per SM than planned")
     with open(os.path.join(OUT, "bf16_redesign_times.json"), "w") as f:
         json.dump(out, f, indent=1)
     return out
@@ -2601,9 +3031,177 @@ def bf16_times_of(root: str) -> int:
     timed, per_call = make_timer(device)
     calls = {"ResNet-18 bf16": model_step_calls(MAIN_ARGV + BF16_ARGV),
              "bert-base codecs bf16": model_step_calls(BERT_ARGV + CODEC_ARGV + BF16_ARGV)}
-    times = bf16_call_times(device, timed, per_call, calls)
+    times = bf16_call_times(device, timed, per_call, calls, *bf16_s2fp8_bn_steps())
     say(json.dumps({"tree": os.path.abspath(root), "card": card_line(), **times}))
     return 0
+
+
+def bf16_s2fp8_bn_steps():
+    """A bf16 S2FP8 ResNet-18 step's encoder inputs (``model_s2fp8_maps``)
+    and a bf16 ``--use_batch_norm`` step's BN calls (``model_bn_taps``)."""
+    return (model_s2fp8_maps(MAIN_ARGV + BF16_ARGV + ["--compress", "s2fp8"]),
+            model_bn_taps(MAIN_ARGV + BF16_ARGV + ["--use_batch_norm"]))
+
+
+# the training steps whose S2FP8 inputs model_s2fp8_maps keeps: the first,
+# from the seeded weights, and the third, whose gradients already span more
+# binades (S2FP8 at full coverage turns the loss NaN within a few steps, on
+# the TPU as well: BF16_PATHS)
+S2FP8_MAPS_STEPS = (1, 3)
+
+
+def model_s2fp8_maps(argv, steps=S2FP8_MAPS_STEPS) -> dict:
+    """The tensors the S2FP8 encoder takes in each of the training steps
+    ``steps`` (counted from 1) of the trainer that ``argv`` builds, copied
+    as they come (the bf16 feature maps, then their gradients, then the
+    float32 gradients, weights and momentum), on its data and weights from
+    the seed; by step."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.compress import encoders
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    torch.manual_seed(0)
+    trainer = build_trainer(parse_args(argv + ["--logdir", ""]))
+    state = trainer.init_state()
+    batches = iter(trainer.data.device_train_batches(0, trainer.device))
+    real, seen = encoders.s2fp8_fused_or_reference, {}
+
+    def record(x, gen, **kw):
+        seen[k].append(x.detach().clone())
+        return real(x, gen, **kw)
+
+    encoders.s2fp8_fused_or_reference = record
+    try:
+        for k in range(1, max(steps) + 1):
+            inputs, labels = next(batches)
+            x = trainer.task.prepare_train(inputs, trainer.data_gen)
+            seen[k] = []
+            trainer.train_step(state, x, labels)
+            if k not in steps:
+                del seen[k]
+    finally:
+        encoders.s2fp8_fused_or_reference = real
+    torch.cuda.synchronize()
+    if not all(seen.values()):
+        fail("no S2FP8 call in a training step: the encoder's call site moved")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen
+
+
+def window_share(tensors, sms) -> dict:
+    """How much of ``tensors`` (a step's S2FP8 inputs) ``s2fp8_quantize_window``
+    takes by its full expression on a card of ``sms`` SMs: for each bf16
+    tensor of BF16_WINDOW_MIN elements or more, the nonzero elements off
+    their block's window of WINDOW_BINADES binades, placed as
+    csrc/s2fp8.cu places it (at the binade of the stats' max; where that
+    max is 0, from the block's first chunks, BF16_THREADS x
+    BF16_LOAD_ELEMS elements: at their largest nonzero exponent, or
+    WINDOW_ABOVE_MEAN above their mean where that is lower), and the
+    256-element warp steps (32 lanes of 8 consecutive elements) that hold
+    one; by count, over all such tensors, the maps (the first half of the
+    bf16 calls) and their gradients apart.  Each tensor's histogram of its
+    elements' binades below its largest goes into the JSON, so that
+    another placement can be weighed without a run."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+
+    bf = [t for t in tensors if t.dtype == torch.bfloat16]
+    half = len(bf) // 2
+    span = S.BF16_THREADS * S.BF16_LOAD_ELEMS  # a block's first chunks
+    rows, tot = [], {"all": [0, 0], "maps": [0, 0], "grads": [0, 0]}
+    warps = [0, 0]
+    for i, t in enumerate(bf):
+        n = t.numel()
+        if n < S.BF16_WINDOW_MIN:
+            continue
+        flat = t.reshape(-1)
+        idx = flat.view(torch.int16).long() & 0x7FFF
+        nz = (idx != 0) & ((idx >> 7) != 255)
+        exps = torch.where(nz, idx >> 7, 0)
+        blocks = S.window_blocks(n, sms)
+        whole = (n // S.BF16_LOAD_ELEMS) * S.BF16_LOAD_ELEMS  # the chunks' elements
+        ns = min(blocks * span, whole)
+        pad = blocks * span - ns
+        se = torch.cat([exps[:ns], exps.new_zeros(pad)]).view(blocks, span)
+        sn = torch.cat([nz[:ns], nz.new_zeros(pad)]).view(blocks, span)
+        cnt = sn.sum(1)
+        mean = (se.sum(1) + cnt // 2) // cnt.clamp(min=1)
+        m = float(S.read_consts(S.s2fp8_stats(flat))["m"])
+        m_c = -200.0 if math.isnan(m) else min(max(m, -200.0), 200.0)  # fminf(fmaxf(m, ..))
+        top = torch.where((cnt > 0) & (m == 0.0),
+                          torch.minimum(se.max(1).values, mean + S.WINDOW_ABOVE_MEAN),
+                          math.floor(m_c) + 127).clamp(S.WINDOW_BINADES - 1, 254)
+        base = (top - S.WINDOW_BINADES + 1) << 7
+        pos = torch.arange(n, device=t.device)
+        eb = base[(pos // span) % blocks]
+        off = (idx != 0) & ((idx < eb) | (idx >= eb + S.WINDOW_BINADES * 128) | (pos >= whole))
+        k = int(off.sum())
+        w = int(torch.cat([off, off.new_zeros((-n) % 256)]).view(-1, 256).any(1).sum())
+        below = (int(exps.max()) - exps[nz]).clamp(0, 63)
+        rows.append({"n": n, "kind": "map" if i < half else "gradient", "m": m,
+                     "nonfinite": int((~torch.isfinite(flat)).sum()), "off": k,
+                     "warp_steps": -(-n // 256), "warp_steps_off": w,
+                     "binades_below_largest": torch.bincount(below, minlength=64).tolist()})
+        for kind in ("all", "maps" if i < half else "grads"):
+            tot[kind][0] += k
+            tot[kind][1] += n
+        warps[0] += w
+        warps[1] += -(-n // 256)
+    worst = max(rows, key=lambda r: r["off"] / r["n"], default=None)
+    return {"tensors": len(rows), "elements": tot["all"][1],
+            "off_share": tot["all"][0] / max(tot["all"][1], 1),
+            "maps_off_share": tot["maps"][0] / max(tot["maps"][1], 1),
+            "grads_off_share": tot["grads"][0] / max(tot["grads"][1], 1),
+            "warp_share": warps[0] / max(warps[1], 1),
+            "worst": None if worst is None else {
+                k: worst[k] for k in ("n", "kind", "m", "off", "warp_steps_off")},
+            "per_tensor": rows}
+
+
+def model_bn_taps(argv) -> list[tuple[tuple[int, ...], int]]:
+    """The calls the BN kernel takes in one training step of the trainer
+    that ``argv`` builds: each BatchNorm tap's forward, as (the map's shape,
+    its gamma's size; 0 for a scalar pair), read off one forward pass on a
+    batch of its data with the taps recording instead of compressing."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.compress.base import SizeStats
+    from smart_quantization_tpu_torch.inject import tap
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    torch.manual_seed(0)
+    trainer = build_trainer(parse_args(argv + ["--logdir", ""]))
+    inputs, _ = next(iter(trainer.data.device_train_batches(0, trainer.device)))
+    taps = []
+
+    def record(x, gen, compressor, *, gamma=None, **_):
+        if gamma is not None:
+            taps.append((tuple(x.shape), gamma.numel() if gamma.dim() else 0))
+        return x, SizeStats.of(x.numel(), 32, 32, x.device)
+
+    real = tap.compression_tap
+    tap.compression_tap = record
+    try:
+        trainer.model.eval()
+        with torch.no_grad():
+            trainer.model(*trainer.task.model_args(trainer.task.prepare_eval(inputs)),
+                          tap.TapContext(torch.Generator()))
+    finally:
+        tap.compression_tap = real
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return taps
 
 
 def model_step_calls(argv) -> list[tuple[int, str]]:
@@ -2822,6 +3420,9 @@ def main() -> int:
     errs.update(check_bf16_kernels(device))
     say("  the redesigned bfloat16 forms: one-launch SmaQ, two-launch SmaQ, float_quantize")
     errs.update(check_bf16_redesign(device))
+    say("  the redesigned bfloat16 forms: S2FP8's split path and the BN kernel")
+    for k, v in check_bf16_s2fp8_bn(device).items():
+        errs[k] = max(errs.get(k, 0.0), v)
 
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[4] training: ResNet-18, batch 128, full coverage")
@@ -3001,6 +3602,8 @@ def main() -> int:
             ("float_bf16_nearest_bf16", None, None, None),
             ("s2fp8_stats_bf16", "plain_s2fp8_stats_bf16", None, None),
             ("s2fp8_quantize_bf16", None, None, None),
+            ("s2fp8_stats_table_bf16", "plain_s2fp8_stats_bf16", None, None),
+            ("s2fp8_quantize_window_bf16", None, None, None),
             ("s2fp8_pair_bf16", "plain_s2fp8_bf16", None, "s2fp8_pair_cast"),
             ("smaq_quantize_bn_bf16", "plain_bn_bf16", None, "smaq_quantize_bn_cast")):
         line = f"  {k}: {t[k] * 1e3:.1f} us"
@@ -3013,7 +3616,7 @@ def main() -> int:
         say(line + f", bound {bound[k] * 1e3:.1f} us (bytes), {bound[k] / t[k]:.1%} of it, on {card}")
     say(f"  PyTorch moving the same bf16 bytes: xb.sum() {t['torch_sum_bf16'] * 1e3:.1f} us (a "
         f"read), yb.copy_(xb) {t['torch_copy_bf16'] * 1e3:.1f} us (a read and a write)")
-    time_bf16_redesign(device, timed, per_call, bf16_calls, card)
+    time_bf16_redesign(device, timed, per_call, bf16_calls, card, *bf16_s2fp8_bn_steps())
     with open(os.path.join(OUT, "bf16_times.json"), "w") as f:
         json.dump({"card": card, "ms": tb, "bound_ms": bound_b}, f, indent=1)
 
@@ -3048,6 +3651,10 @@ def main() -> int:
             "plain_float_bf16", "library_fp8_bf16"),
         row("s2fp8_stats_bf16", "s2fp8.cu", "s2fp8_kernel.py:226", "plain_s2fp8_stats_bf16"),
         row("s2fp8_quantize_bf16", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8_bf16"),
+        # the bf16 split form's table kernels (a large call's: split_forms)
+        row("s2fp8_stats_table_bf16", "s2fp8.cu", "s2fp8_kernel.py:226",
+            "plain_s2fp8_stats_bf16"),
+        row("s2fp8_quantize_window_bf16", "s2fp8.cu", "s2fp8_kernel.py:190", "plain_s2fp8_bf16"),
     ]
     say(f"  per step: {per_step} (ResNet-18 smart), {bert_per_step} (bert-base), "
         f"{codec['launches']} (bert-base codecs), {packed['launches']} (bert-base packed); launches "

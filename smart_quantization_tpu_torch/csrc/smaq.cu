@@ -48,6 +48,9 @@
 //                  element e is (e / (H*W)) % C; each block stages the four
 //                  folded constants of every channel in shared memory.
 //
+//                  Its bfloat16 form is a loop of its own (16-byte loads,
+//                  a running channel, compile-time modes; see its note).
+//
 //   smaq_onepass   a bfloat16 full-stats call in one launch, with x kept in
 //                  shared memory between the stats and the quantize pass
 //                  (see its note below): 2 + 2 bytes an element from device
@@ -89,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "block_reduce.cuh"
 #include "elem.cuh"
@@ -717,21 +722,57 @@ smaq_onepass_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
 // B = -(beta_c * A) - mean / std, G = std * g_c, H = mean * g_c + beta_c and
 // g_c = gamma_c, or 1 where gamma_c == 0.  z = x * A + B, then the SmaQ
 // buckets and rounding, zhat = q / scale - shift, y = zhat * G + H.
+//
+// Both are written with intrinsics, in the operations the compiler made of
+// the plain expressions in the float32 kernel's walks (B, H, z, zhat and y
+// by FMA; the product (z + shift) * scale rounded, then the stochastic
+// add), so that every walk of both element types gives the same bits.  Left
+// to the compiler, one copy of the element-by-element walk in its SASS
+// fused the stochastic add with that product (one FMA), which can round an
+// element to the other grid point.
+__device__ __forceinline__ float4 bn_channel(float gamma, float beta, float mean, float std) {
+  const float g = gamma == 0.f ? 1.f : gamma;
+  const float a = __frcp_rn(__fmul_rn(g, std));
+  return make_float4(a, __fmaf_rn(-beta, a, -__fdiv_rn(mean, std)), __fmul_rn(std, g),
+                     __fmaf_rn(mean, g, beta));
+}
+
+// kRound as Quant's: runtime flags, or the mode and the clamp fixed at
+// compile time (the bfloat16 loop's instances).
+template <int kRound = kRuntime>
 struct QuantBN {
   float t, range_main, range_outlier, inv_range_main, inv_range_outlier;
   bool stochastic, all_positive;
 
   __device__ __forceinline__ float operator()(float x, float4 k, uint32_t bits, int& cnt) const {
-    const float z = x * k.x + k.y;
+    const float z = __fmaf_rn(x, k.x, k.y);
     const bool hi = z > t, lo = z < -t, out = hi || lo;
     const float shift = hi ? -t : (lo ? t : 0.f);
-    float q = (z + shift) * (out ? range_outlier : range_main);
-    q = stochastic ? floorf(q + static_cast<float>(bits >> 8) * 0x1p-24f) : truncf(q);
-    const float zhat = q * (out ? inv_range_outlier : inv_range_main) - shift;
-    float y = zhat * k.z + k.w;
-    if (all_positive && y < 0.f) y = 0.f;
+    const float q0 = __fmul_rn(__fadd_rn(z, shift), out ? range_outlier : range_main);
+    const float u = static_cast<float>(bits >> 8) * 0x1p-24f;  // exact
+    const bool sto = kRound == kRuntime ? stochastic : (kRound & kStochastic) != 0;
+    const float q = sto ? floorf(__fadd_rn(q0, u)) : truncf(q0);
+    const float zhat = __fmaf_rn(q, out ? inv_range_outlier : inv_range_main, -shift);
+    float y = __fmaf_rn(zhat, k.z, k.w);
+    const bool pos = kRound == kRuntime ? all_positive : (kRound & kPositive) != 0;
+    if (pos && y < 0.f) y = 0.f;
     cnt += out;
     return y;
+  }
+};
+
+// The channel of element e of an (outer, channels, inner) tensor, (e /
+// inner) % channels, in 32-bit index arithmetic where it fits (64-bit
+// division is a long software routine).
+struct ChannelOf {
+  int64_t inner;
+  int channels;
+  bool small;
+
+  __device__ __forceinline__ int operator()(int64_t e) const {
+    return small ? static_cast<int>((static_cast<uint32_t>(e) / static_cast<uint32_t>(inner)) %
+                                    static_cast<uint32_t>(channels))
+                 : static_cast<int>((e / inner) % channels);
   }
 };
 
@@ -750,25 +791,14 @@ __global__ void smaq_quantize_bn_kernel(
   extern __shared__ float4 chan[];
 
   const Consts cs = stats_mode == kConsts ? *consts : make_consts(stats[0], stats[1], p);
-  const float mean = cs.mean, std = cs.std;
-  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
-    const float g = gamma[c] == 0.f ? 1.f : gamma[c];
-    const float b = beta[c];
-    const float a = 1.f / (g * std);
-    chan[c] = make_float4(a, -(b * a) - mean / std, std * g, mean * g + b);
-  }
+  for (int c = threadIdx.x; c < channels; c += blockDim.x)
+    chan[c] = bn_channel(gamma[c], beta[c], cs.mean, cs.std);
   __syncthreads();
 
-  QuantBN qz{p.t, p.range_main, p.range_outlier, p.inv_range_main, p.inv_range_outlier,
-             stochastic != 0, all_positive != 0};
-  // 32-bit index arithmetic where it fits (64-bit division is a long
-  // software routine); a float4 group lies in one channel when inner % 4 == 0
-  const bool small = n <= 0xFFFFFFFFll;
-  const uint32_t inner32 = static_cast<uint32_t>(inner), ch32 = static_cast<uint32_t>(channels);
-  auto chan_of = [&](int64_t e) -> int {
-    return small ? static_cast<int>((static_cast<uint32_t>(e) / inner32) % ch32)
-                 : static_cast<int>((e / inner) % channels);
-  };
+  QuantBN<> qz{p.t, p.range_main, p.range_outlier, p.inv_range_main, p.inv_range_outlier,
+               stochastic != 0, all_positive != 0};
+  // a float4 group lies in one channel when inner % 4 == 0
+  const ChannelOf chan_of{inner, channels, n <= 0xFFFFFFFFll};
   const bool group_in_one = (inner & 3) == 0;
   const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
   const bool aligned = group_aligned<T>(x) && group_aligned<T>(y);
@@ -795,6 +825,106 @@ __global__ void smaq_quantize_bn_kernel(
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su);
 }
+
+// ---------------------------------------------------------------------------
+// The bfloat16 form of smaq_quantize_bn.  The float32 loop above takes one
+// group of four a thread a step with no load in flight, two 32-bit divisions
+// for its channel and runtime rounding flags: at half the bytes those, not
+// memory, set its pace (31.7 us at 8 M elements against a 10 us bound,
+// PERF.md).  This one reads 16 bytes (8 bf16, two groups) a thread a step
+// with the next load in flight, on kMinBlocks blocks a SM (bn_blocks);
+// each thread keeps a running (plane, offset, channel) of its chunk and
+// steps it by the grid's stride, so a chunk's channel costs a few integer
+// adds; and the rounding mode and all_positive are compile-time.  It needs
+// inner % 4 == 0 (a group lies in one channel) or one channel; otherwise,
+// and where x or y is not 16-byte aligned, groups go element by element
+// with the float32 loop's division.  The element op is QuantBN's, so the
+// bits are the float32 kernel's on x.float().
+
+// Two elements of a word of two bf16 with their words of Philox.
+template <int kRound>
+__device__ __forceinline__ uint32_t bn_word(const QuantBN<kRound>& qz, uint32_t w,
+                                            float4 k, uint32_t r0, uint32_t r1, int& cnt) {
+  return smaq::pack_bf16x2(qz(smaq::widen_lo(w), k, r0, cnt), qz(smaq::widen_hi(w), k, r1, cnt));
+}
+
+template <bool kSto, bool kPos>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+smaq_quantize_bn_bf16_kernel(
+    const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
+    const float* __restrict__ stats, const Consts* __restrict__ consts, int stats_mode,
+    const float* __restrict__ gamma, const float* __restrict__ beta, int channels,
+    int64_t inner, const unsigned long long* __restrict__ key, unsigned int call,
+    int compute_size, QParams p, unsigned long long* __restrict__ ws,
+    float* __restrict__ size_out) {
+  __shared__ unsigned long long su[32];
+  extern __shared__ float4 chan[];
+
+  const bool chunked = channels == 1 || (inner & 3) == 0;
+  const bool wide =
+      chunked && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int64_t chunks = wide ? n >> 3 : 0;  // 16-byte chunks: groups 2c and 2c + 1
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  uint4 v = make_uint4(0u, 0u, 0u, 0u), next = v;
+  if (first < chunks) v = xv[first];  // in flight while the block stages the channels
+
+  const Consts cs = stats_mode == kConsts ? *consts : make_consts(stats[0], stats[1], p);
+  for (int c = threadIdx.x; c < channels; c += blockDim.x)
+    chan[c] = bn_channel(gamma[c], beta[c], cs.mean, cs.std);
+  __syncthreads();
+
+  const QuantBN<(kSto ? kStochastic : kTrunc) | (kPos ? kPositive : 0)> qz{
+      p.t, p.range_main, p.range_outlier, p.inv_range_main, p.inv_range_outlier, kSto, kPos};
+  const uint2 pkey = kSto ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const uint4 none = make_uint4(0u, 0u, 0u, 0u);
+  int cnt = 0;
+  // chunk c starts at element 8c, offset r in its plane, plane q of channel
+  // ch; a step of `stride` chunks moves 8 * stride elements: dq planes and
+  // dr more, dch channels
+  int64_t r = (8 * first) % inner;
+  int ch = static_cast<int>((8 * first) / inner % channels);
+  const int64_t dq = 8 * stride / inner, dr = 8 * stride % inner;
+  const int dch = static_cast<int>(dq % channels);
+  for (int64_t c = first; c < chunks; c += stride) {
+    if (c + stride < chunks) next = xv[c + stride];
+    // the chunk's second group starts 4 elements on: in the next plane where
+    // the first ends one
+    const int ch2 = r + 4 < inner ? ch : (ch + 1 == channels ? 0 : ch + 1);
+    const float4 ka = chan[ch], kb = chan[ch2];
+    const uint4 r0 = kSto ? smaq::philox_group(2 * c, pkey) : none;
+    const uint4 r1 = kSto ? smaq::philox_group(2 * c + 1, pkey) : none;
+    yv[c] = make_uint4(bn_word(qz, v.x, ka, r0.x, r0.y, cnt), bn_word(qz, v.y, ka, r0.z, r0.w, cnt),
+                       bn_word(qz, v.z, kb, r1.x, r1.y, cnt), bn_word(qz, v.w, kb, r1.z, r1.w, cnt));
+    v = next;
+    r += dr;
+    const bool carry = r >= inner;
+    r -= carry ? inner : 0;
+    ch += dch + carry;
+    ch -= ch >= channels ? channels : 0;
+  }
+  // the groups past the last whole chunk (all of them where the chunks do
+  // not apply), element by element with the float32 loop's channel
+  const ChannelOf chan_of{inner, channels, n <= 0xFFFFFFFFll};
+  const int64_t groups = (n + 3) >> 2;
+  for (int64_t g = 2 * chunks + first; g < groups; g += stride) {
+    const uint4 rg = kSto ? smaq::philox_group(g, pkey) : none;
+    const uint32_t rw[4] = {rg.x, rg.y, rg.z, rg.w};
+    for (int j = 0; j < 4 && 4 * g + j < n; ++j) {
+      const int64_t e = 4 * g + j;
+      y[e] = smaq::from_float<bf16>(qz(to_float(x[e]), chan[chan_of(e)], rw[j], cnt));
+    }
+  }
+  write_size(cnt, n, compute_size, p, ws, size_out, su);
+}
+
+// The instances: [2 * stochastic + all_positive].
+using BnBf16Kernel = decltype(&smaq_quantize_bn_bf16_kernel<false, false>);
+const BnBf16Kernel kBnBf16Kernels[] = {
+    smaq_quantize_bn_bf16_kernel<false, false>, smaq_quantize_bn_bf16_kernel<false, true>,
+    smaq_quantize_bn_bf16_kernel<true, false>, smaq_quantize_bn_bf16_kernel<true, true>};
 
 QParams qparams(float t, float range_main, float range_outlier, float inv_range_main,
                 float inv_range_outlier, float std_lo, float std_hi, int bits_main,
@@ -925,6 +1055,14 @@ void launch_quantize_bn(const void* x, void* y, long long n, const float* stats,
                         unsigned long long* ws, float* size_out, int num_blocks, int threads,
                         cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(channels) * sizeof(float4);
+  if constexpr (std::is_same<T, bf16>::value) {
+    kBnBf16Kernels[2 * (stochastic != 0) + (all_positive != 0)]
+        <<<num_blocks, threads, smem, stream>>>(
+            static_cast<const bf16*>(x), static_cast<bf16*>(y), static_cast<int64_t>(n), stats,
+            reinterpret_cast<const Consts*>(consts), stats_mode, gamma, beta, channels,
+            static_cast<int64_t>(inner), key, call, compute_size, p, ws, size_out);
+    return;
+  }
   smaq_quantize_bn_kernel<T><<<num_blocks, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n), stats,
       reinterpret_cast<const Consts*>(consts), stats_mode, gamma, beta, channels,
@@ -1046,12 +1184,14 @@ int smaq_onepass_smem(int blocks, int threads, long long* bytes) {
 // Blocks of `threads` threads (and `smem` bytes of dynamic shared memory)
 // resident on one SM: kernel 0 smaq_stats, 1 smaq_quantize, 2
 // smaq_quantize_bn (their float32 forms), 3 smaq_onepass (the occupancy
-// query: right only up to 48 KB of shared memory, smaq_onepass_smem).
+// query: right only up to 48 KB of shared memory, smaq_onepass_smem), 4
+// smaq_quantize_bn's bfloat16 form (stochastic).
 int smaq_occupancy(int kernel, int threads, long long smem, int* blocks_per_sm) {
   const void* f = kernel == 0   ? reinterpret_cast<const void*>(smaq_stats_kernel<float>)
                   : kernel == 1 ? reinterpret_cast<const void*>(smaq_quantize_kernel<float>)
                   : kernel == 2 ? reinterpret_cast<const void*>(smaq_quantize_bn_kernel<float>)
-                                : reinterpret_cast<const void*>(kOnepassKernels[2]);
+                  : kernel == 3 ? reinterpret_cast<const void*>(kOnepassKernels[2])
+                                : reinterpret_cast<const void*>(kBnBf16Kernels[2]);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, f, threads, static_cast<size_t>(smem)));
 }

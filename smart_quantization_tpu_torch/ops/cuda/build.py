@@ -135,6 +135,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.s2fp8_stats.restype = i
     lib.s2fp8_quantize.argtypes = [p, p, ll, i, p, p, u32, i, i, i, i, p]
     lib.s2fp8_quantize.restype = i
+    # the bfloat16 split form's table kernels (csrc/s2fp8.cu: bfloat16 only)
+    lib.s2fp8_stats_table.argtypes = [p, ll, p, i, i, p]
+    lib.s2fp8_stats_table.restype = i
+    lib.s2fp8_quantize_window.argtypes = [p, p, ll, p, p, u32, i, i, i, i, p]
+    lib.s2fp8_quantize_window.restype = i
     lib.s2fp8_occupancy.argtypes = [i, i, i, i, p]
     lib.s2fp8_occupancy.restype = i
     lib.philox_fill.argtypes = [p, ll, p, u32, i, i, i, p]

@@ -22,7 +22,13 @@ design.  Here:
 
 The kernels read and write float32 or bfloat16 (``launch.DTYPES``): a
 bfloat16 tensor goes to the bfloat16 forms as it is, another dtype is cast
-to float32.
+to float32.  The bfloat16 split form of a large call has kernels of its
+own (the note in ``csrc/s2fp8.cu``), which ``split_forms`` picks by size:
+``s2fp8_stats_table`` takes log2 as exponent + a table entry of the
+mantissa on the float32 kernel's grid (``log2_table_reference`` is its
+plain version), and ``s2fp8_quantize_window`` runs one block of
+BF16_THREADS on each SM (``window_blocks``), each block tabulating the
+element function over WINDOW_BINADES binades of bf16 magnitudes.
 """
 
 from __future__ import annotations
@@ -55,8 +61,10 @@ from smart_quantization_tpu_torch.ops.float_format import (
 from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize, squeeze_coefs
 
 # Launches of each kernel since the last reset (one per launch, nowhere
-# else), its bfloat16 form under the name with "_bf16".
-LAUNCHES = with_bf16_forms(("s2fp8_stats", "s2fp8_quantize"))
+# else), its bfloat16 form under the name with "_bf16"; the bfloat16 split
+# form's table kernels under their own names.
+LAUNCHES = {**with_bf16_forms(("s2fp8_stats", "s2fp8_quantize")),
+            "s2fp8_stats_table_bf16": 0, "s2fp8_quantize_window_bf16": 0}
 
 # The small form: one block of SMALL_THREADS computes the stats, the
 # constants and the table, then quantizes, one launch.  It is one SM's
@@ -76,6 +84,25 @@ TABLE_BASE = 444
 _COUNTER_WORDS = 2
 _CONST_WORDS = 68
 _CONST_FLOATS = 2 * _CONST_WORDS
+# The bfloat16 split form (csrc/s2fp8.cu: kBf16Threads, kWindowBinades,
+# kLog2Split): the quantize's block, a 16-byte load (8 bf16) a thread per
+# step; the binades of 128 magnitudes each block tabulates; and the
+# mantissas (of 128) from which log2f halves the mantissa before its
+# polynomial, so that the stats take log2 as exponent + a table entry.
+BF16_THREADS = 1024
+BF16_LOAD_ELEMS = 8
+WINDOW_BINADES = 16
+LOG2_SPLIT = 54
+# Where the stats' max is 0 (which zeros alone give), each block of the
+# window quantize places its window from its first chunks' nonzero
+# exponents: at their largest, or WINDOW_ABOVE_MEAN above their mean where
+# that is lower (kWindowAboveMean).
+WINDOW_ABOVE_MEAN = 6
+# The sizes from which the bfloat16 split form takes its table kernels
+# (``split_forms``; below, the float32 kernels' bfloat16 instances are
+# faster: profile_s2fp8.py, PERF.md).
+BF16_TABLE_MIN = 1 << 21
+BF16_WINDOW_MIN = 1 << 20
 
 
 def reset_launch_counts() -> None:
@@ -87,10 +114,44 @@ def s2fp8_plan(n: int, sms: int) -> tuple[str, int]:
     """The form of an S2FP8 call of ``n`` elements on a card of ``sms``
     SMs: ``("small", 1)`` (one ``s2fp8_quantize`` block of SMALL_THREADS,
     no stats launch) or ``("split", blocks)`` (``s2fp8_stats`` then
-    ``s2fp8_quantize``, each on ``blocks`` blocks of THREADS)."""
+    ``s2fp8_quantize``, each on ``blocks`` blocks of THREADS, or a large
+    bfloat16 call's table kernels where ``split_forms`` says)."""
     if n <= SMALL_MAX:
         return "small", 1
     return "split", split_blocks(n, sms)
+
+
+def split_forms(n: int, dtype: torch.dtype) -> tuple[bool, bool]:
+    """Whether a split-form call of ``n`` elements of ``dtype`` takes the
+    bfloat16 table kernels: (``s2fp8_stats_table``, from BF16_TABLE_MIN
+    elements; ``s2fp8_quantize_window``, from BF16_WINDOW_MIN).  The one
+    place that decides it: the wrappers ask it unless told."""
+    bf16 = dtype == torch.bfloat16
+    return bf16 and n >= BF16_TABLE_MIN, bf16 and n >= BF16_WINDOW_MIN
+
+
+def window_blocks(n: int, sms: int) -> int:
+    """Blocks of BF16_THREADS of ``s2fp8_quantize_window``: one a SM at
+    most (each builds its table once), and no more than give each thread
+    one 16-byte load."""
+    return max(1, min(sms, -(-n // (BF16_LOAD_ELEMS * BF16_THREADS))))
+
+
+def log2_table_reference(device=None) -> torch.Tensor:
+    """The bfloat16 stats' log2 of every bf16 magnitude (bits 0 to 0x7FFF,
+    float32) as the table gives it, in PyTorch ops: exponent - 127 (+1 from
+    LOG2_SPLIT on) plus ``torch.log2`` of the mantissa entry, rounded once;
+    subnormals and zero (0) from ``log2`` itself, inf and NaN as ``log2``."""
+    h = torch.arange(1 << 15, dtype=torch.int64, device=device)
+    e, j = h >> 7, h & 127
+    split = j >= LOG2_SPLIT
+    m = 1.0 + j.double() / 128.0
+    mant = torch.where(split, m / 2.0, m).float()
+    ee = (e - 127 + split.long()).double()
+    normal = (ee + torch.log2(mant).double()).float()
+    x = from_bits(h << 16)
+    direct = torch.where(h == 0, torch.zeros_like(x), torch.log2(x))
+    return torch.where((e == 0) | (e == 255), direct, normal)
 
 
 def workspace_words(sms: int) -> int:
@@ -105,9 +166,10 @@ def workspace(xf: torch.Tensor) -> torch.Tensor:
     return launch.workspace(xf, "s2fp8", workspace_words(sm_count(xf.device)))
 
 
-def s2fp8_stats(xf: torch.Tensor) -> torch.Tensor:
-    """Launch the stats kernel on a flat float32 or bfloat16 tensor;
-    returns the constants its last block
+def s2fp8_stats(xf: torch.Tensor, *, table: bool | None = None) -> torch.Tensor:
+    """Launch the stats kernel on a flat float32 or bfloat16 tensor, or
+    with ``table`` (bfloat16 only; by default as ``split_forms`` says)
+    ``s2fp8_stats_table``; returns the constants its last block
     writes, float32 ``[mu, m, alpha, beta, 1/alpha, 0, 0, 0, table[128]]``
     (``read_consts`` names them).  They live in the stream's workspace: the
     next stats launch on the stream overwrites them."""
@@ -115,13 +177,22 @@ def s2fp8_stats(xf: torch.Tensor) -> torch.Tensor:
     n = xf.numel()
     if n == 0:
         raise ValueError("s2fp8_stats takes a non-empty tensor")
+    if table is None:
+        table = split_forms(n, xf.dtype)[0]
+    elif table and xf.dtype != torch.bfloat16:
+        raise ValueError(f"s2fp8_stats_table takes bfloat16, got {xf.dtype}")
     ws = workspace(xf)
-    rc = build.library().s2fp8_stats(
-        xf.data_ptr(), n, DTYPES[xf.dtype], ws.data_ptr(), split_blocks(n, sm_count(xf.device)),
-        THREADS, stream(xf),
-    )
-    raise_on(rc, "s2fp8_stats")
-    LAUNCHES[form_name("s2fp8_stats", xf)] += 1
+    blocks = split_blocks(n, sm_count(xf.device))
+    lib = build.library()
+    if table:
+        rc = lib.s2fp8_stats_table(xf.data_ptr(), n, ws.data_ptr(), blocks, THREADS, stream(xf))
+        name = "s2fp8_stats_table_bf16"
+    else:
+        rc = lib.s2fp8_stats(xf.data_ptr(), n, DTYPES[xf.dtype], ws.data_ptr(), blocks, THREADS,
+                             stream(xf))
+        name = form_name("s2fp8_stats", xf)
+    raise_on(rc, name)
+    LAUNCHES[name] += 1
     return ws[_COUNTER_WORDS:_COUNTER_WORDS + _CONST_WORDS].view(torch.float32)
 
 
@@ -143,15 +214,22 @@ def s2fp8_quantize(
     call: int = 0,
     stochastic: bool,
     check_inf: bool,
+    window: bool | None = None,
 ) -> torch.Tensor:
-    """Launch the quantize kernel against ``s2fp8_stats``' ``consts``;
-    without them, the small form (``SMALL_MAX`` elements at most): one
-    block computes the stats itself, then quantizes.  Stochastic rounding
-    draws (``key``, ``call``): ``key`` a 1-element int64 step key on the
-    card.  Returns the flat output, of ``xf``'s dtype."""
+    """Launch the quantize kernel against ``s2fp8_stats``' ``consts``, or
+    with ``window`` (bfloat16 only; by default as ``split_forms`` says)
+    ``s2fp8_quantize_window``; without them, the small form (``SMALL_MAX``
+    elements at most): one block computes the stats itself, then
+    quantizes.  Stochastic rounding draws (``key``, ``call``): ``key`` a
+    1-element int64 step key on the card.  Returns the flat output, of
+    ``xf``'s dtype."""
     check_input(xf)
     check_key(key, xf, stochastic)
     n = xf.numel()
+    if window is None:
+        window = consts is not None and split_forms(n, xf.dtype)[1]
+    elif window and (consts is None or xf.dtype != torch.bfloat16):
+        raise ValueError("s2fp8_quantize_window takes bfloat16 and s2fp8_stats' consts")
     if consts is None:
         if not 0 < n <= SMALL_MAX:
             raise ValueError(f"the small form takes 1 to {SMALL_MAX} elements, got {n}: "
@@ -162,16 +240,23 @@ def s2fp8_quantize(
                 or consts.device != xf.device or not consts.is_contiguous()
                 or consts.data_ptr() % 16):
             raise ValueError("consts must be s2fp8_stats' constants on the tensor's device")
-        blocks, threads = split_blocks(n, sm_count(xf.device)), THREADS
+        sms = sm_count(xf.device)
+        blocks, threads = ((window_blocks(n, sms), BF16_THREADS) if window
+                           else (split_blocks(n, sms), THREADS))
     y = torch.empty_like(xf)
-    rc = build.library().s2fp8_quantize(
-        xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(consts), ptr(key), call,
-        int(stochastic),
-        int(check_inf),
-        blocks, threads, stream(xf),
-    )
-    raise_on(rc, "s2fp8_quantize")
-    LAUNCHES[form_name("s2fp8_quantize", xf)] += 1
+    lib = build.library()
+    if window:
+        rc = lib.s2fp8_quantize_window(
+            xf.data_ptr(), y.data_ptr(), n, ptr(consts), ptr(key), call, int(stochastic),
+            int(check_inf), blocks, threads, stream(xf))
+        name = "s2fp8_quantize_window_bf16"
+    else:
+        rc = lib.s2fp8_quantize(
+            xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(consts), ptr(key), call,
+            int(stochastic), int(check_inf), blocks, threads, stream(xf))
+        name = form_name("s2fp8_quantize", xf)
+    raise_on(rc, name)
+    LAUNCHES[name] += 1
     return y
 
 

@@ -16,7 +16,9 @@ its BatchNorm-folded variant ``smaq_fused_bn``.  The source note in
   that keeps x on chip between its stats and its quantize pass; else
   ``smaq_stats`` then ``smaq_quantize``;
 - ``smaq_fused`` and ``smaq_fused_bn`` are the kernel paths of one SmaQ
-  call on a CUDA tensor, without and with (gamma, beta);
+  call on a CUDA tensor, without and with (gamma, beta); the BN kernel's
+  bfloat16 form has a loop of its own (16-byte loads, a running channel,
+  compile-time modes: ``bn_blocks``);
 - ``smaq_fused_reference`` and ``smaq_fused_bn_reference`` are the
   kernels' plain versions: the same arithmetic in PyTorch ops
   (pivot-shifted one-pass stats, folded reciprocals), for any device;
@@ -83,6 +85,9 @@ _SAMPLE_SPAN = 512 * 1024
 _GIVEN, _CONSTS, _SMALL = 0, 1, 2
 # the BN kernel keeps one float4 per channel in shared memory (48 KB)
 MAX_BN_CHANNELS = 3072
+# The BN kernel's bfloat16 form reads 8 bf16 (16 bytes) a thread per step,
+# on BLOCKS_PER_SM blocks of THREADS a SM at most (bn_blocks)
+BN_BF16_LOAD_ELEMS = 8
 
 # The split form's launch shape is launch.py's (split_blocks).  The small
 # form: one block of SMALL_THREADS computes the stats and then quantizes,
@@ -110,6 +115,15 @@ def workspace_words(sms: int) -> int:
     """64-bit words of a workspace: the counters and the partials of the
     largest stats launch on a card of ``sms`` SMs."""
     return _COUNTER_WORDS + 4 * sms * BLOCKS_PER_SM
+
+
+def bn_blocks(n: int, dtype: torch.dtype, sms: int) -> int:
+    """Blocks of THREADS of a ``smaq_quantize_bn`` launch on ``n`` elements:
+    ``quant_blocks``' grid for float32; for bfloat16 BLOCKS_PER_SM a SM on
+    ``sms`` SMs, and no more than give each thread one 16-byte load."""
+    if dtype == torch.bfloat16:
+        return max(1, min(sms * BLOCKS_PER_SM, -(-n // (BN_BF16_LOAD_ELEMS * THREADS))))
+    return quant_blocks(n)
 
 
 def onepass_capacity(sms: int, slots: int) -> int:
@@ -331,7 +345,7 @@ def smaq_quantize_bn(
         gamma.data_ptr(), beta.data_ptr(), channels, inner,
         ptr(key), call, int(params.stochastic_rounding), int(all_positive), int(compute_size),
         *_quant_args(params), workspace(xf).data_ptr(), size.data_ptr(),
-        quant_blocks(n), THREADS, stream(xf),
+        bn_blocks(n, xf.dtype, sm_count(xf.device)), THREADS, stream(xf),
     )
     raise_on(rc, "smaq_quantize_bn")
     LAUNCHES[form_name("smaq_quantize_bn", xf)] += 1

@@ -105,13 +105,14 @@ def test_ctypes_declaration_matches_c_signature(name):
 def test_every_declaration_has_an_entry_point():
     assert {"smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_onepass",
             "smaq_onepass_smem", "smaq_occupancy", "float_quantize", "float_occupancy",
-            "s2fp8_stats", "s2fp8_quantize", "s2fp8_occupancy", "philox_fill"} <= set(ENTRY_POINTS)
+            "s2fp8_stats", "s2fp8_quantize", "s2fp8_stats_table", "s2fp8_quantize_window",
+            "s2fp8_occupancy", "philox_fill"} <= set(ENTRY_POINTS)
     assert set(_declared()) == set(ENTRY_POINTS)
 
 
 @pytest.mark.parametrize(
     "name", ["smaq_quantize", "smaq_quantize_bn", "smaq_onepass", "float_quantize",
-             "s2fp8_quantize", "philox_fill"])
+             "s2fp8_quantize", "s2fp8_quantize_window", "philox_fill"])
 def test_stochastic_kernels_read_their_key_from_device_memory(name):
     """A CUDA graph bakes a launch's arguments: the key goes by pointer
     (each replay reads the slot the host wrote) and the call index by value,
@@ -295,3 +296,103 @@ def test_float_bf16_launch_shape(n, sms, resident):
     assert launch_blocks(n, torch.float32) == quant_blocks(n)
     src = _read(f"{build.CSRC}/float_quantize.cu")
     assert "const int64_t pairs = wide ? n >> 3 : 0;" in src
+
+
+# The bfloat16 forms of S2FP8's split path and of the BN kernel
+# (csrc/s2fp8.cu, csrc/smaq.cu): their launch shapes, the constants both
+# sides state, and the plain version of the stats' log2 table.
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe
+@pytest.mark.parametrize(
+    "n", [S.SMALL_MAX + 1, 8192, 300_001, S.BF16_WINDOW_MIN - 1, S.BF16_WINDOW_MIN, 1_048_576,
+          8_388_608, 12_582_912, 50_331_648])
+def test_s2fp8_bf16_quantize_shape(n, sms):
+    """``s2fp8_quantize_window`` runs one block of BF16_THREADS a SM at
+    most, each thread a 16-byte load (8 bf16) a step; it takes the bfloat16
+    split form from BF16_WINDOW_MIN on, ``s2fp8_stats_table`` from
+    BF16_TABLE_MIN, and below them the float32 kernels' bf16 instances
+    serve.  The stats keep the float32 kernel's grid (the order of their
+    sums) at every size."""
+    assert S.BF16_LOAD_ELEMS * torch.finfo(torch.bfloat16).bits // 8 == 16
+    assert S.BF16_THREADS <= 1024
+    assert S.window_blocks(n, sms) == max(
+        1, min(sms, math.ceil(n / (S.BF16_LOAD_ELEMS * S.BF16_THREADS))))
+    assert S.split_forms(n, torch.bfloat16) == (n >= S.BF16_TABLE_MIN, n >= S.BF16_WINDOW_MIN)
+    assert S.split_forms(n, torch.float32) == (False, False)
+    assert S.s2fp8_plan(n, sms) == ("split", split_blocks(n, sms))
+    assert S.BF16_WINDOW_MIN <= S.BF16_TABLE_MIN
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM and PCIe
+@pytest.mark.parametrize("n", [1, 10, 2048, 2049, 300_001, 8_388_608, 50_331_648])
+def test_bn_launch_shape(n, sms):
+    """The BN kernel's bfloat16 form reads 8 bf16 (16 bytes) a thread a
+    step on BLOCKS_PER_SM blocks of THREADS a SM at most; the float32 form
+    keeps quant_blocks' grid."""
+    assert K.BN_BF16_LOAD_ELEMS * torch.finfo(torch.bfloat16).bits // 8 == 16
+    assert K.bn_blocks(n, torch.bfloat16, sms) == max(
+        1, min(sms * BLOCKS_PER_SM, math.ceil(n / (K.BN_BF16_LOAD_ELEMS * THREADS))))
+    assert K.bn_blocks(n, torch.float32, sms) == quant_blocks(n)
+    # every block holds the constants of the most channels the kernel takes
+    assert BLOCKS_PER_SM * K.MAX_BN_CHANNELS * 16 <= 227 * 1024
+
+
+@pytest.mark.parametrize(
+    "c_name, value",
+    [("kBf16Threads", S.BF16_THREADS), ("kWindowBinades", S.WINDOW_BINADES),
+     ("kLog2Split", S.LOG2_SPLIT), ("kWindowAboveMean", S.WINDOW_ABOVE_MEAN)],
+)
+def test_bf16_constants_match_s2fp8_cu(c_name, value):
+    src = _read(f"{build.CSRC}/s2fp8.cu")
+    m = re.search(rf"\b{c_name} = (\d+);", src)
+    assert m is not None and int(m.group(1)) == value
+
+
+@pytest.mark.parametrize(
+    "name, counter", [("s2fp8_stats_table", "s2fp8_stats_table_bf16"),
+                      ("s2fp8_quantize_window", "s2fp8_quantize_window_bf16")])
+def test_s2fp8_table_kernels_have_their_own_entry_point_and_counter(name, counter):
+    """The bfloat16 table kernels are entry points of their own, without a
+    dtype (bfloat16 only) and without a size threshold on the C side (the
+    wrapper's ``split_forms`` picks them), and count their launches under
+    their own names."""
+    params = SIGNATURES[name]
+    assert params[0] == "const void* x" and "int dtype" not in params
+    assert counter in S.LAUNCHES
+    src = _read(f"{build.CSRC}/s2fp8.cu")
+    assert "TABLE_MIN" not in src and "WINDOW_MIN" not in src
+
+
+def test_bf16_tables_fit_static_shared_memory():
+    """The quantize's window (16 bytes an entry when stochastic, 128
+    magnitudes a binade) and the stats' log2 table (an 8-byte row for each
+    of 128 mantissas and 128 subnormals, once for each of 16 lanes, and the
+    rows once) fit a block's 48 KB of static shared memory beside the
+    unsqueeze table and the block's reductions (the window's sample: 12
+    bytes a warp)."""
+    window = S.WINDOW_BINADES * 128
+    assert window * 16 + S.TABLE_SIZE * 4 + S.BF16_THREADS // 32 * 12 <= 48 * 1024
+    assert 256 * 16 * 8 + 256 * 8 + 32 * 16 <= 48 * 1024
+
+
+def test_log2_split_is_where_log2f_halves_the_mantissa():
+    """The stats take log2 as exponent + log2f of the mantissa, halved from
+    LOG2_SPLIT on: the first of 128 mantissas above sqrt 2."""
+    assert 1 + (S.LOG2_SPLIT - 1) / 128 < math.sqrt(2) < 1 + S.LOG2_SPLIT / 128
+
+
+def test_log2_table_reference_within_one_ulp_of_torch_log2():
+    """The plain version of the bfloat16 stats' log2 over all 32 768 bf16
+    magnitudes against torch.log2 of each: within one float32 ulp, 0 for
+    zero, and inf and NaN as log2 gives them."""
+    table = S.log2_table_reference()
+    h = torch.arange(1 << 15, dtype=torch.int64)
+    x = (h << 16).to(torch.int32).view(torch.float32)
+    ref = torch.where(h == 0, torch.zeros_like(x), torch.log2(x))
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(table), nan)
+    assert torch.equal(torch.isinf(table), torch.isinf(ref))
+    d = (table.view(torch.int32).long() - ref.view(torch.int32).long()).abs()
+    assert int(torch.where(nan | (table == ref), torch.zeros_like(d), d).max()) <= 1
+    assert float(table[0]) == 0.0
