@@ -1,15 +1,18 @@
 """Carry parameter trees over to the port's ``state_dict`` layout.
 
-The JAX package's flax trees (ResNet, TinyCNN, BERT) arrive as nested
-dicts of numpy arrays:
+The JAX package's flax trees (ResNet, Inception-v3, TinyCNN, BERT) arrive
+as nested dicts of numpy arrays:
 
-- conv ``kernel`` HWIO -> ``weight`` OIHW;
+- conv ``kernel`` HWIO -> ``weight`` OIHW (Inception's 1x7, 7x1, 1x3 and
+  3x1 kernels alike);
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Embed ``embedding`` -> ``weight``, as it is;
 - LayerNorm ``scale`` -> ``weight``;
 - the flax submodule levels the port's tapped modules hold as their own
   parameters fold away: ``bn`` (``TappedBatchNorm``), ``dense``
-  (``TappedDense``) and ``norm`` (``TappedLayerNorm``);
+  (``TappedDense``) and ``norm`` (``TappedLayerNorm``); Inception's
+  ``BasicConv2d`` keeps its ``conv`` and ``bn`` levels, so its
+  ``.../bn/bn/scale`` lands on ``....bn.weight``;
 - ``batch_stats`` ``bn/{mean, var}`` -> ``{running_mean, running_var}``.
 
 Optimizer trees shaped like the params (SGD's trace, Adam's mu and nu) map

@@ -20,8 +20,9 @@
 //                  in a fixed order, in double, into mean and std (ddof=1,
 //                  or the range estimator), applies the zero-std guard and
 //                  the clamp and writes the per-tensor constants of
-//                  smaq_kernel.py:119-130 (mean, std, a, b, std/range for
-//                  each bucket, t*std) to a 32-byte buffer.  So the stats
+//                  smaq_kernel.py:119-130 (mean, std, a, std/range for
+//                  each bucket, t*std; the TPU kernel's b = -mean/std is
+//                  not kept) to a 32-byte buffer.  So the stats
 //                  are folded once per call, as the TPU kernel derives its
 //                  scalars once; no float atomics: the result does not
 //                  depend on block order.
@@ -45,7 +46,7 @@
 //                  (_kernel_bn 398-482).  Stats come from smaq_stats on the
 //                  raw tensor, before the unfold (the reference quirk); gamma
 //                  = 0 is taken as 1.  The tensor is NCHW, so the channel of
-//                  element e is (e / (H*W)) % C; each block stages the four
+//                  element e is (e / (H*W)) % C; each block stages the
 //                  folded constants of every channel in shared memory.
 //
 //                  Its bfloat16 form is a loop of its own (16-byte loads,
@@ -155,8 +156,10 @@ struct QParams {
 };
 
 // The per-tensor constants, as smaq_kernel.py:121-130 derives them.
+// No b = -mean * a: z is (x - mean) * a (see Quant).  Padded to 32 bytes,
+// read as two float4.
 struct __align__(16) Consts {
-  float mean, std, a, b, inv_main_std, inv_out_std, t_std, unused;
+  float mean, std, a, inv_main_std, inv_out_std, t_std, unused0, unused1;
 };
 
 // The zero-std guard, the clamp, then the folded reciprocals.
@@ -167,11 +170,10 @@ __device__ Consts make_consts(float mean, float std, const QParams& p) {
   c.mean = mean;
   c.std = std;
   c.a = 1.f / std;
-  c.b = -mean * c.a;
   c.inv_main_std = std * p.inv_range_main;
   c.inv_out_std = std * p.inv_range_outlier;
   c.t_std = p.t * std;
-  c.unused = 0.f;
+  c.unused0 = c.unused1 = 0.f;
   return c;
 }
 
@@ -375,16 +377,19 @@ struct Quant {
   float t, range_main, range_outlier;
   bool stochastic, all_positive;
 
-  // q = round((z + shift) * scale); y = q * std / scale + shift * std + mean.
+  // z = (x - mean) / std; q = round((z + shift) * scale);
+  // y = q * std / scale + shift * std + mean.
+  // z is (x - mean) * a, the subtraction first: the TPU kernel's folded
+  // x * a + b (a = 1/std, b = -mean/std) cancels where |mean| >> std and put about 2 %
+  // of such a tensor's elements a grid step from the plain version's.
   // Each rounding step is written out (intrinsics are never contracted), so
   // every walk of every kernel gives the same bits.  Left to the compiler,
   // the stochastic add fused with the product before it in some inlined
   // copies (the element-by-element walks) and not in others (the group
-  // walks): a misaligned tensor then rounded differently.  These are the
-  // group walks' operations, the float32 form's bits since PR 3: z and y
-  // by FMA, the stochastic add after the rounded product.
+  // walks): a misaligned tensor then rounded differently.  y by FMA, the
+  // stochastic add after the rounded product.
   __device__ __forceinline__ float operator()(float x, uint32_t bits, int& cnt) const {
-    const float z = __fmaf_rn(x, c.a, c.b);
+    const float z = __fmul_rn(__fsub_rn(x, c.mean), c.a);
     const bool hi = z > t, lo = z < -t, out = hi || lo;
     const float shift = hi ? -t : (lo ? t : 0.f);
     const float scale = out ? range_outlier : range_main;
@@ -718,23 +723,25 @@ smaq_onepass_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
 }
 
 // BatchNorm-folded SmaQ, the port of smaq_kernel.py::_kernel_bn (398-482):
-// per channel c, k = (A, B, G, H) with A = 1 / (g_c * std),
-// B = -(beta_c * A) - mean / std, G = std * g_c, H = mean * g_c + beta_c and
-// g_c = gamma_c, or 1 where gamma_c == 0.  z = x * A + B, then the SmaQ
-// buckets and rounding, zhat = q / scale - shift, y = zhat * G + H.
+// per channel c, k = (A, G, H, 0) with A = 1 / (g_c * std), G = std * g_c,
+// H = mean * g_c + beta_c and g_c = gamma_c, or 1 where gamma_c == 0.
+// z = (x - H) * A (the subtraction first, as the plain quantizer's
+// (x - mean) / std: the TPU kernel's x * A + B cancels where |H| >> g * std),
+// then the SmaQ buckets and rounding, zhat = q / scale - shift,
+// y = zhat * G + H.
 //
-// Both are written with intrinsics, in the operations the compiler made of
-// the plain expressions in the float32 kernel's walks (B, H, z, zhat and y
-// by FMA; the product (z + shift) * scale rounded, then the stochastic
-// add), so that every walk of both element types gives the same bits.  Left
+// Both are written with intrinsics (H, zhat and y by FMA; the product
+// (z + shift) * scale rounded, then the stochastic add), so that every walk
+// of both element types gives the same bits.  Left
 // to the compiler, one copy of the element-by-element walk in its SASS
 // fused the stochastic add with that product (one FMA), which can round an
 // element to the other grid point.
+// (A, G, H) of a channel; the fourth lane is padding, so that a channel's
+// constants are one 16-byte shared-memory load.
 __device__ __forceinline__ float4 bn_channel(float gamma, float beta, float mean, float std) {
   const float g = gamma == 0.f ? 1.f : gamma;
-  const float a = __frcp_rn(__fmul_rn(g, std));
-  return make_float4(a, __fmaf_rn(-beta, a, -__fdiv_rn(mean, std)), __fmul_rn(std, g),
-                     __fmaf_rn(mean, g, beta));
+  return make_float4(__frcp_rn(__fmul_rn(g, std)), __fmul_rn(std, g), __fmaf_rn(mean, g, beta),
+                     0.f);
 }
 
 // kRound as Quant's: runtime flags, or the mode and the clamp fixed at
@@ -745,7 +752,7 @@ struct QuantBN {
   bool stochastic, all_positive;
 
   __device__ __forceinline__ float operator()(float x, float4 k, uint32_t bits, int& cnt) const {
-    const float z = __fmaf_rn(x, k.x, k.y);
+    const float z = __fmul_rn(__fsub_rn(x, k.z), k.x);
     const bool hi = z > t, lo = z < -t, out = hi || lo;
     const float shift = hi ? -t : (lo ? t : 0.f);
     const float q0 = __fmul_rn(__fadd_rn(z, shift), out ? range_outlier : range_main);
@@ -753,7 +760,7 @@ struct QuantBN {
     const bool sto = kRound == kRuntime ? stochastic : (kRound & kStochastic) != 0;
     const float q = sto ? floorf(__fadd_rn(q0, u)) : truncf(q0);
     const float zhat = __fmaf_rn(q, out ? inv_range_outlier : inv_range_main, -shift);
-    float y = __fmaf_rn(zhat, k.z, k.w);
+    float y = __fmaf_rn(zhat, k.y, k.z);
     const bool pos = kRound == kRuntime ? all_positive : (kRound & kPositive) != 0;
     if (pos && y < 0.f) y = 0.f;
     cnt += out;

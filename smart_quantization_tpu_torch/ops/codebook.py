@@ -21,8 +21,8 @@ of ``q / range + t`` by division, then ``z * std + mean``.  On the CPU,
 output for the same generator state wherever ``|z| <= storage_z_limit``.
 On a CUDA tensor the stats come from the ``smaq_stats`` kernel (the
 ported one-pass reduction) and the code pass is tensor ops; the card's
-fake path folds ``x * a + b`` instead, so there the two agree by the flip
-rule, not bitwise.
+fake path multiplies ``x - mean`` by ``a = 1/std`` instead of dividing, so
+there the two agree by the flip rule, not bitwise.
 
 A ``SmaQCodes`` really occupies ``8 n + 64`` bits (codes and two float32
 stats), whatever the outlier fraction: exactly 4x less than float32.

@@ -58,7 +58,11 @@ from smart_quantization_tpu_torch.ops.float_format import (
     from_bits,
     to_bits,
 )
-from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize, squeeze_coefs
+from smart_quantization_tpu_torch.ops.s2fp8 import (
+    log2_stats,
+    s2fp8_quantize_dequantize,
+    squeeze_coefs,
+)
 
 # Launches of each kernel since the last reset (one per launch, nowhere
 # else), its bfloat16 form under the name with "_bf16"; the bfloat16 split
@@ -264,8 +268,7 @@ def stats_reference(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The stats kernel's plain version: (mu, max) of ``log2|x|``, zeros
     as 0, the sum in float64."""
     a = flat.abs()
-    lg = torch.where(a == 0.0, torch.zeros_like(a), torch.log2(a))
-    return (lg.double().sum() / flat.numel()).float(), lg.max()
+    return log2_stats(torch.where(a == 0.0, torch.zeros_like(a), torch.log2(a)))
 
 
 def unsqueeze_reference(t: torch.Tensor, beta: torch.Tensor, inv_alpha: torch.Tensor) -> torch.Tensor:

@@ -192,8 +192,8 @@ def _quant_args(params: SmaQParams) -> tuple:
 
 def smaq_stats(xf: torch.Tensor, params: SmaQParams) -> torch.Tensor:
     """Launch the stats kernel on a flat float32 or bfloat16 tensor; returns
-    the per-tensor constants its last block folds, float32 ``[mean, std, a, b, std / range_main,
-    std / range_outlier, t * std, 0]`` (std after the zero-std guard and
+    the per-tensor constants its last block folds, float32 ``[mean, std, 1 / std,
+    std / range_main, std / range_outlier, t * std, 0, 0]`` (std after the zero-std guard and
     the clamp; ``consts_reference`` is their plain version)."""
     check_input(xf)
     n = xf.numel()
@@ -391,14 +391,14 @@ def pivot_stats_reference(
 def consts_reference(mean: torch.Tensor, std: torch.Tensor, params: SmaQParams) -> torch.Tensor:
     """The constants ``smaq_stats`` writes, from a (mean, std) pair: the
     zero-std guard, the clamp, then the folded reciprocals of
-    ``smaq_kernel.py:121-130``, as a float32 tensor of 8."""
+    ``smaq_kernel.py:121-130`` less its ``b = -mean / std`` (the kernels
+    take ``(x - mean) * a``), padded with zeros to a float32 tensor of 8."""
     std = torch.where(std == 0.0, torch.ones_like(std), std)
     std = std.clamp(params.std_clamp_lo, params.std_clamp_hi)
-    a = 1.0 / std
+    zero = torch.zeros_like(std)
     return torch.stack([
-        mean, std, a, -mean * a, std * (1.0 / params.range_main),
-        std * (1.0 / params.range_outlier), params.main_std_dev_threshold * std,
-        torch.zeros_like(std),
+        mean, std, 1.0 / std, std * (1.0 / params.range_main),
+        std * (1.0 / params.range_outlier), params.main_std_dev_threshold * std, zero, zero,
     ])
 
 
@@ -568,7 +568,9 @@ def smaq_fused_reference(
 
     Follows the kernel's arithmetic: pivot-shifted one-pass sums folded in
     float64 (``smaq_kernel.py:268-278``), the folded reciprocals
-    (119-130) and ``q * inv_scale_std + shift_term + mean`` (167-172).
+    (119-130), ``z = (x - mean) * a`` (the TPU kernel's ``x * a + b``
+    cancels where ``|mean| >> std``) and ``q * inv_scale_std + shift_term
+    + mean`` (167-172).
     ``u`` (float32, ``x``'s shape) replaces the rounding noise, so a test
     can put every element on its lower (``u = 0``) or upper (``u = 1``)
     grid point."""
@@ -576,10 +578,10 @@ def smaq_fused_reference(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     flat = x.reshape(-1).to(torch.float32)
-    mean, _, a, b, inv_main_std, inv_out_std, t_std, _ = _reference_consts(
+    mean, _, a, inv_main_std, inv_out_std, t_std, _, _ = _reference_consts(
         flat, params, mean, std).unbind()
 
-    q, hi, lo, outlier = _buckets(flat * a + b, params, gen, u)
+    q, hi, lo, outlier = _buckets((flat - mean) * a, params, gen, u)
     inv_scale_std = torch.where(outlier, inv_out_std, inv_main_std)
     shift_term = torch.where(hi, t_std, torch.where(lo, -t_std, torch.zeros_like(t_std)))
     y = q * inv_scale_std + shift_term + mean
@@ -606,7 +608,7 @@ def smaq_fused_bn_reference(
 
     The stats of the raw tensor as ``smaq_fused_reference`` takes them,
     then the per-channel constants of ``smaq_kernel.py:436-443`` (gamma = 0
-    taken as 1): z = x * A + B, zhat = q / scale - shift, y = zhat * G + H."""
+    taken as 1): z = (x - H) * A, zhat = q / scale - shift, y = zhat * G + H."""
     n = x.numel()
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
@@ -618,11 +620,11 @@ def smaq_fused_bn_reference(
     g = torch.where(g == 0.0, torch.ones_like(g), g)
     b = beta.reshape(1, -1, 1).to(torch.float32)
     a = 1.0 / (g * std)
-    bb = -(b * a) - mean / std
     gg = std * g
-    hh = mean * g + b
+    # the kernel's H = fma(mean, g, beta): the product is exact in float64
+    hh = (mean.double() * g.double() + b.double()).float()
 
-    q, hi, lo, outlier = _buckets(flat * a + bb, params, gen, u)
+    q, hi, lo, outlier = _buckets((flat - hh) * a, params, gen, u)
     t = params.main_std_dev_threshold
     shift = torch.where(hi, -t, torch.where(lo, t, 0.0))
     inv_scale = torch.where(outlier, 1.0 / params.range_outlier, 1.0 / params.range_main)

@@ -7,6 +7,12 @@ guard of a constant tensor), ``beta = -alpha * mu``; the magnitudes are
 squeezed to ``|x|^alpha * 2^beta``, rounded onto FP8 e5m2, unsqueezed and
 given their signs back (zeros stay zeros).
 
+``mu`` is summed in float64 and rounded once to float32, as the stats
+kernel folds it (``log2_stats``).  The JAX package takes a float32 mean,
+which on a constant whose log2 is inexact (-0.375) can miss the max by an
+ulp: its guard then misses, ``alpha`` is huge and the output NaN.  Here
+such a tensor takes the guard (``alpha = 1``), on the CPU as on the card.
+
 This is the path every CPU tensor takes.  CUDA tensors go to the kernels in
 ``ops/cuda/s2fp8_kernel.py``, whose plain version computes the squeeze as
 ``exp2(alpha * log2|x| + beta)`` like the TPU kernel.
@@ -31,6 +37,14 @@ def squeeze_coefs(mu: torch.Tensor, m: torch.Tensor) -> tuple[torch.Tensor, torc
     return alpha, -alpha * mu
 
 
+def log2_stats(lg: torch.Tensor, rows: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, max) of ``lg = log2|x|`` (of each row of a 2-D ``lg`` with
+    ``rows``): the sum in float64 over the count, rounded once to float32."""
+    if rows:
+        return (lg.double().sum(1, keepdim=True) / lg.shape[1]).float(), lg.amax(1, keepdim=True)
+    return (lg.double().sum() / lg.numel()).float(), lg.max()
+
+
 def s2fp8_quantize_dequantize(
     x: torch.Tensor,
     gen: torch.Generator | None,
@@ -45,10 +59,7 @@ def s2fp8_quantize_dequantize(
     xf = x.to(torch.float32)
     x_abs = xf.abs()
     lg = torch.where(x_abs == 0.0, x_abs, torch.log2(x_abs))
-    if rows:
-        alpha, beta = squeeze_coefs(lg.mean(1, keepdim=True), lg.amax(1, keepdim=True))
-    else:
-        alpha, beta = squeeze_coefs(lg.mean(), lg.max())
+    alpha, beta = squeeze_coefs(*log2_stats(lg, rows))
     beta_pow2 = torch.exp2(beta)
     squeezed = torch.pow(x_abs, alpha) * beta_pow2
     t = float_quantize(

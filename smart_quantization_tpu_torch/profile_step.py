@@ -1,14 +1,15 @@
 """Where a training step's time goes on the card.
 
-    python -m smart_quantization_tpu_torch.profile_step [--model resnet|bert]
+    python -m smart_quantization_tpu_torch.profile_step [--model resnet|bert|inception]
         [--no_compress] [--compress smart|fp8|fp16|bf16|s2fp8|fp32]
         [--use_batch_norm] [--steps_per_call K] [TRAIN FLAGS...]
 
 Runs 3 warm-up dispatches of a main path, with every structure compressed
 by the chosen encoder (SmaQ 6/8 by default) or ``--no_compress``:
 ResNet-18, batch 128, synthetic CIFAR-10, SGD (``--model resnet``, the
-default), or bert-base, batch 32 x 512 tokens, synthetic GLUE STSB, AdamW
-at lr 2e-5 and weight decay 0.01 (``--model bert``).  A dispatch is one
+default), Inception-v3 at the same batch (``--model inception``), or
+bert-base, batch 32 x 512 tokens, synthetic GLUE STSB, AdamW at lr 2e-5
+and weight decay 0.01 (``--model bert``).  A dispatch is one
 step, or under ``--steps_per_call K`` one group of K steps (on the card
 one replay of the trainer's K-step CUDA graph; the first warm-up dispatch
 captures it).  Times 10 dispatches on the host clock, then 10 more under
@@ -135,7 +136,7 @@ def main(argv=None) -> dict:
     from smart_quantization_tpu_torch.utils.config import parse_args
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="resnet", choices=("resnet", "bert"))
+    ap.add_argument("--model", default="resnet", choices=sorted(MODEL_CLI))
     ap.add_argument("--no_compress", action="store_true")
     ap.add_argument("--compress", default="smart",
                     choices=("smart", "fp8", "fp16", "bf16", "s2fp8", "fp32"))
@@ -173,6 +174,7 @@ def main(argv=None) -> dict:
 # the main paths' model and data flags
 MODEL_CLI = {
     "resnet": ["--resnet_model", "resnet18", "--batch_size", "128"],
+    "inception": ["--dataset", "cifar10", "--batch_size", "128"],
     "bert": ["--dataset", "glue", "--glue_task", "stsb", "--batch_size", "32",
              "--max_input_length", "512", "--optimizer_type", "adamw",
              "--learning_rate", "2e-5", "--weight_decay", "0.01"],

@@ -7,6 +7,8 @@ Examples:
   python -m smart_quantization_tpu_torch.train --model bert --dataset glue \\
       --glue_task stsb --compress smart --optimizer_type adamw \\
       --learning_rate 2e-5 --weight_decay 0.01 --measure_compression_ratio
+  python -m smart_quantization_tpu_torch.train --model inception --dataset cifar10 \\
+      --compress smart --measure_compression_ratio --batch_size 128
   python -m smart_quantization_tpu_torch.train --device cpu --compress fp32 \\
       --limit_train_batches 10
   python -m smart_quantization_tpu_torch.train --model bert --bert_size tiny \\
@@ -28,6 +30,7 @@ def build_trainer(args):
 
         return build_bert_trainer(args)
     from smart_quantization_tpu_torch.data.cifar import CIFAR10Data, CIFAR100Data
+    from smart_quantization_tpu_torch.models.inception import inception_v3
     from smart_quantization_tpu_torch.models.resnet import resnet18, resnet34, resnet50
     from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
     from smart_quantization_tpu_torch.train.metrics import run_logger
@@ -44,9 +47,11 @@ def build_trainer(args):
     if data.synthetic:
         print("NOTE: CIFAR archives not found under $SMAQ_DATA_DIR; "
               "using the synthetic stand-in dataset.")
-    model_fn = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}[
-        args.resnet_model
-    ]
+    if args.model == "inception":
+        model_fn = inception_v3
+    else:
+        model_fn = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}[
+            args.resnet_model]
     model = model_fn(num_classes=data.num_classes, tap=comps["tap_cfg"],
                      dtype=compute_dtype(args))
     cfg = TrainConfig.from_args(args)

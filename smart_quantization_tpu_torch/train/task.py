@@ -26,9 +26,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ImageClassificationTask:
-    """ResNet on CIFAR: batches are ``(images_u8_nhwc, labels_i32)``; train
-    prep is the on-device crop + flip + normalization, then the one
-    transpose to the model's NCHW."""
+    """ResNet or Inception-v3 on CIFAR: batches are ``(images_u8_nhwc,
+    labels_i32)``; train prep is the on-device crop + flip + normalization,
+    then the one transpose to the model's NCHW."""
 
     def prepare_train(self, images_u8: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         return self._to_nchw(cifar.normalize(cifar.augment(images_u8, gen)))

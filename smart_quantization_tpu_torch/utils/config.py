@@ -187,7 +187,6 @@ MODEL_DATASETS = {"bert": ("glue", "imdb"), "inception": ("cifar10", "cifar100")
 
 # (is it asked for?, what, ROADMAP Queue 1 item)
 _NOT_YET_PORTED = (
-    (lambda a: a.model == "inception", "--model inception", 13),
     (lambda a: (a.dp or 1) > 1 or a.fsdp > 1, "DP/FSDP (--dp/--fsdp)", 15),
 )
 

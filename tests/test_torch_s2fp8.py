@@ -175,6 +175,21 @@ def test_constant_inexact_log2_stays_finite(n):
     assert float((y + 0.375).abs().max()) <= 1e-6
 
 
+def test_constant_inexact_log2_plain_path_finite_where_jax_is_nan():
+    """A constant -0.375 of 1000 elements: the port's plain path takes the
+    mean of log2|x| in float64 (``log2_stats``), which is exactly the max,
+    so the guard takes alpha = 1 and gives the value back, as the kernel
+    does.  The JAX package's float32 mean misses the max by an ulp there
+    and its output is NaN: a deliberate divergence (ROADMAP Queue 3)."""
+    x = np.full((1000,), -0.375, np.float32)
+    y = s2fp8_quantize_dequantize(torch.from_numpy(x), None, stochastic=False)
+    assert bool(torch.isfinite(y).all())
+    np.testing.assert_array_equal(y.numpy(), x)
+    np.testing.assert_array_equal(
+        S.s2fp8_fused_reference(torch.from_numpy(x), stochastic=False).numpy(), x)
+    assert np.isnan(np.asarray(jax_s2fp8(jnp.asarray(x), None, stochastic=False))).all()
+
+
 def test_encoder_sizes_and_cpu_dispatch():
     """S2FP8's size is 8 bits an element plus the 64-bit (alpha, beta); a
     CPU tensor takes ``ops/s2fp8.py``; the kernel wrapper refuses it."""

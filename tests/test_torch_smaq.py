@@ -92,15 +92,60 @@ def test_kernel_plain_version_matches_pallas_kernel(n):
     if n != "ill_conditioned":
         assert_flip_rule(y.numpy(), y_ref, bits, bits_ref, quantum(x, tp))
         return
-    # x * (1/std) - mean/std cancels to a few percent of a grid step here, so
-    # flips are many on both sides; the rule of tests/test_smaq.py:154-176:
-    # no larger error than the other side, the output follows the input,
-    # bits within 2 %
+    # the Pallas kernel's x * (1/std) - mean/std cancels to a few percent of
+    # a grid step here, so it flips many elements (the port's (x - mean) * a
+    # does not: next test); the rule of tests/test_smaq.py:154-176: no
+    # larger error than the other side, the output follows the input, bits
+    # within 2 %
     y, y_ref = y.numpy().astype(np.float64), np.asarray(y_ref, np.float64)
     assert np.std(y - x) < 2 * np.std(y_ref - x) + 1e-6
     assert np.corrcoef(x - x.mean(), y - y.mean())[0, 1] > 0.99
     assert abs(float(bits) - float(bits_ref)) < 0.02 * float(bits_ref)
     assert np.abs(y - y_ref).max() <= 1.1 * quantum(x, tp)
+
+
+def ill_conditioned() -> np.ndarray:
+    return (np.random.RandomState(1).randn(65536) * 1e-2 + 1e3).astype(np.float32)
+
+
+def test_ill_conditioned_plain_path_equals_jax_jnp_path():
+    """At mean 1e3 and std 1e-2 the port's plain SmaQ (the path every CPU
+    tensor takes) is JAX's jnp path: given the same (mean, std), bitwise
+    the same outputs and size, in truncation and with ``all_positive``;
+    only the kernels' z changed to ``(x - mean) * a``.  Each side's own
+    float32 mean sums in its own order (a few ulp apart at 1e3, which
+    moves every output by as much), so with their own stats the outputs
+    stay within one quantum."""
+    from smart_quantization_tpu.ops.smaq import compute_stats as jax_stats
+
+    x = ill_conditioned()
+    tp, jp = both()
+    mean, std = (np.asarray(v) for v in jax_stats(jnp.asarray(x), jp, None))
+    for kw in ({}, {"all_positive": True}):
+        y, bits = smaq_quantize_dequantize(torch.from_numpy(x), None, tp, mean=torch.tensor(mean),
+                                           std=torch.tensor(std), **kw)
+        y_ref, bits_ref = jax_smaq(jnp.asarray(x), None, jp, mean=jnp.asarray(mean),
+                                   std=jnp.asarray(std), **kw)
+        np.testing.assert_array_equal(y.numpy(), np.asarray(y_ref))
+        assert float(bits) == float(bits_ref)
+    y, _ = smaq_quantize_dequantize(torch.from_numpy(x), None, tp)
+    y_ref, _ = jax_smaq(jnp.asarray(x), None, jp)
+    assert abs(float(torch.from_numpy(x).mean()) - float(mean)) <= 4 * np.spacing(np.float32(1e3))
+    assert np.abs(y.numpy().astype(np.float64) - np.asarray(y_ref)).max() <= quantum(x, tp)
+
+
+def test_ill_conditioned_kernel_plain_version_holds_the_flip_rule():
+    """The kernels' plain version computes z as ``(x - mean) * a``, as
+    ``csrc/smaq.cu`` does: at mean 1e3 and std 1e-2 it holds the ordinary
+    flip rule against the port's plain path (the folded ``x * a + b`` put
+    about 2 % of the elements a grid step away), in truncation and with
+    ``all_positive``."""
+    x = torch.from_numpy(ill_conditioned())
+    tp, _ = both()
+    for kw in ({}, {"all_positive": True}):
+        y, bits = K.smaq_fused_reference(x, None, tp, **kw)
+        y_ref, bits_ref = smaq_quantize_dequantize(x, None, tp, **kw)
+        assert_flip_rule(y.numpy(), y_ref.numpy(), bits, bits_ref, quantum(x.numpy(), tp))
 
 
 def test_kernel_plain_version_range_std_matches_plain_path():

@@ -213,13 +213,37 @@ def test_cli_builds_every_encoder(argv):
         assert comp.use_batch_norm and comp.bn_scalar_params == ("--bn_scalar_params" in argv)
 
 
-@pytest.mark.parametrize("argv", ["--model inception --dataset cifar100", "--dp 2 --fsdp 2",
-                                  "--model inception", "--dp 2", "--fsdp 2"])
+@pytest.mark.parametrize("argv", ["--dp 2 --fsdp 2", "--dp 2", "--fsdp 2"])
 def test_cli_deferred_flags_still_raise(argv):
     from smart_quantization_tpu_torch.utils.config import build_components, parse_args
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         build_components(parse_args(f"--device cpu --compress fp8 {argv}"))
+
+
+@pytest.mark.parametrize("argv", ["--model inception --dataset cifar100", "--model inception"])
+def test_cli_inception_builds(argv, tmp_path, monkeypatch):
+    """``--model inception`` (once deferred, ROADMAP Queue 1 item 13) builds
+    the CIFAR Inception-v3 with the dataset's classes and the taps."""
+    from smart_quantization_tpu_torch.models.inception import Inception3
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    monkeypatch.setenv("SMAQ_DISABLE_TB", "1")
+
+    trainer = build_trainer(parse_args(f"--device cpu --compress fp8 --logdir {tmp_path} {argv}"))
+    assert isinstance(trainer.model, Inception3)
+    assert trainer.model.fc.out_features == (100 if "cifar100" in argv else 10)
+    assert trainer.model.tap is not None and trainer.model.Mixed_7c.branch_pool.bn.tap is not None
+
+
+@pytest.mark.parametrize("argv", ["--model inception --dataset glue",
+                                  "--model inception --dataset imdb"])
+def test_cli_inception_refuses_text_datasets(argv):
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    with pytest.raises(SystemExit, match="incompatible"):
+        parse_args(f"--device cpu {argv}")
 
 
 LOSS_ENCODERS = [("smart", {}), ("fp8", {"stochastic": False}), ("s2fp8", {"stochastic": False}),
