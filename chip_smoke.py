@@ -96,6 +96,23 @@ non-zero:
    ratio, K=8 against K=1 bitwise, the seeded command twice bitwise, a
    ``--use_batch_norm`` run, the K=8 graph's capture and memory, and each
    form's step profile at K=1 and K=8 (``chiprun_out/inception_times.json``);
+4b. the mesh (``parallel/``): W = min(cards, 4) NCCL ranks, one card each,
+   started once (``RankPool``); ResNet-18 at the global batch of 128 with
+   int8 gradient payloads in gather and psum mode, each at K=1 and K=8
+   (finite losses, the ratio in 4.5-5.5, K=8 bitwise eight K=1 steps,
+   every rank's parameters bitwise equal, launches a step, the step time
+   beside phase 4's single-card step, the exchange alone by CUDA events,
+   its NCCL kernels' device time in a step by the profiler, the bytes it
+   moves by the traffic table), bert-base STSB 3 steps, and with two cards
+   or more the fused FSDP path (``--fsdp W --param_gather_bits 8
+   --packed_momentum --packed_weights``) under the same checks at K=1 and
+   K=8, its single-card counterpart's step, and ``python -m
+   smart_quantization_tpu_torch.train --dp W`` (K=8) and ``--fsdp W``
+   (packed state) as a user runs them, the CLI spawning its ranks (exit 0,
+   one ``final:`` line, one log, one checkpoint of the mesh); at W = 1 the
+   cells build the trainer with a one-rank mesh and the command line's
+   spawn is left to a machine of more cards
+   (``chiprun_out/mesh_times.json``);
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
    cast to the same format; the SmaQ call at the main path's sizes,
@@ -119,6 +136,9 @@ non-zero:
 6. the kernel table as one JSON line (the bfloat16 forms as rows of their
    own), then the result as the last line.
 
+``--mesh_only`` builds the kernels and runs phase 4b alone: the check of
+the mesh on a machine of two to four cards, which would otherwise pay for
+phases 3-5 on every card it holds.
 ``--s2fp8_times_of DIR`` times only the S2FP8 call of the port in DIR
 (``s2fp8_fused`` by size, alone at 8 388 608 elements and in streams of 20,
 and a ResNet-18 step's calls in one CUDA graph) with this script's timer
@@ -138,6 +158,7 @@ Needs the repository beside it (or in DIR) and one CUDA card.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -2530,6 +2551,345 @@ def inception_cell(card) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 4b: the mesh
+# the mesh cells: ResNet-18 at the main path's global batch of 128, SmaQ
+# 6/8 full coverage, int8 gradient payloads (gather, then psum), each at
+# K=1 (8 checked steps, then timed ones) and K=8 (one group of 8, checked
+# against the K=1 run, then timed replays); bert-base STSB 3 steps; with
+# two or more cards the fused FSDP path with packed state the same way, and
+# the command line's own spawn of its ranks
+MESH_STEPS = 8
+MESH_TIMED = {1: 10, 8: 16}
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_mesh(dp, fsdp):
+    from smart_quantization_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp, fsdp)
+
+
+def _digest(trainer, state) -> str:
+    """A hash of every parameter this rank holds (the model's, gathered
+    from the shards under FSDP)."""
+    import hashlib
+
+    trainer._sync_model(state)
+    h = hashlib.sha256()
+    for _, p in sorted(trainer.model.named_parameters()):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank_cell(argv, dp, fsdp, k, steps, timed, probe):
+    """One rank's part of a mesh cell: the trainer the command line builds,
+    on a (dp, fsdp) mesh of the pool's NCCL ranks, ``steps`` steps K at a
+    time with the launch counts read around them, a digest of the
+    parameters, then ``timed`` steps timed; with ``probe`` the steps of
+    one more group of K under the profiler (two steps at K=1) and at K=1
+    the gradient exchange alone timed with CUDA events."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.train.metrics import (
+        RatioAccumulator,
+        merge_compression_metrics,
+    )
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = _rank_mesh(dp, fsdp)
+    args = parse_args(argv + ["--steps_per_call", str(k), "--logdir", ""])
+    torch.manual_seed(args.seed)
+    trainer = build_trainer(args, mesh)
+    state = trainer.init_state()
+    batches, epoch = [], 0
+    while len(batches) < steps + timed:
+        for inputs, labels in trainer.data.device_train_batches(epoch, trainer.device):
+            batches.append(trainer.prepare_batch(inputs, labels))
+        epoch += 1
+
+    def run(group):
+        if k > 1:
+            return trainer.train_steps(state, group)
+        return {n: v[None] for n, v in trainer.train_step(state, *group[0]).items()}
+
+    reset_counts()
+    outs = [run(batches[i:i + k]) for i in range(0, steps, k)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    acc = RatioAccumulator()
+    losses = []
+    for m in outs:
+        host = {n: v.cpu().numpy() for n, v in m.items()}
+        for j in range(len(host["train_loss"])):
+            losses.append(float(host["train_loss"][j]))
+            merge_compression_metrics(acc, {n.split("/", 1)[1]: v[j] for n, v in host.items()
+                                            if n.startswith("_ratio/")})
+    out = {"losses": losses, "ratio": acc.summary().get("compression_ratio", float("nan")),
+           "digest": _digest(trainer, state), "counts": counts,
+           "kernels": list(path_kernels(args))}
+    times = []
+    rest = batches[steps:]
+    for i in range(0, timed, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(rest[i:i + k])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / k)
+    out["step_ms"] = statistics.median(times) if times else None
+    if probe:
+        groups = [batches[:1], batches[1:2]] if k == 1 else [batches[:k]]
+        out.update(profile_mesh_steps(run, groups, k))
+        if k == 1:
+            out.update(mesh_exchange_alone(trainer))
+    del trainer, state
+    return out
+
+
+def profile_mesh_steps(run, groups, k) -> dict:
+    """The groups' steps under the profiler: a step's device time in all
+    kernels and in NCCL's (waits for the other ranks included), and NCCL's
+    kernels by name (launches and ms a step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smart_quantization_tpu_torch.profile_step import _device_time_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for group in groups:
+            run(group)
+        torch.cuda.synchronize()
+    n = len(groups) * k
+    # kernels only: ProcessGroupNCCL's "nccl:<op>" ranges show on the
+    # device's timeline too, as user annotations as long as their kernel
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_time_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    by_name = sorted(((e.key[:60], e.count / n, _device_time_us(e) / 1e3 / n) for e in nccl),
+                     key=lambda t: -t[2])
+    return {"nccl_ms": sum(t[2] for t in by_name),
+            "busy_ms": sum(_device_time_us(e) for e in kernels) / 1e3 / n,
+            "nccl_kernels": by_name[:6]}
+
+
+def mesh_exchange_alone(trainer) -> dict:
+    """The gradient exchange alone on the model's gradient shapes (CUDA
+    events, median of 20 after 3 warm-ups; the ranks enter it together)."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.keys import DeviceKey, key_tensor
+
+    gen = torch.Generator(device=trainer.device).manual_seed(3)
+    grads = {n: torch.randn(p.shape, generator=gen, device=trainer.device)
+             for n, p in trainer.model.named_parameters()}
+    key = DeviceKey(key_tensor(11, trainer.device))
+    exchange = (trainer._fsdp.exchange_grads if trainer._fsdp is not None
+                else trainer._dp.exchange)
+    ms = []
+    for i in range(23):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        exchange(grads, key)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append(start.elapsed_time(end))
+    return {"exchange_ms": statistics.median(ms),
+            "elements": sum(g.numel() for g in grads.values())}
+
+
+def mesh_phase(card, single_ms=None) -> dict:
+    """The mesh path on W = min(cards, 4) NCCL ranks, one card each (the
+    ranks of a ``RankPool``, started once): ResNet-18 with int8 gradient
+    payloads in gather and psum mode at K=1 and K=8 (finite losses, the
+    overall ratio in 4.5-5.5, K=8 bitwise eight K=1 steps, every rank's
+    parameters bitwise equal), bert-base STSB for 3 steps, and with W >= 2
+    the fused FSDP path (``--fsdp W --param_gather_bits 8 --packed_momentum
+    --packed_weights``) at K=1 and K=8 under the same checks, its
+    single-card counterpart timed, and the command line itself
+    (``mesh_cli_runs``).  Prints each run's step time, a step's device time
+    in all kernels and in NCCL's, the exchange's time alone and the bytes
+    it moves a step by the traffic table; returns the launch counts of the
+    pool's cells, summed over the ranks."""
+    import torch
+
+    from smart_quantization_tpu_torch.parallel.distributed import RankPool
+    from smart_quantization_tpu_torch.parallel.train_dp import exchange_bytes
+
+    t_start = time.perf_counter()
+    w = min(torch.cuda.device_count(), 4)
+    say(f"  W = {w} rank(s), one card each, NCCL (torch.cuda.device_count() = "
+        f"{torch.cuda.device_count()})")
+    if w == 1:
+        say("  --dp 1 is no mesh on the command line: the cells build the trainer with a "
+            "one-rank mesh, so the int8 quantize, the NCCL collective (over one rank) and the "
+            "dequantize run")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    results = {"card": card, "ranks": w, "cells": {}}
+
+    def add(rank_outs, label):
+        kernels = rank_outs[0]["kernels"]
+        for r, o in enumerate(rank_outs):
+            if any(o["counts"].get(name, 0) == 0 for name in kernels):
+                fail(f"[{label}] rank {r} launched a kernel of {kernels} no time: {o['counts']}")
+            for name in kernels:
+                launches[name] = launches.get(name, 0) + o["counts"][name]
+        digests = {o["digest"] for o in rank_outs}
+        if len(digests) != 1:
+            fail(f"[{label}] the ranks' parameters differ after the run")
+        if any(o["losses"] != rank_outs[0]["losses"] for o in rank_outs):
+            fail(f"[{label}] the ranks' losses differ")
+        loss = rank_outs[0]["losses"]
+        if not all(math.isfinite(v) for v in loss):
+            fail(f"[{label}] non-finite loss: {loss}")
+
+    def k_cells(name, argv, dp, fsdp, traffic_of):
+        cell = {}
+        for k in (1, 8):
+            label = f"mesh resnet18 {name} K={k}"
+            outs = pool.run(mesh_rank_cell, argv, dp, fsdp, k, MESH_STEPS, MESH_TIMED[k], True)
+            add(outs, label)
+            o = outs[0]
+            if not 4.5 <= o["ratio"] <= 5.5:
+                fail(f"[{label}] overall compression ratio {o['ratio']} outside 4.5-5.5")
+            cell[f"K={k}"] = o
+            line = (f"  [{label}] {MESH_STEPS} steps, losses {o['losses'][0]!r} .. "
+                    f"{o['losses'][-1]!r}, ratio {o['ratio']!r}, ranks bitwise equal; "
+                    f"median step {o['step_ms']:.2f} ms")
+            if k == 1 and single_ms is not None:
+                line += f" (the single-card K=1 step of phase 4: {single_ms:.2f} ms)"
+            say(line + f"; a step's device time {o['busy_ms']:.2f} ms, NCCL's kernels "
+                f"{o['nccl_ms']:.3f} ms of it, waits for the other ranks included (profiler) "
+                f"on {card}")
+            say(f"  [{label}] NCCL kernels a step (name, launches, ms): {o['nccl_kernels']}")
+            if k == 1:
+                per_step = {n: o["counts"][n] / MESH_STEPS for n in o["kernels"]}
+                say(f"  [{label}] launches a step on a rank: {per_step}")
+                say(f"  [{label}] the exchange alone on ResNet-18's {o['elements']} gradient "
+                    f"elements, the ranks entering together: {o['exchange_ms']:.3f} ms (CUDA "
+                    f"events); it moves {traffic_of(o['elements']):.0f} B a rank a step by the "
+                    f"traffic table on {card}")
+        same = (cell["K=1"]["losses"] == cell["K=8"]["losses"]
+                and cell["K=1"]["digest"] == cell["K=8"]["digest"])
+        say(f"  [mesh resnet18 {name}] K=8 against eight K=1 steps: losses and parameters "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"[mesh resnet18 {name}] the K=8 run is not bitwise eight K=1 steps")
+        results["cells"][f"resnet18 {name}"] = cell
+
+    pool = RankPool(w, "cuda", timeout_s=600.0)
+    try:
+        for mode in ("gather", "psum"):
+            k_cells(mode, MAIN_ARGV + ["--dp", str(w), "--grad_allreduce_bits", "8",
+                                       "--grad_allreduce_mode", mode], w, 1,
+                    lambda n, mode=mode: exchange_bytes(n, w, 8, mode))
+        label = "mesh bert stsb"
+        outs = pool.run(mesh_rank_cell, BERT_ARGV + ["--dp", str(w), "--grad_allreduce_bits", "8"],
+                        w, 1, 1, 3, 0, False)
+        add(outs, label)
+        say(f"  [{label}] 3 steps, losses {outs[0]['losses']!r}, ratio {outs[0]['ratio']!r}, "
+            f"ranks bitwise equal on {card}")
+        results["cells"]["bert stsb"] = outs[0]
+        if w >= 2:
+            # the ring model: an int8 gather of the parameters and an int8
+            # reduce-scatter of the gradients, (n-1)/n B an element each
+            k_cells(f"fsdp {w}", MAIN_ARGV + ["--fsdp", str(w), "--grad_allreduce_bits", "8",
+                                              "--param_gather_bits", "8", *PACKED_ARGV],
+                    1, w, lambda n: 2 * (w - 1) / w * n)
+        else:
+            say("  FSDP: not run on the card (--fsdp needs 2 ranks or more and this machine has "
+                "one card); the fused FSDP path is held against JAX on gloo only "
+                "(tests/test_torch_fsdp.py)")
+    finally:
+        pool.close()
+    for cell in results["cells"].values():
+        for o in ([cell] if "losses" in cell else cell.values()):
+            o.pop("counts", None)
+    if w >= 2:
+        single = {"packed": time_steps(PACKED_ARGV, check_launches=False)["ms"]}
+        if single_ms is None:
+            single["smart"] = time_steps([], check_launches=False)["ms"]
+        say(f"  single-card K=1 steps of the same command lines without a mesh (ms; packed: "
+            f"the FSDP cell's): {single} on {card}")
+        results["single_card_k1_ms"] = single
+        results["cli"] = mesh_cli_runs(card, w)
+    else:
+        say("  the command line's own spawn of its ranks (--dp/--fsdp on W cards): left to a "
+            "machine of two cards or more (a mesh of one rank is no mesh on the command line)")
+    with open(os.path.join(OUT, "mesh_times.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    say(f"  mesh phase: {time.perf_counter() - t_start:.0f} s")
+    return launches
+
+
+def mesh_cli_runs(card, w) -> dict:
+    """``python -m smart_quantization_tpu_torch.train`` as a user runs it on
+    W cards: the CLI spawns its W ranks itself (NCCL, one card each).
+    ResNet-18 ``--dp W`` with int8 gradients at K=8 for 16 steps and 8
+    eval batches of 32 (one eval graph, its rows split over the ranks),
+    then ``--fsdp W --param_gather_bits 8`` with packed state at K=1 for 4
+    steps and 2 eval batches; each must exit 0 with one ``final:`` line, one metrics log and one
+    checkpoint holding its fsdp size and every rank's augmentation state.
+    Returns each run's seconds and final metrics."""
+    import shutil
+
+    import torch
+
+    runs = {
+        f"dp {w} K=8": (["--dp", str(w), "--grad_allreduce_bits", "8", "--steps_per_call", "8",
+                         "--log_every", "8"], 16, 8, 1),
+        f"fsdp {w}": (["--fsdp", str(w), "--grad_allreduce_bits", "8", "--param_gather_bits",
+                       "8", *PACKED_ARGV], 4, 2, w),
+    }
+    out = {}
+    for label, (extra, steps, evals, fsdp_size) in runs.items():
+        label = f"cli {label}"
+        out_dir = os.path.join(ROOT, "tmp_chip_smoke", label.replace(" ", "_"))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        cmd = [sys.executable, "-m", "smart_quantization_tpu_torch.train", *MAIN_ARGV, *extra,
+               "--limit_train_batches", str(steps), "--limit_val_batches", str(evals),
+               "--logdir", out_dir, "--name", "run", "--checkpoint_dir", out_dir]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"[{label}] did not end within 300 s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"[{label}] exited {proc.returncode}: {proc.stderr[-3000:]}")
+        finals = [ln for ln in proc.stdout.splitlines() if ln.startswith("final:")]
+        logs = [f for f in os.listdir(out_dir) if f.endswith(".metrics.jsonl")]
+        ckpts = sorted(f for f in os.listdir(out_dir) if f.endswith(".pt"))
+        if len(finals) != 1 or len(logs) != 1 or ckpts != ["epoch_0000.pt"]:
+            fail(f"[{label}] {len(finals)} final lines, metrics logs {logs}, checkpoints {ckpts}")
+        ck = torch.load(os.path.join(out_dir, ckpts[0]), map_location="cpu", weights_only=True)
+        if ck.get("fsdp_size") != fsdp_size or len(ck.get("data_gens") or ()) != w:
+            fail(f"[{label}] checkpoint fsdp_size {ck.get('fsdp_size')}, "
+                 f"{len(ck.get('data_gens') or ())} ranks' augmentation states (want "
+                 f"{fsdp_size} and {w})")
+        final = json.loads(finals[0].split(":", 1)[1])
+        if not math.isfinite(final.get("val_loss", math.nan)) or not (
+                4.5 <= final.get("compression_ratio", 0.0) <= 5.5):
+            fail(f"[{label}] final metrics without a finite loss or with a ratio outside "
+                 f"4.5-5.5: {final}")
+        say(f"  [{label}] exit 0 in {secs:.1f} s (the ranks' start included): one final line, "
+            f"one metrics log, one checkpoint (step {ck['step']}, fsdp_size {ck['fsdp_size']}, "
+            f"{w} augmentation states); final {finals[0][len('final: '):][:300]} on {card}")
+        out[label] = {"seconds": secs, "final": final}
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def make_timer(device):
     """``timed(fn)``: the median of 25 CUDA-event timings of ``fn`` after one
@@ -3466,8 +3826,9 @@ def main() -> int:
         return s2fp8_times_of(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--bf16_times_of":
         return bf16_times_of(sys.argv[2])
-    if len(sys.argv) > 1:
-        fail(f"usage: {sys.argv[0]} [--s2fp8_times_of DIR | --bf16_times_of DIR]")
+    mesh_only = sys.argv[1:] == ["--mesh_only"]
+    if len(sys.argv) > 1 and not mesh_only:
+        fail(f"usage: {sys.argv[0]} [--s2fp8_times_of DIR | --bf16_times_of DIR | --mesh_only]")
     sys.path.insert(0, ROOT)
     try:
         from smart_quantization_tpu_torch.ops.cuda import build
@@ -3495,6 +3856,13 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    if mesh_only:
+        say("[4b] the mesh alone: data parallelism and the fused FSDP path over NCCL")
+        mesh_phase(card)
+        say(card)
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("[3] kernels against their plain version")
     errs = check_kernels(device)
@@ -3640,6 +4008,11 @@ def main() -> int:
     say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
     say("  Inception-v3, batch 128, synthetic CIFAR-10, SmaQ 6/8 full coverage, SGD")
     for k, v in inception_cell(card).items():
+        launches[k] = launches.get(k, 0) + v
+
+    say(f"  ({time.perf_counter() - t_start:.0f} s into the run)")
+    say("[4b] the mesh: data parallelism and the fused FSDP path over NCCL")
+    for k, v in mesh_phase(card, res["ms"]).items():
         launches[k] = launches.get(k, 0) + v
     # phase 5 times kernels under PyTorch's defaults, as before
     nondeterministic()

@@ -111,3 +111,19 @@ class DeviceKey:
             raise RuntimeError(f"cannot reserve {n} call indices past {self._stop}")
         self._next += n
         return DeviceKey(self.key, start, start + n)
+
+
+def mesh_step_words(seed: int, step: int, rank: int, fsdp_index: int,
+                    fold_payload: bool) -> tuple[int, int, int, int]:
+    """The 64-bit words of a step on a mesh rank, beside its shared step
+    key (the optimizer's, the loss compressor's): the taps' and the
+    augmentation's word and the dropout's, folded with the rank; the
+    gradient payload's, shared by every rank under data parallelism and
+    folded with the rank under FSDP (``fold_payload``); the FSDP parameter
+    gather's, folded with the fsdp index only, so that the data replicas of
+    a block send the same payload."""
+    fwd, drop = np.random.SeedSequence([seed, step, 1, rank]).generate_state(2, np.uint64)
+    payload = np.random.SeedSequence(
+        [seed, step, 2, *((rank,) if fold_payload else ())]).generate_state(1, np.uint64)[0]
+    gather = np.random.SeedSequence([seed, step, 3, fsdp_index]).generate_state(1, np.uint64)[0]
+    return int(fwd), int(drop), int(payload), int(gather)

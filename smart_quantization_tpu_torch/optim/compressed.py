@@ -1,9 +1,7 @@
 """Low-precision optimizer step: quantize gradients, weights and momentum
 around the real (fp32) optimizer math.
 
-Counterpart of ``smart_quantization_tpu/optim/compressed.py`` (its
-single-device forms; the FSDP layouts of packed state wait for the
-distributed paths):
+Counterpart of ``smart_quantization_tpu/optim/compressed.py``:
 
 - gradients are quantized (tag ``optimizer_grad``) before the update, after
   the optional ``grad_scaling``;
@@ -22,7 +20,16 @@ distributed paths):
   torch's dim 0;
 - ``packed_momentum`` and ``packed_weights`` keep the momentum buffers and
   the non-exempt weights as uint8 codebook codes (``ops/codebook.py``)
-  between steps, with their real sizes (``8 n + 64`` bits a leaf).
+  between steps, with their real sizes (``8 n + 64`` bits a leaf);
+- under FSDP (``parallel/train_fsdp_q.py``) the step runs on each rank's
+  shards with ``packed_stats_rank1``: a packed leaf's stats are ``(1,)``
+  rows, which stack to ``(fsdp,)`` in the global layout.  That layout
+  (``init_opt_state``/``encode_params`` with ``fsdp_size``) is built from
+  the global tree bit for bit as the shards build it: each block of a
+  sharded leaf (``parallel/mesh.py::shard_dim``) is encoded from the same
+  generator state, and ``min_size`` applies to a shard's element count.
+  ``reshard_packed_state`` moves packed state to another fsdp size (or to
+  one device) by a decode and a re-encode.
 
 The optimizers are written with tensor ops in optax's order (SGD: coupled
 weight decay -> ``trace(decay=momentum)`` -> ``-lr``; Adam: coupled decay
@@ -55,7 +62,9 @@ from smart_quantization_tpu_torch.ops.codebook import (
     smaq_encode,
     supports_codebook,
 )
+from smart_quantization_tpu_torch.ops.keys import DeviceKey
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+from smart_quantization_tpu_torch.parallel.mesh import shard_dim
 from smart_quantization_tpu_torch.utils.profiling import scope
 
 Tree = dict[str, torch.Tensor]
@@ -203,10 +212,11 @@ def build_optimizer(
 
 
 def init_opt_state(spec: OptimizerSpec, params: Tree, compression: OptimizerCompression,
-                   gen: torch.Generator | None = None):
+                   gen: torch.Generator | None = None, fsdp_size: int | None = None):
     """The initial optimizer state under ``compression``: with
     ``packed_momentum`` the (zero) momentum buffers encoded from step zero
-    (they decode exactly), drawing from ``gen``; a ``CompressedOptState``
+    (they decode exactly), drawing from ``gen``, in the FSDP layout of
+    ``fsdp_size`` > 1 (:func:`_encode_tree_fsdp`); a ``CompressedOptState``
     with the master weights under ``use_weight_accumulator``, else the
     plain state."""
     inner = spec.init(params)
@@ -214,7 +224,10 @@ def init_opt_state(spec: OptimizerSpec, params: Tree, compression: OptimizerComp
         p = packed_smaq_params(compression)
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         for name, _ in spec.momentum_buffers:
-            inner[name] = _encode_tree(inner[name], gen, p)[0]
+            if fsdp_size and fsdp_size > 1:
+                inner[name] = _encode_tree_fsdp(inner[name], gen, p, fsdp_size)
+            else:
+                inner[name] = _encode_tree(inner[name], gen, p)[0]
     if compression.use_weight_accumulator:
         # a copy: the trainer updates the master and the model in place
         return CompressedOptState(inner, {k: p.clone() for k, p in params.items()})
@@ -311,13 +324,14 @@ def packed_smaq_params(compression: OptimizerCompression) -> SmaQParams:
     return params
 
 
-def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None):
+def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None, stats_rank1=False):
     """Encode every non-skipped leaf of ``min_size`` elements or more to
     ``SmaQCodes`` (smaller ones stay float32, as the fake path passes them
     through); returns (tree, orig_bits, new_bits) with the real sizes:
     ``8 n + 64`` bits a code leaf, ``32 n`` a float32 one, skipped leaves
     not counted.  Draws from ``gen`` in leaf order, as
-    :func:`_quantize_tree` does."""
+    :func:`_quantize_tree` does.  ``stats_rank1`` stores the stats as
+    ``(1,)`` rows (a shard's slice of the FSDP layout)."""
     out, orig, new = {}, 0, 0
     for k, leaf in tree.items():
         if skip is not None and skip.get(k, False):
@@ -330,25 +344,102 @@ def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None):
             new += 32 * n
         else:
             out[k] = smaq_encode(leaf, gen, params)
+            if stats_rank1:
+                out[k] = _rank1(out[k])
             new += 8 * n + 64
     device = next(iter(tree.values())).device
     return (out, torch.full((), float(orig), device=device),
             torch.full((), float(new), device=device))
 
 
+def _rank1(codes: SmaQCodes) -> SmaQCodes:
+    return SmaQCodes(codes.codes, codes.mean.reshape(1), codes.std.reshape(1))
+
+
+def _rewinder(gen):
+    """A function that puts ``gen`` back in its present state (a host
+    generator's state, a step key's next call index)."""
+    if isinstance(gen, torch.Generator):
+        state = gen.get_state()
+        return lambda: gen.set_state(state)
+    if isinstance(gen, DeviceKey):
+        at = gen._next
+        return lambda: setattr(gen, "_next", at)
+    return lambda: None
+
+
+def _blocks(leaf: torch.Tensor, fsdp_size: int, dim: int) -> list[torch.Tensor]:
+    """The ``fsdp_size`` contiguous blocks of ``leaf`` along ``dim``, each
+    contiguous (a shard as its rank stores it)."""
+    return [b.contiguous() for b in leaf.chunk(fsdp_size, dim)]
+
+
+def _encode_leaf_blocked(leaf: torch.Tensor, gen, params: SmaQParams, fsdp_size: int,
+                         dim: int) -> SmaQCodes:
+    """The global layout of a sharded leaf, bit for bit what its
+    ``fsdp_size`` shards encode: each block along ``dim`` encoded from the
+    same generator state (every rank draws from the shared optimizer key),
+    the codes in the global shape, the stats stacked ``(fsdp_size,)``."""
+    rewind, encs = _rewinder(gen), []
+    for i, block in enumerate(_blocks(leaf, fsdp_size, dim)):
+        if i:
+            rewind()
+        encs.append(smaq_encode(block, gen, params))
+    return SmaQCodes(torch.cat([e.codes for e in encs], dim),
+                     torch.stack([e.mean for e in encs]), torch.stack([e.std for e in encs]))
+
+
+def _encode_tree_fsdp(tree: Tree, gen, params: SmaQParams, fsdp_size: int, *,
+                      skip=None) -> Tree:
+    """The FSDP layout of a global tree: a leaf that ``shard_dim`` shards
+    holds one codebook a block (codes in the global shape, ``(fsdp,)``
+    stats), a replicated one ``(1,)`` stats; ``min_size`` applies to the
+    shard's element count.  The layout is specific to ``fsdp_size``:
+    :func:`reshard_packed_state` moves it."""
+    out = {}
+    for k, leaf in tree.items():
+        if skip is not None and skip.get(k, False):
+            out[k] = leaf
+            continue
+        dim = shard_dim(k, tuple(leaf.shape), fsdp_size)
+        local_n = leaf.numel() // fsdp_size if dim >= 0 else leaf.numel()
+        if local_n < params.min_size:
+            out[k] = leaf
+        elif dim < 0:
+            out[k] = _rank1(smaq_encode(leaf, gen, params))
+        else:
+            out[k] = _encode_leaf_blocked(leaf, gen, params, fsdp_size, dim)
+    return out
+
+
+def decode_leaf(name: str, leaf: SmaQCodes, params: SmaQParams,
+                all_positive: bool = False) -> torch.Tensor:
+    """A packed leaf's values; in the global FSDP layout (``(k,)`` stats,
+    k > 1) block by block along the dim ``shard_dim`` gives for k."""
+    k = leaf.mean.numel()
+    if leaf.mean.dim() == 1 and k > 1:
+        dim = shard_dim(name, tuple(leaf.codes.shape), k)
+        return torch.cat([
+            smaq_decode(SmaQCodes(c, leaf.mean[i], leaf.std[i]), params,
+                        all_positive=all_positive)
+            for i, c in enumerate(leaf.codes.chunk(k, dim))], dim)
+    return smaq_decode(leaf, params, all_positive=all_positive)
+
+
 def _decode_tree(tree: Tree, params: SmaQParams, all_positive: bool) -> Tree:
     """``SmaQCodes`` leaves decoded to float32; the others as they are."""
-    return {k: smaq_decode(v, params, all_positive=all_positive)
+    return {k: decode_leaf(k, v, params, all_positive)
             if isinstance(v, SmaQCodes) else v for k, v in tree.items()}
 
 
-def _compress_momentum(spec, opt_state, gen, compression, p_params):
+def _compress_momentum(spec, opt_state, gen, compression, p_params, stats_rank1=False):
     """Quantize (or, with ``p_params``, encode) every momentum buffer;
     returns the state and the (2,) ``[orig_bits, new_bits]`` total."""
     origs, news = [], []
     for name, all_positive in spec.momentum_buffers:
         if p_params is not None:
-            opt_state[name], o, n = _encode_tree(opt_state[name], gen, p_params)
+            opt_state[name], o, n = _encode_tree(opt_state[name], gen, p_params,
+                                                 stats_rank1=stats_rank1)
         else:
             # nu (the all_positive buffer) may take the log2 codec, by rows
             # with momentum_log_nu_rowwise; mu and SGD's trace may take rows
@@ -374,13 +465,15 @@ def compressed_optimizer_step(
     *,
     weight_exempt: dict[str, bool] | None = None,
     scalars: torch.Tensor | None = None,
+    packed_stats_rank1: bool = False,
 ) -> tuple[Tree, object, dict[str, torch.Tensor]]:
     """One optimizer step with compression; returns ``(params, opt_state,
     metrics)``, metrics mapping ``optimizer_{grad,weight,momentum}`` to
     (2,) ``[orig_bits, new_bits]`` device tensors.  ``params`` are float32
     (decode packed weights first, :func:`decode_params`); under
     ``packed_weights`` the returned ones hold ``SmaQCodes``.  ``scalars``
-    goes to :meth:`OptimizerSpec.update`."""
+    goes to :meth:`OptimizerSpec.update`.  ``packed_stats_rank1``: the
+    FSDP step on a rank's shards, whose packed stats are ``(1,)`` rows."""
     metrics: dict[str, torch.Tensor] = {}
     comp = compression.compressor
     active = compression.active
@@ -416,7 +509,7 @@ def compressed_optimizer_step(
         with scope("compress/optimizer_weight"):
             if compression.packed_weights:
                 params, o, n = _encode_tree(params, gen, packed_smaq_params(compression),
-                                            skip=weight_exempt)
+                                            skip=weight_exempt, stats_rank1=packed_stats_rank1)
             else:
                 params, o, n = _quantize_tree(params, gen, comp, skip=weight_exempt)
         metrics["optimizer_weight"] = torch.stack([o, n])
@@ -424,7 +517,8 @@ def compressed_optimizer_step(
     if active and compression.compress_momentum and spec.has_momentum:
         with scope("compress/optimizer_momentum"):
             opt_state, metrics["optimizer_momentum"] = _compress_momentum(
-                spec, opt_state, gen, compression, p_params if packed else None)
+                spec, opt_state, gen, compression, p_params if packed else None,
+                packed_stats_rank1)
 
     if wrapped:
         opt_state = CompressedOptState(opt_state, master)
@@ -440,14 +534,59 @@ def decode_params(params: Tree, compression: OptimizerCompression) -> Tree:
 
 
 def encode_params(params: Tree, compression: OptimizerCompression,
-                  gen: torch.Generator | None = None, *, exempt=None) -> Tree:
+                  gen: torch.Generator | None = None, *, exempt=None,
+                  fsdp_size: int | None = None) -> Tree:
     """Fresh float32 params in packed storage (init and restore); the
     exempt leaves (by default :func:`norm_param_mask`'s) stay float32.
     The initial params are thereby quantized at init rather than after the
-    first step, as in the JAX package."""
+    first step, as in the JAX package.  ``fsdp_size`` > 1 gives the FSDP
+    layout (:func:`_encode_tree_fsdp`)."""
     if not compression.packed_weights:
         return params
     if exempt is None:
         exempt = norm_param_mask(params)
     gen = gen if gen is not None else torch.Generator().manual_seed(0)
-    return _encode_tree(params, gen, packed_smaq_params(compression), skip=exempt)[0]
+    p = packed_smaq_params(compression)
+    if fsdp_size and fsdp_size > 1:
+        return _encode_tree_fsdp(params, gen, p, fsdp_size, skip=exempt)
+    return _encode_tree(params, gen, p, skip=exempt)[0]
+
+
+def reshard_packed_tree(tree: Tree, gen, params: SmaQParams, new_fsdp_size: int | None, *,
+                        all_positive: bool = False) -> Tree:
+    """Every ``SmaQCodes`` leaf of a global tree re-laid out for another
+    fsdp size: decoded (block by block in an FSDP layout) and encoded in
+    the target layout (``new_fsdp_size`` <= 1: one device's, 0-d stats).
+    A leaf whose shard falls below ``min_size`` in the new layout comes
+    back float32, as the target's own encode decides; other leaves pass
+    through.  Each decode and re-encode is one more stochastic rounding."""
+    out = {}
+    for k, leaf in tree.items():
+        if not isinstance(leaf, SmaQCodes):
+            out[k] = leaf
+            continue
+        x = decode_leaf(k, leaf, params, all_positive)
+        if new_fsdp_size and new_fsdp_size > 1:
+            out[k] = _encode_tree_fsdp({k: x}, gen, params, new_fsdp_size)[k]
+        elif x.numel() < params.min_size:
+            out[k] = x
+        else:
+            out[k] = smaq_encode(x, gen, params)
+    return out
+
+
+def reshard_packed_state(params: Tree | None, opt_state, gen, compression: OptimizerCompression,
+                         new_fsdp_size: int | None):
+    """A restored state's packed leaves (parameters, then each momentum
+    buffer) in the layout of ``new_fsdp_size``: ``(params, opt_state)``,
+    by :func:`reshard_packed_tree`."""
+    p = packed_smaq_params(compression)
+    if params is not None:
+        params = reshard_packed_tree(params, gen, p, new_fsdp_size)
+    wrapped = isinstance(opt_state, CompressedOptState)
+    inner = dict(opt_state.inner if wrapped else opt_state)
+    for name, all_positive in (("trace", False), ("mu", False), ("nu", True)):
+        if name in inner:
+            inner[name] = reshard_packed_tree(inner[name], gen, p, new_fsdp_size,
+                                              all_positive=all_positive)
+    return params, (CompressedOptState(inner, opt_state.master) if wrapped else inner)

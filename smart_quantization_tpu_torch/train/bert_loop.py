@@ -5,7 +5,8 @@ Counterpart of ``smart_quantization_tpu/train/bert_loop.py``
 (``BertTrainer`` and ``run_bert``, the CLI path of ``--model bert``): the
 regression head for STSB and cross-entropy otherwise, GLUE metrics on the
 validation split, compression, ``--compute_dtype``, ``--auto_lr_find`` and
-``--auto_scale_batch_size`` wired exactly as on the image path.
+``--auto_scale_batch_size`` wired exactly as on the image path, and the
+same ``--dp``/``--fsdp`` mesh.
 """
 
 from __future__ import annotations
@@ -23,19 +24,21 @@ class BertTrainer(Trainer):
         super().__init__(model, data, spec, task=seq_task, **kw)
 
 
-def build_bert_trainer(args) -> BertTrainer:
+def build_bert_trainer(args, mesh=None) -> BertTrainer:
     """The trainer ``--model bert`` asks for: GLUE (``--glue_task``) or
     IMDB data, bert-base or the tiny config, pretrained weights from a
-    local HF cache (bert-base only) or a fresh init from ``--seed``."""
+    local HF cache (bert-base only) or a fresh init from ``--seed``; on
+    ``mesh`` if given (``--batch_size`` must divide over it)."""
     from smart_quantization_tpu_torch.convert import load_pretrained
     from smart_quantization_tpu_torch.data.glue import GLUEData, IMDBData
     from smart_quantization_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
     from smart_quantization_tpu_torch.train.loop import TrainConfig
-    from smart_quantization_tpu_torch.train.metrics import run_logger
+    from smart_quantization_tpu_torch.train.metrics import rank_logger
     from smart_quantization_tpu_torch.utils.config import (
         build_components,
         check_ported,
         compute_dtype,
+        mesh_kwargs,
     )
 
     check_ported(args)
@@ -61,15 +64,16 @@ def build_bert_trainer(args) -> BertTrainer:
     return BertTrainer(
         model, data, comps["optimizer_spec"], task=task,
         optim_comp=comps["optim_comp"], loss_compressor=comps["compressor"], config=config,
-        logger=run_logger(args), device=args.device,
+        logger=rank_logger(args, mesh), device=args.device,
+        **mesh_kwargs(args, mesh, args.batch_size),
     )
 
 
-def run_bert(args) -> dict:
+def run_bert(args, mesh=None) -> dict:
     """The CLI path of ``--model bert``: tune (``--auto_scale_batch_size``,
     ``--auto_lr_find``), resume, fit, evaluate, print ``final:``."""
     from smart_quantization_tpu_torch.train.tune import tune_from_args
 
-    trainer = build_bert_trainer(args)
+    trainer = build_bert_trainer(args, mesh)
     tune_from_args(trainer, args)
     return run(trainer, args.resume_from)

@@ -1,9 +1,25 @@
-"""The single-device training loop.
+"""The training loop, on one device or on a mesh of ranks.
 
-Counterpart of ``smart_quantization_tpu/train/loop.py::Trainer`` without
-its mesh branches (still to be ported, ROADMAP Queue 1 item 15).  A task
+Counterpart of ``smart_quantization_tpu/train/loop.py::Trainer``.  A task
 (``train/task.py``) supplies what varies by model family: batch
 preparation, the model's arguments, the loss and the eval reduction.
+
+With a ``mesh`` (``parallel/mesh.py``; one process a rank, NCCL on the
+card, gloo on the CPU) the step is the JAX package's ``shard_map`` body
+with explicit collectives after ``backward()`` (``parallel/``): rank r
+takes rows ``[r B/n, (r+1) B/n)`` of each global batch; under data
+parallelism the gradients are averaged (float32, or the int8 gather or
+psum exchange of ``--grad_allreduce_bits``) and the optimizer runs
+replicated; with ``fsdp`` > 1 the state lives sharded, the forward
+gathers the parameters (int8 under ``--param_gather_bits``), the
+gradients are reduce-scattered and the optimizer steps the local shards.
+The BatchNorm running statistics and the metrics are reduced over the
+ranks.  The taps, augmentation and dropout draw from keys folded with the
+rank, the optimizer and the loss compressor from the shared step key.
+Logs and checkpoints come from rank 0; a checkpoint holds the global
+layout (rank 0 gathers the shards), and one written at another fsdp size
+is resharded on restore.  Evaluation splits a batch over the ranks when
+they divide it, and otherwise runs it whole on every rank.
 
 - ``init_state`` builds the optimizer state (master weights, packed
   momentum) and, under ``--packed_weights``, the packed parameter tree,
@@ -66,15 +82,23 @@ import json
 import os
 import time
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from smart_quantization_tpu_torch import resolve_device
 from smart_quantization_tpu_torch.compress.base import CompressorBase, SizeTotals
 from smart_quantization_tpu_torch.inject.tap import TapContext, compress_loss
 from smart_quantization_tpu_torch.ops.codebook import SmaQCodes
-from smart_quantization_tpu_torch.ops.keys import DeviceKey, as_int64, key_tensor, step_key
+from smart_quantization_tpu_torch.ops.keys import (
+    DeviceKey,
+    as_int64,
+    key_tensor,
+    mesh_step_words,
+    step_key,
+)
 from smart_quantization_tpu_torch.optim.compressed import (
     CompressedOptState,
     OptimizerCompression,
@@ -84,7 +108,16 @@ from smart_quantization_tpu_torch.optim.compressed import (
     encode_params,
     init_opt_state,
     norm_param_mask,
+    packed_smaq_params,
+    reshard_packed_state,
 )
+from smart_quantization_tpu_torch.parallel.collectives import all_gather_single
+from smart_quantization_tpu_torch.parallel.train_dp import (
+    DataParallel,
+    average_buffers,
+    reduce_metrics,
+)
+from smart_quantization_tpu_torch.parallel.train_fsdp_q import FusedFSDP
 from smart_quantization_tpu_torch.train.graph import StepGraph, stack_outputs, to_device
 from smart_quantization_tpu_torch.train.metrics import (
     MetricLogger,
@@ -97,8 +130,10 @@ from smart_quantization_tpu_torch.utils import profiling
 
 # A step's row on the card: its key, then its optimizer scalars (-lr and
 # Adam's two bias corrections, OptimizerSpec.step_scalars) as float32 in
-# the next two words.
-AUX_WORDS = 3
+# the next two words; on a mesh then the rank's keys (ops/keys.py::
+# mesh_step_words): taps and augmentation, dropout, the gradient payload
+# and the FSDP parameter gather.
+AUX_WORDS = 7
 # the eval steps' constant key on the card (the JAX package's constant
 # eval key; the CPU's is a generator seeded 0)
 EVAL_KEY = 0
@@ -188,12 +223,25 @@ def _assign(dst, src) -> None:
             _assign(v, src[k])
 
 
+class StepKeys(NamedTuple):
+    """Where each of a step's draws comes from: host generators on the
+    CPU, step keys on the card (``ops/keys.py``)."""
+
+    fwd: object  # the taps (and, on a mesh, the augmentation's rank)
+    opt: object  # the optimizer, shared by every rank
+    drop: object  # dropout
+    loss: object  # the loss compressor
+    payload: object = None  # the gradient exchange's rounding (a mesh)
+    gather: object = None  # the FSDP parameter gather's rounding
+
+
 def _inner(opt_state) -> dict:
     return opt_state.inner if isinstance(opt_state, CompressedOptState) else opt_state
 
 
 class Trainer:
-    """Single-device trainer of a task (image classification by default)."""
+    """Trainer of a task (image classification by default), on one device
+    or, with ``mesh``, on one rank of a (data, fsdp) mesh."""
 
     def __init__(
         self,
@@ -207,6 +255,10 @@ class Trainer:
         logger: MetricLogger | None = None,
         device: str | torch.device | None = None,
         task=None,
+        mesh=None,
+        grad_allreduce_bits: int | None = 8,
+        grad_allreduce_mode: str = "auto",
+        param_gather_bits: int | None = None,
     ):
         if config.steps_per_call < 1:
             raise ValueError(f"--steps_per_call must be 1 or more, got {config.steps_per_call}")
@@ -230,8 +282,21 @@ class Trainer:
         self.ratio_acc = RatioAccumulator()
         self.nan_terminated = False
         self.weight_exempt = norm_param_mask(n for n, _ in model.named_parameters())
-        # augmentation draws on the device, from one generator per run
-        self.data_gen = _generator(config.seed, self.device)
+        # the mesh's exchange: data parallelism, or the fused FSDP path
+        self.mesh = mesh
+        self._dp = self._fsdp = None
+        if mesh is not None:
+            if mesh.fsdp_active:
+                shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+                self._fsdp = FusedFSDP(mesh, shapes, grad_allreduce_bits, param_gather_bits)
+            else:
+                self._dp = DataParallel(mesh, grad_allreduce_bits, grad_allreduce_mode)
+        self.primary = mesh is None or mesh.rank == 0
+        # augmentation draws on the device, from one generator per run (on
+        # a mesh one per rank)
+        seed = config.seed if mesh is None else int(
+            np.random.SeedSequence([config.seed, 4, mesh.rank]).generate_state(1, np.uint64)[0])
+        self.data_gen = _generator(seed, self.device)
         # what a packed leaf of the model holds between steps
         self._released = torch.empty(0, device=self.device)
         # the K-step graphs on the card (train/graph.py), built at first use
@@ -249,16 +314,41 @@ class Trainer:
     def init_state(self) -> TrainState:
         """Step 0: the optimizer state (with the master weights and packed
         momentum where asked for) and, under ``packed_weights``, the packed
-        parameters, whose decoded view the model then holds."""
+        parameters, whose decoded view the model then holds.  Under FSDP
+        the global layout is built (as the JAX package's ``fsdp_size``
+        init) and this rank keeps its shards of it."""
         params = {n: p.detach() for n, p in self.model.named_parameters()}
         words = np.random.SeedSequence(self.cfg.seed, spawn_key=(1,)).generate_state(2, np.uint64)
         gen_state, gen_weights = (_generator(int(w)) for w in words)
-        opt_state = init_opt_state(self.spec, params, self.optim_comp, gen_state)
+        fsdp = self.mesh.shape["fsdp"] if self._fsdp is not None else None
+        opt_state = init_opt_state(self.spec, params, self.optim_comp, gen_state, fsdp_size=fsdp)
         packed = None
         if self.optim_comp.packed_weights:
-            packed = encode_params(params, self.optim_comp, gen_weights, exempt=self.weight_exempt)
+            packed = encode_params(params, self.optim_comp, gen_weights, exempt=self.weight_exempt,
+                                   fsdp_size=fsdp)
+        if self._fsdp is not None:
+            return self._place(opt_state, packed if packed is not None else params)
+        if packed is not None:
             self._load_params(packed)
         return TrainState(0, opt_state, packed)
+
+    def _place(self, opt_state, params: dict, step: int = 0) -> TrainState:
+        """This rank's shards of a global-layout state (FSDP)."""
+        layout, i = self._fsdp.layout, self.mesh.fsdp_index
+        shards = layout.local(params, i)
+        return TrainState(step, layout.local_opt_state(opt_state, i), None, shards)
+
+    def _sync_model(self, state: TrainState | None) -> None:
+        """The model's parameters from ``state``: packed weights decoded;
+        under FSDP the shards gathered in float32 (as the JAX package's
+        evaluation sees the stored parameters)."""
+        if state is None:
+            return
+        if state.shards is not None:
+            self._fsdp.gather_params(decode_params(state.shards, self.optim_comp), None,
+                                     dict(self.model.named_parameters()), quantized=False)
+        elif state.packed_params is not None:
+            self._load_params(state.packed_params)
 
     def _load_params(self, packed: dict) -> None:
         """Decode a packed parameter tree into the model."""
@@ -274,15 +364,41 @@ class Trainer:
             3, np.uint64)
         return _generator(int(s_fwd)), _generator(int(s_opt)), _generator(int(s_drop), self.device)
 
+    def _mesh_words(self, step: int) -> tuple[int, int, int, int]:
+        return mesh_step_words(self.cfg.seed, step, self.mesh.rank, self.mesh.fsdp_index,
+                               self._fsdp is not None)
+
+    def _step_keys(self, step: int) -> StepKeys:
+        """The CPU step's generators; on a mesh the taps, dropout, payload
+        and gather draw from the rank's words, the optimizer and the loss
+        compressor from the shared one."""
+        fwd, opt, drop = self._step_generators(step)
+        if self.mesh is None:
+            return StepKeys(fwd, opt, drop, fwd)
+        w_fwd, w_drop, w_payload, w_gather = self._mesh_words(step)
+        return StepKeys(_generator(w_fwd), opt, _generator(w_drop, self.device), opt,
+                        _generator(w_payload), _generator(w_gather))
+
     def _aux_rows(self, state: TrainState, n: int) -> np.ndarray:
         """The next ``n`` steps' rows on the card: each step's key, then its
-        optimizer scalars as float32 words."""
+        optimizer scalars as float32 words, then on a mesh its rank's keys."""
         rows = np.zeros((n, AUX_WORDS), np.int64)
         count = _inner(state.opt_state)["count"]
         for j in range(n):
             rows[j, 0] = as_int64([step_key(self.cfg.seed, state.step + j)])[0]
-            rows[j, 1:].view(np.float32)[:3] = self.spec.step_scalars(count + j)
+            rows[j, 1:3].view(np.float32)[:3] = self.spec.step_scalars(count + j)
+            if self.mesh is not None:
+                rows[j, 3:7] = as_int64(self._mesh_words(state.step + j))
         return rows
+
+    def _card_keys(self, aux: torch.Tensor) -> tuple[StepKeys, torch.Tensor]:
+        key = DeviceKey(aux[0:1])
+        scalars = aux[1:3].view(torch.float32)
+        if self.mesh is None:
+            return StepKeys(key, key, key, key), scalars
+        fwd = DeviceKey(aux[3:4])
+        return (StepKeys(fwd, key, DeviceKey(aux[4:5]), key, DeviceKey(aux[5:6]),
+                         DeviceKey(aux[6:7])), scalars)
 
     def _advance(self, state: TrainState, n: int) -> None:
         """The host's count of ``n`` steps taken."""
@@ -294,23 +410,26 @@ class Trainer:
         """One step's computation: reads the model's and ``state``'s tensors
         and writes them in place, so that a graph of it replays on fixed
         addresses; the host's step count is the caller's.  ``aux`` is the
-        step's row on the card (``_aux_rows``), or its host generators."""
+        step's row on the card (``_aux_rows``), or its :class:`StepKeys`.
+        On a mesh ``inputs`` and ``labels`` are this rank's rows."""
         if self._on_card:
-            key = DeviceKey(aux[0:1])
-            gen_fwd = gen_opt = gen_drop = key
-            scalars = aux[1:].view(torch.float32)
+            keys, scalars = self._card_keys(aux)
         else:
-            (gen_fwd, gen_opt, gen_drop), scalars = aux, None
+            keys, scalars = aux, None
         sizes = SizeTotals() if self.cfg.measure_compression_ratio else None
-        if state.packed_params is not None:
-            self._load_params(state.packed_params)
         model = self.model
+        named = list(model.named_parameters())
+        if state.shards is not None:
+            local = decode_params(state.shards, self.optim_comp)
+            self._fsdp.gather_params(local, keys.gather, dict(named))
+        elif state.packed_params is not None:
+            self._load_params(state.packed_params)
+            named = list(model.named_parameters())
         model.train()
-        logits = model(*self.task.model_args(inputs), TapContext(gen_fwd, sizes, gen_drop))
+        logits = model(*self.task.model_args(inputs), TapContext(keys.fwd, sizes, keys.drop))
         loss = self.task.loss(logits, labels)
         if self.cfg.compress_loss and self.loss_compressor is not None:
-            loss = compress_loss(loss, self.loss_compressor, gen_fwd)
-        named = list(model.named_parameters())
+            loss = compress_loss(loss, self.loss_compressor, keys.loss)
         for _, p in named:
             p.grad = None
         loss.backward()
@@ -321,13 +440,25 @@ class Trainer:
         if self.cfg.measure_average_grad_norm:
             # the raw gradients' norms in one fused launch; no host sync
             grad_norm = torch.stack(torch._foreach_norm(list(grads.values()))).mean()
+        if self._fsdp is not None:
+            grads = self._fsdp.exchange_grads(grads, keys.payload)
+            params = local
+        elif self._dp is not None:
+            grads = self._dp.exchange(grads, keys.payload)
+        if self.mesh is not None:
+            average_buffers(model, self.mesh.group(("data", "fsdp")), self.mesh.size)
         new_params, opt_state, opt_metrics = compressed_optimizer_step(
-            self.spec, params, grads, state.opt_state, gen_opt, self.optim_comp,
+            self.spec, params, grads, state.opt_state, keys.opt, self.optim_comp,
             weight_exempt=self.weight_exempt, scalars=scalars,
+            packed_stats_rank1=self._fsdp is not None,
         )
         with torch.no_grad():
             _assign(state.opt_state, opt_state)
-            if state.packed_params is not None:
+            if state.shards is not None:
+                # the shards are the stored weights; the model's full
+                # tensors are the next step's gather target
+                _assign(state.shards, new_params)
+            elif state.packed_params is not None:
                 # the codes are the stored weights; the model keeps no
                 # float32 copy of a packed leaf until the next decode (the
                 # exempt leaves are the packed tree's own tensors)
@@ -345,10 +476,13 @@ class Trainer:
         metrics.update(self.task.train_metrics(logits.detach(), labels))
         if grad_norm is not None:
             metrics["avg_grad_norm"] = grad_norm
-        if sizes is not None:
-            for tag, pair in {**sizes.totals, **opt_metrics}.items():
-                metrics[f"_ratio/{tag}"] = pair
-        return metrics
+        taps = {f"_ratio/{t}": v for t, v in sizes.totals.items()} if sizes is not None else {}
+        opt = {f"_ratio/{t}": v for t, v in opt_metrics.items()} if sizes is not None else {}
+        if self.mesh is not None:
+            return reduce_metrics(metrics, taps, self.mesh.group(("data", "fsdp")),
+                                  self.mesh.size, opt,
+                                  self.mesh.group("fsdp") if self._fsdp is not None else None)
+        return {**metrics, **taps, **opt}
 
     def train_step(self, state: TrainState, inputs, labels: torch.Tensor) -> dict:
         """One step on a prepared batch (``task.prepare_train``'s output);
@@ -358,7 +492,7 @@ class Trainer:
         if self._on_card:
             aux = to_device(self._aux_rows(state, 1)[0], self.device)
         else:
-            aux = self._step_generators(state.step)
+            aux = self._step_keys(state.step)
         metrics = self._step(state, inputs, labels, aux)
         self._advance(state, 1)
         return metrics
@@ -392,9 +526,47 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, inputs, labels: torch.Tensor) -> dict:
+        """The task's outputs of one eval batch.  On a mesh whose size
+        divides the batch, each rank runs its rows and the logits are
+        gathered; otherwise every rank runs the whole batch."""
         self.model.eval()
-        logits = self.model(*self.task.model_args(inputs), self._eval_tap_context())
+        split = self.mesh is not None and len(labels) % self.mesh.size == 0
+        x = self._rows(inputs) if split else inputs
+        logits = self.model(*self.task.model_args(x), self._eval_tap_context())
+        if split:
+            logits = self._gather_rows(logits)
         return self.task.eval_outputs(logits, labels)
+
+    def prepare_batch(self, inputs, labels: torch.Tensor):
+        """A global training batch as this step takes it: on a mesh this
+        rank's rows, then the task's preparation (augmentation from the
+        trainer's generator)."""
+        if self.mesh is not None:
+            inputs, labels = self._rows(inputs), self._rows(labels)
+        return self.task.prepare_train(inputs, self.data_gen), labels
+
+    def _rows(self, x):
+        """This rank's rows ``[r B/n, (r+1) B/n)`` of a batch (a tensor or
+        a dict of them)."""
+        if isinstance(x, dict):
+            return {k: self._rows(v) for k, v in x.items()}
+        b = x.shape[0] // self.mesh.size
+        return x[self.mesh.rank * b:(self.mesh.rank + 1) * b]
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((self.mesh.size * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        all_gather_single(out, t.contiguous(), group=self.mesh.group(("data", "fsdp")))
+        return out
+
+    def _agree(self, flag: bool) -> bool:
+        """True on every rank if it is on rank 0 (a mesh's ranks stop
+        together)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag and self.primary)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     def _eval_group(self, batches: list) -> dict:
         """K eval batches: one replay of the eval graph on the card (captured
@@ -464,10 +636,8 @@ class Trainer:
             self._start_profile()
 
         def time_up() -> bool:
-            return (
-                self.cfg.max_time_s is not None
-                and time.time() - fit_t0 >= self.cfg.max_time_s
-            )
+            return self.cfg.max_time_s is not None and self._agree(
+                time.time() - fit_t0 >= self.cfg.max_time_s)
 
         lim_train = self._resolve_limit(
             self.cfg.limit_train_batches, self.data.steps_per_epoch
@@ -482,7 +652,7 @@ class Trainer:
                     if lim_train is not None and bi >= lim_train:
                         break
                     # augmentation runs eagerly, in the order a K = 1 run takes it
-                    x = self.task.prepare_train(inputs, self.data_gen)
+                    x, labels = self.prepare_batch(inputs, labels)
                     if spc > 1:
                         group.append((x, labels))
                         if len(group) < spc:
@@ -516,7 +686,8 @@ class Trainer:
                 val["epoch"] = epoch
                 val["epoch_time_s"] = time.time() - t0
                 val.update(self.ratio_acc.summary())
-                self.logger.log(state.step, val)
+                if self.primary:
+                    self.logger.log(state.step, val)
                 self._maybe_checkpoint(state, epoch)
             return state
         finally:
@@ -525,40 +696,74 @@ class Trainer:
     def _maybe_checkpoint(self, state: TrainState, epoch: int) -> None:
         if not self.cfg.checkpoint_dir or (epoch + 1) % self.cfg.checkpoint_every_epochs:
             return
-        os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
         self.save_checkpoint(os.path.join(self.cfg.checkpoint_dir, f"epoch_{epoch:04d}.pt"), state)
 
     def save_checkpoint(self, path: str, state: TrainState) -> None:
         """Write the port's checkpoint (``torch.save``): the step, the
         parameters (packed leaves as their uint8 codes and stats), the
         model's buffers, the optimizer state with any master weights, and
-        the augmentation generator's state."""
-        params = state.packed_params
-        if params is None:
-            params = {n: p.detach() for n, p in self.model.named_parameters()}
-        torch.save({
+        the augmentation generator's state.  On a mesh every rank calls it
+        and rank 0 writes: under FSDP the global layout, gathered from the
+        shards (packed stats as ``(fsdp,)`` rows), with its fsdp size."""
+        if state.shards is not None:
+            group = self.mesh.group("fsdp")
+            params = self._fsdp.layout.gather(state.shards, group)
+            opt_state = self._fsdp.layout.gather_opt_state(state.opt_state, group)
+        else:
+            params = state.packed_params
+            if params is None:
+                params = {n: p.detach() for n, p in self.model.named_parameters()}
+            opt_state = state.opt_state
+        ck = {
             "step": state.step,
             "params": to_saved(params),
             "buffers": dict(self.model.named_buffers()),
-            "opt_state": to_saved(state.opt_state),
+            "opt_state": to_saved(opt_state),
             "data_gen": self.data_gen.get_state(),
-        }, path)
+            "fsdp_size": self.mesh.shape["fsdp"] if self._fsdp is not None else 1,
+        }
+        if self.mesh is not None:
+            # every rank's augmentation generator, for a restore on this mesh
+            ck["data_gens"] = [None] * self.mesh.size
+            dist.all_gather_object(ck["data_gens"], self.data_gen.get_state())
+        if self.primary:
+            torch.save(ck, path)
+        if self.mesh is not None:
+            dist.barrier()
 
     def load_checkpoint(self, path: str) -> TrainState:
         """Restore a checkpoint of :meth:`save_checkpoint` into the model
-        and return its state."""
+        and return its state: packed state written at another fsdp size is
+        resharded (``optim/compressed.py::reshard_packed_state``), and
+        under FSDP this rank keeps its shards."""
         ck = torch.load(path, map_location=self.device, weights_only=True)
         params = from_saved(ck["params"])
-        packed = params if self.optim_comp.packed_weights else None
+        opt_state = from_saved(ck["opt_state"])
+        comp = self.optim_comp
+        want = self.mesh.shape["fsdp"] if self._fsdp is not None else 1
+        if ck.get("fsdp_size", 1) != want and (comp.packed_weights or comp.packed_momentum):
+            packed_smaq_params(comp)
+            moved, opt_state = reshard_packed_state(
+                params if comp.packed_weights else None, opt_state,
+                _generator(self.cfg.seed), comp, want)
+            params = moved if comp.packed_weights else params
+        for n, b in self.model.named_buffers():
+            b.copy_(ck["buffers"][n])
+        gens = ck.get("data_gens")
+        mine = ck["data_gen"] if not gens or self.mesh is None or len(gens) != self.mesh.size \
+            else gens[self.mesh.rank]
+        self.data_gen.set_state(mine.cpu())
+        if self._fsdp is not None:
+            return self._place(opt_state, params, ck["step"])
+        packed = params if comp.packed_weights else None
         if packed is not None:
             self._load_params(packed)
         else:
             for n, p in self.model.named_parameters():
                 p.data = params[n]
-        for n, b in self.model.named_buffers():
-            b.copy_(ck["buffers"][n])
-        self.data_gen.set_state(ck["data_gen"].cpu())
-        return TrainState(ck["step"], from_saved(ck["opt_state"]), packed)
+        return TrainState(ck["step"], opt_state, packed)
 
     def _drain(self, pending) -> bool:
         """Read pending metrics on the host and log them, a K-step entry
@@ -578,7 +783,8 @@ class Trainer:
                 self.ratio_acc,
                 {k.split("/", 1)[1]: v for k, v in host.items() if k.startswith("_ratio/")},
             )
-            self.logger.log(s, scalars, echo=(s % (self.cfg.log_every * 4) == 0))
+            if self.primary:
+                self.logger.log(s, scalars, echo=(s % (self.cfg.log_every * 4) == 0))
             if self.cfg.terminate_on_nan and not np.isfinite(scalars.get("train_loss", 0.0)):
                 print(f"NaN/inf loss at step {s}; terminating.", flush=True)
                 self.nan_terminated = True
@@ -587,11 +793,11 @@ class Trainer:
 
     def evaluate(self, state: TrainState | None = None) -> dict[str, float]:
         """The task's validation metrics; one host read at the end.  Packed
-        weights in ``state`` are decoded into the model first.  Under
+        weights in ``state`` are decoded into the model first, FSDP shards
+        gathered.  Under
         ``steps_per_call`` K batches go to one graph (K eager steps on the
         CPU), the leftover ones singly."""
-        if state is not None and state.packed_params is not None:
-            self._load_params(state.packed_params)
+        self._sync_model(state)
         spc = self.cfg.steps_per_call
         outs, labels_dev, group = [], [], []
         lim_val = self._resolve_limit(
@@ -629,5 +835,6 @@ def run(trainer: Trainer, resume_from: str | None = None) -> dict:
     final = trainer.evaluate(state)
     final.update(trainer.ratio_acc.summary())
     trainer.logger.close()
-    print("final:", json.dumps(final))
+    if trainer.primary:
+        print("final:", json.dumps(final))
     return final

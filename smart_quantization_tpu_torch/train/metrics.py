@@ -116,6 +116,14 @@ class MetricLogger:
             self._tb.close()
 
 
+def rank_logger(args, mesh=None) -> MetricLogger:
+    """:func:`run_logger` on rank 0 of a mesh (or without one); a logger
+    that writes nothing on the other ranks."""
+    if mesh is not None and mesh.rank != 0:
+        return MetricLogger(None)
+    return run_logger(args)
+
+
 def run_logger(args) -> MetricLogger:
     """The logger of a parsed command line, with the header line of the
     commit ``--git`` recorded (``args.git_commit``)."""

@@ -4,7 +4,9 @@ The model (an ``nn.Module``) holds the parameters and BatchNorm statistics;
 the state holds what the step owns besides them: the step count, the
 optimizer state and, under ``--packed_weights``, the packed parameter tree
 (``SmaQCodes`` for the packed leaves, float32 for the rest) that the
-trainer decodes into the model at each step's entry.
+trainer decodes into the model at each step's entry; under FSDP (a mesh
+with ``fsdp`` > 1) the rank's shards of the parameters, which the step
+gathers into the model.
 
 :func:`to_saved` and :func:`from_saved` turn a state's trees into plain
 dicts of tensors for ``torch.save`` (``torch.load(weights_only=True)``
@@ -25,6 +27,9 @@ class TrainState:
     step: int
     opt_state: dict | CompressedOptState
     packed_params: dict | None = None
+    # under FSDP: this rank's shard of every parameter (packed leaves as
+    # SmaQCodes with (1,) stats); the optimizer state holds shards too
+    shards: dict | None = None
 
 
 def to_saved(tree):

@@ -127,7 +127,7 @@ def auto_lr_find(trainer, *, min_lr: float = 1e-6, max_lr: float = 1.0,
                     trainer.cfg.seed + epoch, trainer.device):
                 if len(losses) + len(group) >= num_steps:
                     break
-                group.append((trainer.task.prepare_train(inputs, trainer.data_gen), labels))
+                group.append(trainer.prepare_batch(inputs, labels))
                 if len(group) == k:
                     run(group)
                     group = []
@@ -143,7 +143,7 @@ def trial_batch(trainer, size: int):
     inputs, labels = next(iter(trainer.data.device_train_batches(0, trainer.device)))
     idx = torch.arange(size, device=labels.device) % labels.shape[0]
     inputs = tree_map(lambda t: t.index_select(0, idx), inputs)
-    return trainer.task.prepare_train(inputs, trainer.data_gen), labels.index_select(0, idx)
+    return trainer.prepare_batch(inputs, labels.index_select(0, idx))
 
 
 def auto_scale_batch_size(try_batch: Callable[[int], None], *, init_size: int = 8,

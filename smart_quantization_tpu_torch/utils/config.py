@@ -1,15 +1,14 @@
 """Two-phase CLI composition + experiment wiring.
 
 Counterpart of ``smart_quantization_tpu/utils/config.py`` (``parse_args``
-and ``build_components``) for the paths ported so far: ResNet on
-CIFAR-10/100 and BERT on GLUE and IMDB, with any of the six encoders.
-Phase 1 parses the class selectors and the per-structure toggles; phase 2
-re-parses with the selected encoder's, model's and dataset's own flags
-(the JAX package's defaults: batch 8 on CIFAR, 32 and length 512 on text).
-Flags of paths not yet ported (Inception, DP/FSDP) are accepted and raise
-``NotImplementedError`` naming their ROADMAP item; ``--no_pallas`` is gone
-(the port has no Pallas), ``--device`` and ``--checkpoint_every_epochs``
-are new.
+and ``build_components``): ResNet and Inception-v3 on CIFAR-10/100 and BERT
+on GLUE and IMDB, with any of the six encoders, on one device or on a
+``--dp``/``--fsdp`` mesh of ranks.  Phase 1 parses the class selectors and
+the per-structure toggles; phase 2 re-parses with the selected encoder's,
+model's and dataset's own flags (the JAX package's defaults: batch 8 on
+CIFAR, 32 and length 512 on text).  ``--no_pallas`` is gone (the port has
+no Pallas), ``--device`` and ``--checkpoint_every_epochs`` are new, and
+collective payload bits outside 2..8 raise (:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -170,9 +169,27 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--auto_scale_batch_size", action="store_true",
                         help="double the batch size from --batch_size until a step runs out "
                              "of memory, and train at the largest that fit")
-    # not yet ported: each raises at build time (see _NOT_YET_PORTED)
-    parser.add_argument("--dp", type=int)
-    parser.add_argument("--fsdp", type=int, default=1)
+    parser.add_argument(
+        "--dp", type=int,
+        help="data-parallel mesh size (ranks): without torchrun the CLI starts dp x fsdp "
+             "ranks itself; NCCL on the card (one card a rank), gloo with --device cpu")
+    parser.add_argument(
+        "--fsdp", type=int, default=1,
+        help="FSDP mesh size: shard params/optimizer state over this many ranks (fused "
+             "with the quantized collectives)")
+    parser.add_argument(
+        "--param_gather_bits", type=int, default=None,
+        help="quantize FSDP parameter all-gather payloads to N bits (2-8; the payload "
+             "stays one byte an element: below 8 bits, precision only)")
+    parser.add_argument(
+        "--grad_allreduce_bits", type=int, default=None,
+        help="quantize gradient all-reduce payloads to N bits (2-8; below 8, precision "
+             "only)")
+    parser.add_argument(
+        "--grad_allreduce_mode", default="auto", choices=["auto", "gather", "psum"],
+        help="quantized all-reduce variant: gather = full per-rank precision, (n-1) B/elem; "
+             "psum = headroom-grid int8 ring, ~2 B/elem at any mesh size; auto = gather "
+             "below 8 ranks, psum at 8+ (traffic table in parallel/train_dp.py)")
 
 
 COMPRESSORS = ("bf16", "fp16", "fp32", "fp8", "s2fp8", "smart")
@@ -184,12 +201,6 @@ DATASET_ARGS = {"cifar10": add_cifar_args, "cifar100": add_cifar_args,
                 "glue": add_glue_args, "imdb": add_imdb_args}
 MODEL_DATASETS = {"bert": ("glue", "imdb"), "inception": ("cifar10", "cifar100"),
                   "resnet": ("cifar10", "cifar100")}
-
-# (is it asked for?, what, ROADMAP Queue 1 item)
-_NOT_YET_PORTED = (
-    (lambda a: (a.dp or 1) > 1 or a.fsdp > 1, "DP/FSDP (--dp/--fsdp)", 15),
-)
-
 
 def default_name(args: argparse.Namespace) -> str:
     tags = ",".join(
@@ -294,13 +305,40 @@ def compute_dtype(args: argparse.Namespace):
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise for any selected path the port does not have yet."""
-    for asked, what, item in _NOT_YET_PORTED:
-        if asked(args):
-            raise NotImplementedError(
-                f"{what} is not yet ported to the PyTorch package "
-                f"(ROADMAP Queue 1 item {item})"
-            )
+    """Raise for what the port refuses and the JAX package does not:
+    collective payload bits outside the int8 payload's 2..8 (JAX wraps
+    them)."""
+    for flag in ("grad_allreduce_bits", "param_gather_bits"):
+        bits = getattr(args, flag, None)
+        if bits is not None and not 2 <= bits <= 8:
+            raise ValueError(f"--{flag} {bits}: the payload is int8, so 2..8 bits")
+
+
+def mesh_kwargs(args: argparse.Namespace, mesh, batch_size: int) -> dict:
+    """The trainer's mesh arguments from a command line, and the JAX
+    package's checks and mesh line: ``--batch_size`` must divide over the
+    mesh (each rank takes batch_size / mesh rows)."""
+    if mesh is None:
+        return {}
+    print(f"mesh: dp={mesh.shape['data']} x fsdp={mesh.shape['fsdp']}; "
+          f"grad bits: {args.grad_allreduce_bits or 'fp32'}; "
+          f"param-gather bits: {args.param_gather_bits or 'fp32'}", flush=True)
+    if batch_size % mesh.size:
+        raise SystemExit(
+            f"--batch_size {batch_size} must be divisible by the mesh size ({mesh.size}): "
+            "each device takes batch_size/mesh rows")
+    return dict(mesh=mesh, grad_allreduce_bits=args.grad_allreduce_bits,
+                grad_allreduce_mode=args.grad_allreduce_mode,
+                param_gather_bits=args.param_gather_bits)
+
+
+def mesh_plan(args: argparse.Namespace):
+    """The mesh ``--dp``/``--fsdp`` ask for (``parallel/mesh.py::
+    MeshShape``), or None: ``--dp 1`` (or none) with ``--fsdp 1`` is no
+    mesh, as in the JAX package."""
+    from smart_quantization_tpu_torch.parallel.mesh import plan_mesh
+
+    return plan_mesh(args.dp, args.fsdp)
 
 
 def check_packed(optim_comp) -> None:

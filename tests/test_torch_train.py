@@ -214,11 +214,41 @@ def test_cli_builds_every_encoder(argv):
 
 
 @pytest.mark.parametrize("argv", ["--dp 2 --fsdp 2", "--dp 2", "--fsdp 2"])
-def test_cli_deferred_flags_still_raise(argv):
-    from smart_quantization_tpu_torch.utils.config import build_components, parse_args
+def test_cli_mesh_flags_build(argv):
+    """``--dp``/``--fsdp`` (once deferred, ROADMAP Queue 1 item 15) parse,
+    build, and plan a mesh of dp x fsdp ranks (``--fsdp`` alone: dp 1
+    without a launcher), with JAX's defaults for the payload flags."""
+    from smart_quantization_tpu_torch.utils.config import build_components, mesh_plan, parse_args
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        build_components(parse_args(f"--device cpu --compress fp8 {argv}"))
+    args = parse_args(f"--device cpu --compress fp8 {argv}")
+    build_components(args)
+    plan = mesh_plan(args)
+    want = {"--dp 2 --fsdp 2": (2, 2), "--dp 2": (2, 1), "--fsdp 2": (1, 2)}[argv]
+    assert (plan.dp, plan.fsdp) == want and plan.size == want[0] * want[1]
+    assert (args.grad_allreduce_bits, args.grad_allreduce_mode, args.param_gather_bits) == (
+        None, "auto", None)
+    assert mesh_plan(parse_args("--device cpu --dp 1")) is None
+
+
+PARSER_PAIRS = [("resnet", "cifar10"), ("resnet", "cifar100"), ("bert", "glue"), ("bert", "imdb")]
+
+
+@pytest.mark.parametrize("model,dataset", PARSER_PAIRS, ids=[f"{m}-{d}" for m, d in PARSER_PAIRS])
+def test_parsers_differ_only_in_the_ports_own_flags(model, dataset):
+    """On each model/dataset pair the port's parser and the JAX package's
+    give the same flags with the same defaults, but ``--no_pallas`` (JAX's
+    only; ``use_pallas``, under SmaQ) and the port's ``--device`` and
+    ``--checkpoint_every_epochs``."""
+    from smart_quantization_tpu.utils.config import parse_args as jax_parse
+    from smart_quantization_tpu_torch.utils.config import parse_args
+
+    for compress in ("fp32", "smart", "fp8"):
+        argv = f"--model {model} --dataset {dataset} --compress {compress}"
+        a, b = vars(jax_parse(argv)), vars(parse_args(argv))
+        assert set(a) - set(b) == ({"use_pallas"} if compress == "smart" else set())
+        assert set(b) - set(a) == {"device", "checkpoint_every_epochs"}
+        assert {k: v for k, v in a.items() if k in b and k != "name"} == {
+            k: v for k, v in b.items() if k in a and k != "name"}
 
 
 @pytest.mark.parametrize("argv", ["--model inception --dataset cifar100", "--model inception"])
