@@ -55,7 +55,13 @@ non-zero:
    subnormal values, BN_SHAPE, RAGGED_BN_SHAPE, inner 9 and inner 4 maps,
    a scalar and a zero gamma, one channel and a pointer 2 bytes off, on
    two tensors of other stats in turn, in a CUDA graph and over 1000
-   back-to-back calls;
+   back-to-back calls; the stats kernel's mean and std and the C++ SmaQ
+   golden model's (``smaq_golden.py``: modes 0 and 1) each against float64
+   (``check_golden``), and the binding refusing a CUDA tensor; the
+   whole-batch step's entries (``check_whole_tensor_stats``: the stats
+   kernels' ``sums`` and their folds over 4 parts, ``given_consts``, the
+   SmaQ, BN and S2FP8 quantize kernels on given statistics) at the largest
+   and a ragged shape, float32 and bfloat16;
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -111,8 +117,16 @@ non-zero:
    (packed state) as a user runs them, the CLI spawning its ranks (exit 0,
    one ``final:`` line, one log, one checkpoint of the mesh); at W = 1 the
    cells build the trainer with a one-rank mesh and the command line's
-   spawn is left to a machine of more cards
-   (``chiprun_out/mesh_times.json``);
+   spawn is left to a machine of more cards; then the whole-batch float32
+   FSDP step (``parallel/train_fsdp.py``: ResNet-18, batch 128, SmaQ 6/8
+   full coverage, SGD momentum 0.9) on a (1, W) mesh: launches a step
+   against the plan (``whole_batch_plan``), every rank bitwise equal, one
+   step of the optimizer's truncation SmaQ (taps off) against the
+   single-card trainer's step by the flip rule, its median step, peak
+   memory and NCCL time beside the single-card trainer's and the fused
+   FSDP steps (``chiprun_out/mesh_times.json``); and two experiment
+   drivers on the card, ``memory_footprint`` (ResNet-18, Adam, fsdp 4)
+   and a tiny ``bert_nan_probe``, each printing its JSON line;
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
    runs) beside the memory bound and, for the float formats, PyTorch's
    cast to the same format; the SmaQ call at the main path's sizes,
@@ -136,9 +150,9 @@ non-zero:
 6. the kernel table as one JSON line (the bfloat16 forms as rows of their
    own), then the result as the last line.
 
-``--mesh_only`` builds the kernels and runs phase 4b alone: the check of
-the mesh on a machine of two to four cards, which would otherwise pay for
-phases 3-5 on every card it holds.
+``--mesh_only`` builds the kernels and runs phase 4b's mesh cells alone
+(not the drivers): the check of the mesh on a machine of two to four
+cards, which would otherwise pay for phases 3-5 on every card it holds.
 ``--s2fp8_times_of DIR`` times only the S2FP8 call of the port in DIR
 (``s2fp8_fused`` by size, alone at 8 388 608 elements and in streams of 20,
 and a ResNet-18 step's calls in one CUDA graph) with this script's timer
@@ -953,6 +967,309 @@ def check_philox_fill(device) -> float:
     say("  float_quantize (fp8, stochastic) bitwise equal to its plain version fed the "
         "fill's words: the kernels and the fill draw the same bits")
     return 0.0
+
+
+# the golden model's checks: sizes (a ragged one and ResNet-18's largest
+# activation) and the scale and shift of their values
+GOLDEN_SIZES = (1000, 65_536, 1_048_573, 128 * 64 * 32 * 32)
+
+
+def f32_ulp(v: float) -> float:
+    """The float32 unit in the last place at ``v`` (normal range)."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 23) if v else 2.0 ** -149
+
+
+def golden_emulation(a) -> tuple[float, float]:
+    """The golden model's mode 0 in numpy: float32 sums of x and x * x in
+    order (``add.accumulate``), the biased std ``sqrt(E[x^2] - E[x]^2)`` in
+    float32 (``native/smaq_golden/smaq_golden.cpp:72-80``)."""
+    import numpy as np
+
+    n = np.float32(a.size)
+    m1 = np.float32(np.add.accumulate(a, dtype=np.float32)[-1] / n)
+    m2 = np.float32(np.add.accumulate(a * a, dtype=np.float32)[-1] / n)
+    return float(m1), float(np.sqrt(np.float32(m2 - m1 * m1)))
+
+
+def check_golden(device) -> None:
+    """The stats kernel and the C++ SmaQ golden model (``smaq_golden.py``,
+    ``native/build/libsmaq_golden.so``), a third check that depends on no
+    framework, each held against float64 statistics of the same float32
+    values: ``smaq_stats``' mean and ddof=1 std (``read_consts``; its sums
+    are float64) within 2 float32 ulps, its range std within 4 (float32
+    log, sqrt and division); the golden model's mode 0 bitwise its float32
+    sequential sums emulated in numpy, and within twice that emulation's
+    measured error of the float64 values plus 2 ulps; its mode 1 (the range
+    std) within 4 ulps; and the binding refuses a CUDA tensor."""
+    import torch
+
+    from smart_quantization_tpu_torch import smaq_golden
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    kernel_ulps, golden_err = 0.0, 0.0
+    for n in GOLDEN_SIZES:
+        gen = torch.Generator(device=device).manual_seed(n)
+        x = torch.randn(n, generator=gen, device=device) * 3 + 1.5
+        host = x.cpu()
+        xd = host.double()
+        mean64 = float(xd.mean())
+        var64 = float(((xd - mean64) ** 2).sum())
+        std1, std0 = math.sqrt(var64 / (n - 1)), math.sqrt(var64 / n)
+        range64 = (float(xd.max()) - float(xd.min())) / math.sqrt(2.0 * math.log(n))
+
+        mean, std = (float(v) for v in K.read_consts(K.smaq_stats(x, SmaQParams())))
+        _, r_std = (float(v) for v in K.read_consts(
+            K.smaq_stats(x, SmaQParams(use_range_std_dev=True))))
+        ulps = (abs(mean - mean64) / f32_ulp(mean64), abs(std - std1) / f32_ulp(std1),
+                abs(r_std - range64) / f32_ulp(range64))
+        kernel_ulps = max(kernel_ulps, *ulps)
+        if ulps[0] > 2 or ulps[1] > 2 or ulps[2] > 4:
+            fail(f"[golden] smaq_stats on {n} elements: mean {mean!r}, std {std!r}, range std "
+                 f"{r_std!r}; float64 {mean64!r}, {std1!r}, {range64!r} ({ulps} ulps)")
+
+        g_mean, g_std = smaq_golden.stats(host, 0)
+        g1_mean, g1_std = smaq_golden.stats(host, 1)
+        e_mean, e_std = golden_emulation(host.numpy())
+        if (g_mean, g_std, g1_mean) != (e_mean, e_std, e_mean):
+            fail(f"[golden] on {n} elements the golden model's mode 0 ({g_mean!r}, {g_std!r}) "
+                 f"or mode 1 mean {g1_mean!r} is not its float32 sequential sums "
+                 f"({e_mean!r}, {e_std!r})")
+        tol_mean = 2 * abs(e_mean - mean64) + 2 * f32_ulp(mean64)
+        tol_std = 2 * abs(e_std - std0) + 2 * f32_ulp(std0)
+        if (abs(g_mean - mean64) > tol_mean or abs(g_std - std0) > tol_std
+                or abs(g1_std - range64) > 4 * f32_ulp(range64)):
+            fail(f"[golden] on {n} elements the golden model's mean {g_mean!r}, std {g_std!r}, "
+                 f"range std {g1_std!r} against float64 {mean64!r}, {std0!r}, {range64!r} "
+                 f"(tolerances {tol_mean!r}, {tol_std!r}, 4 ulps)")
+        golden_err = max(golden_err, abs(g_std - std0) / std0)
+    try:
+        smaq_golden.stats(torch.zeros(8, device=device))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("[golden] the binding took a CUDA tensor")
+    say(f"  smaq_stats and the C++ golden model (modes 0 and 1) at {GOLDEN_SIZES}, each "
+        f"against float64: the kernel within {kernel_ulps:.2f} float32 ulps; the golden "
+        f"model bitwise its float32 sequential sums, its std at most {golden_err:.2e} "
+        f"relative off (that summation's own error); a CUDA tensor refused "
+        f"({refused[:60]}...)")
+
+
+# the whole-batch step's kernel entries (parallel/whole_batch.py): phase
+# 3's largest and ragged shapes, float32 and bfloat16, split over 4 ranks
+WHOLE_STATS_CASES = (("act 128x64x32x32", ACT_SHAPE, 1.7, 0.3),
+                     ("ragged 300001", (300_001,), 2.5, -0.7))
+WHOLE_STATS_RANKS = 4
+
+
+def f32_ulps_apart(a, b) -> int:
+    """Float32 units in the last place between two same-signed 0-d
+    tensors."""
+    import torch
+
+    a, b = a.float().reshape(1), b.float().reshape(1)
+    return abs(int(a.view(torch.int32)) - int(b.view(torch.int32)))
+
+
+def check_smaq_sums(label, flat, params, mode) -> tuple[float, float]:
+    """``smaq_stats``' ``sums`` against ``pivot_sums_reference``: min and
+    max bitwise, the pivot within the float32 error bound of its 256-term
+    sum, sum(d) and sum(d * d) moved to the reference's pivot within 1e-10
+    of sum|d| and of sum(d * d) (float64 sums of the same float32 d), or,
+    where the pivots differ, within the bound of d's float32 rounding
+    (2^-23 sum|d|, 2^-22 sum(d * d)); ``fold_sums`` of them within 2 ulps of
+    the constants the kernel writes; and ``fold_sums`` of WHOLE_STATS_RANKS
+    equal parts' sums (the whole-batch step's gather) against the plain
+    statistics of the whole within that rounding's bound (each part rounds
+    d about its own pivot): 2^-23 max|d| on the mean, 2^-22 of the mean
+    square of d over the std on the std, plus 2 ulps.  Returns that
+    folded (mean, std)."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+
+    n = flat.numel()
+    sums = torch.empty(K.SUM_WORDS, dtype=torch.float64, device=flat.device)
+    mean_k, std_k = K.read_consts(K.smaq_stats(flat, params, sums=sums))
+    s1, s2, mn, mx, pv = sums.tolist()
+    r1, r2, rmn, rmx, rpv = K.pivot_sums_reference(flat).tolist()
+    xf = flat.float()
+    pivot_tol = 2 * 2.0 ** -24 * float(xf[:256].abs().sum())
+    delta = pv - rpv
+    m1, m2 = s1 + n * delta, s2 + 2 * delta * s1 + n * delta * delta
+    abs_d = float((xf.double() - rpv).abs().sum())
+    one = K.fold_sums(sums[None], n, params)
+    ulps_one = max(f32_ulps_apart(one[0], mean_k), f32_ulps_apart(one[1], std_k))
+    m = n - n % WHOLE_STATS_RANKS
+    parts = torch.stack([torch.empty(K.SUM_WORDS, dtype=torch.float64, device=flat.device)
+                         for _ in range(WHOLE_STATS_RANKS)])
+    for r, part in enumerate(flat[:m].view(WHOLE_STATS_RANKS, -1)):
+        K.smaq_stats(part, params, sums=parts[r])
+    mean4, std4 = K.fold_sums(parts, m // WHOLE_STATS_RANKS, params)
+    mean_p, std_p = K.pivot_stats_reference(xf[:m], params)
+    rel1, rel2 = (1e-10, 1e-10) if delta == 0 else (2.0 ** -23, 2.0 ** -22)
+    dd = xf[:m].double() - float(mean_p)
+    mean_tol = (2.0 ** -23 * float((xf[:m].double() - rpv).abs().max())
+                + 2 * f32_ulp(float(mean_p)))
+    std_tol = (2.0 ** -22 * float((dd * dd).mean()) / max(float(std_p), 1e-30)
+               + 2 * f32_ulp(float(std_p)))
+    d_mean, d_std = abs(float(mean4) - float(mean_p)), abs(float(std4) - float(std_p))
+    ok = (mn == rmn and mx == rmx and abs(delta) <= pivot_tol
+          and abs(m1 - r1) <= rel1 * abs_d and abs(m2 - r2) <= rel2 * r2
+          and ulps_one <= 2 and d_mean <= mean_tol and d_std <= std_tol)
+    say(f"  {label} {mode}: smaq_stats' sums against pivot_sums_reference: min/max bitwise "
+        f"{mn == rmn and mx == rmx}, pivot {abs(delta):.2e} apart, sum(d) "
+        f"{abs(m1 - r1) / abs_d:.2e} of sum|d|, sum(d*d) {abs(m2 - r2) / r2:.2e} relative; "
+        f"folded: {ulps_one} ulp from the kernel's constants, {WHOLE_STATS_RANKS} parts "
+        f"{f32_ulps_apart(mean4, mean_p)} and {f32_ulps_apart(std4, std_p)} ulp from the "
+        f"whole's (bounds {mean_tol:.2e}, {std_tol:.2e}) -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"smaq_stats' sums disagree with their plain version: {label} {mode}")
+    return mean4, std4
+
+
+def check_s2fp8_sums(label, flat) -> tuple:
+    """``s2fp8_stats``' ``sums`` (the table kernel where ``split_forms``
+    takes it) against the plain sum and max of ``log2|x|`` as the kernel
+    takes it (``torch.log2``; the bfloat16 table form's
+    ``log2_table_reference``): the sum within the sum of the elements'
+    float32 ulps (log2f and torch's may differ by one) plus 1e-12 of
+    sum|log2|, the max within one ulp; ``given_consts`` of the kernel's own
+    (mu, max) bitwise the constants it writes, the unsqueeze table within 1
+    ulp; ``fold_log2`` of WHOLE_STATS_RANKS parts' sums within 1 ulp (mu)
+    and bitwise (max) of the whole's.  Returns the folded (mu, max)."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.parallel.whole_batch import fold_log2
+
+    n = flat.numel()
+    table = S.split_forms(n, flat.dtype)[0]
+    sums = torch.empty(2, dtype=torch.float64, device=flat.device)
+    c = S.read_consts(S.s2fp8_stats(flat, sums=sums))
+    if table:
+        lg = S.log2_table_reference(flat.device)[flat.view(torch.int16).long() & 0x7FFF]
+    else:
+        a = flat.float().abs()
+        lg = torch.where(a == 0, torch.zeros_like(a), torch.log2(a))
+    mag = lg.double().abs()
+    ulps = torch.where(mag == 0, torch.zeros_like(mag),
+                       torch.exp2(torch.floor(torch.log2(mag)) - 23))
+    ref_sum, ref_max = float(lg.double().sum()), float(lg.max())
+    k_sum, k_max = sums.tolist()
+    sum_ok = abs(k_sum - ref_sum) <= float(ulps.sum()) + 1e-12 * float(mag.sum())
+    max_ok = abs(k_max - ref_max) <= f32_ulp(ref_max)
+    given = S.read_consts(S.given_consts(*fold_log2(sums[None], n)))
+    head = ("mu", "m", "alpha", "beta", "inv_alpha")
+    head_ok = all(f32_ulps_apart(given[k], c[k]) == 0 for k in head)
+    table_ulps = ulps_apart(given["table"], c["table"])
+    parts = torch.zeros(WHOLE_STATS_RANKS, 2, dtype=torch.float64, device=flat.device)
+    for r, part in enumerate(flat.tensor_split(WHOLE_STATS_RANKS)):
+        S.s2fp8_stats(part, sums=parts[r])
+    mu4, m4 = fold_log2(parts, n)
+    fold_ok = f32_ulps_apart(mu4, c["mu"]) <= 1 and f32_ulps_apart(m4, c["m"]) == 0
+    ok = sum_ok and max_ok and head_ok and table_ulps <= 1 and fold_ok
+    say(f"  {label}: s2fp8_stats{'_table' if table else ''}' sums: sum of log2|x| "
+        f"{abs(k_sum - ref_sum):.2e} apart (bound {float(ulps.sum()):.2e}), max "
+        f"{abs(k_max - ref_max):.2e}; given_consts: mu, m, alpha, beta, 1/alpha bitwise "
+        f"{head_ok}, table within {table_ulps} ulp; {WHOLE_STATS_RANKS} parts folded: mu "
+        f"{f32_ulps_apart(mu4, c['mu'])} ulp, max bitwise {f32_ulps_apart(m4, c['m']) == 0} "
+        f"-> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"s2fp8_stats' sums or given_consts disagree with their plain version: {label}")
+    return mu4, m4
+
+
+def check_whole_tensor_stats(device) -> dict:
+    """The kernel entries of the whole-batch step (``parallel/whole_batch.py``)
+    against their plain versions, at WHOLE_STATS_CASES in float32 and
+    bfloat16: the stats kernels' ``sums`` and their folds over
+    WHOLE_STATS_RANKS parts (``check_smaq_sums``, ``check_s2fp8_sums``),
+    then each quantize kernel on the folded statistics given, with no stats
+    launch: ``smaq_fused`` (full and range std) and ``smaq_fused_bn`` (NCHW,
+    per-channel gamma and beta) against their references with the same
+    ``mean``/``std`` by the flip rule, ``s2fp8_fused(stats=)`` (nearest;
+    its bfloat16 window form on the large shape) against
+    ``s2fp8_quantize_dequantize(stats=)`` within one e5m2 step, at most 1e-3
+    of the elements on another code, no sign flipped."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize, squeeze_coefs
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    modes = (("full std", SmaQParams(stochastic_rounding=False)),
+             ("range std", SmaQParams(stochastic_rounding=False, use_range_std_dev=True)))
+    errs = {"smaq_quantize": 0.0, "s2fp8_quantize": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, scale, shift in WHOLE_STATS_CASES:
+            x = (torch.randn(shape, generator=gen, device=device) * scale + shift).to(dtype)
+            label = f"whole-batch {name} {str(dtype).removeprefix('torch.')}"
+            flat = x.reshape(-1)
+            n = flat.numel()
+            for mode, p in modes:
+                mean, std = check_smaq_sums(label, flat, p, mode)
+                stats_before = K.LAUNCHES["smaq_stats"] + K.LAUNCHES["smaq_stats_bf16"]
+                # the float32 form on the (widened) input against the plain
+                # version; a bfloat16 input's form bitwise it rounded
+                xw = x.float()
+                y, bits = K.smaq_fused(xw, None, p, mean=mean, std=std)
+                y_ref, bits_ref = K.smaq_fused_reference(xw, None, p, mean=mean, std=std)
+                errs["smaq_quantize"] = max(errs["smaq_quantize"], flip_check(
+                    f"{label} {mode} smaq_fused(mean=, std=)", y, y_ref, bits, bits_ref,
+                    std / p.range_main))
+                if dtype == torch.bfloat16:
+                    yb, bb = K.smaq_fused(x, None, p, mean=mean, std=std)
+                    same_bits(f"{label} {mode} smaq_fused(mean=, std=)", yb, y)
+                    if float(bb) != float(bits):
+                        fail(f"bf16 {label} {mode}: size {float(bb)} against {float(bits)}")
+                if len(shape) == 4:
+                    g = torch.randn(shape[1], generator=gen, device=device) * 0.3 + 1.0
+                    b = torch.randn(shape[1], generator=gen, device=device) * 0.2
+                    yn, bn = K.smaq_fused_bn(xw, None, g, b, p, mean=mean, std=std)
+                    ynr, bnr = K.smaq_fused_bn_reference(xw, None, g, b, p, mean=mean, std=std)
+                    flip_check(f"{label} {mode} smaq_fused_bn(mean=, std=)", yn, ynr, bn, bnr,
+                               std * g.abs().max() / p.range_main)
+                    if dtype == torch.bfloat16:
+                        ynb, bnb = K.smaq_fused_bn(x, None, g, b, p, mean=mean, std=std)
+                        same_bits(f"{label} {mode} smaq_fused_bn(mean=, std=)", ynb, yn)
+                        if float(bnb) != float(bn):
+                            fail(f"bf16 {label} {mode} bn: size {float(bnb)} against {float(bn)}")
+                if K.LAUNCHES["smaq_stats"] + K.LAUNCHES["smaq_stats_bf16"] != stats_before:
+                    fail(f"{label}: SmaQ with the statistics given launched smaq_stats")
+                say(f"  {label} {mode}: the bfloat16 forms on the statistics given bitwise the "
+                    f"float32 forms rounded" if dtype == torch.bfloat16 else
+                    f"  {label} {mode}: no smaq_stats launch with the statistics given")
+
+            stats = check_s2fp8_sums(label, flat)
+            before = {k: v for k, v in S.LAUNCHES.items() if "stats" in k}
+            y = S.s2fp8_fused(x, None, stochastic=False, stats=stats)
+            if {k: v for k, v in S.LAUNCHES.items() if "stats" in k} != before:
+                fail(f"{label}: s2fp8_fused with the statistics given launched a stats kernel")
+            y_ref = s2fp8_quantize_dequantize(x, None, stochastic=False, stats=stats)
+            alpha, beta = (v.double() for v in squeeze_coefs(*stats))
+
+            def squeezed(t):
+                a = t.reshape(-1).double().abs()
+                return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
+
+            steps = e5m2_steps(squeezed(y), squeezed(y_ref))
+            other = float((steps > 0.5).float().mean())
+            flipped = int(((y.float() * y_ref.float()) < 0).sum())
+            ok = (float(steps.max()) <= 1.01 and other <= 1e-3 and flipped == 0
+                  and bool(torch.isfinite(y).all()))
+            say(f"  {label} s2fp8_fused(stats=) (nearest, {n} elements): at most "
+                f"{float(steps.max()):.3f} e5m2 steps from s2fp8_quantize_dequantize(stats=), "
+                f"{other:.2e} of the elements on another code, {flipped} signs flipped -> "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"s2fp8_fused with given statistics disagrees with its plain version: {label}")
+            errs["s2fp8_quantize"] = max(errs["s2fp8_quantize"],
+                                         float((y.float() - y_ref.float()).abs().max()))
+    return errs
 
 
 # the bfloat16 forms (--compute_dtype bfloat16): phase 3's shapes in bf16
@@ -2405,9 +2722,9 @@ def profile_dir_run():
 
 # the K-step cells: (label, the command line, K, and at K=1 and at K the
 # warm-up, timed and profiled dispatches)
-# (bert-base at K=1: 1 warm-up, 3 timed, 1 profiled step; at K=4: 1, 2 and
+# (bert-base at K=1: 1 warm-up, 2 timed, 1 profiled step; at K=4: 1, 1 and
 # 1 dispatches of 4 steps)
-BERT_K_COUNTS = ((1, 3, 1), (1, 2, 1))
+BERT_K_COUNTS = ((1, 2, 1), (1, 1, 1))
 K_CELLS = [
     ("ResNet-18 smart", MAIN_ARGV, K_RESNET, ((3, 10, 5), (2, 6, 1))),
     ("bert-base z-score", BERT_ARGV, K_BERT, BERT_K_COUNTS),
@@ -2634,6 +2951,7 @@ def mesh_rank_cell(argv, dp, fsdp, k, steps, timed, probe):
            "kernels": list(path_kernels(args))}
     times = []
     rest = batches[steps:]
+    torch.cuda.reset_peak_memory_stats()
     for i in range(0, timed, k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2641,6 +2959,7 @@ def mesh_rank_cell(argv, dp, fsdp, k, steps, timed, probe):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / k)
     out["step_ms"] = statistics.median(times) if times else None
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if probe:
         groups = [batches[:1], batches[1:2]] if k == 1 else [batches[:k]]
         out.update(profile_mesh_steps(run, groups, k))
@@ -2652,8 +2971,10 @@ def mesh_rank_cell(argv, dp, fsdp, k, steps, timed, probe):
 
 def profile_mesh_steps(run, groups, k) -> dict:
     """The groups' steps under the profiler: a step's device time in all
-    kernels and in NCCL's (waits for the other ranks included), and NCCL's
-    kernels by name (launches and ms a step)."""
+    kernels and in NCCL's (waits for the other ranks included), NCCL's
+    kernels by name (launches and ms a step), and the host's kernel launch
+    calls and collectives a step, with the host time inside the
+    collectives."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2673,9 +2994,15 @@ def profile_mesh_steps(run, groups, k) -> dict:
     nccl = [e for e in kernels if "nccl" in e.key.lower()]
     by_name = sorted(((e.key[:60], e.count / n, _device_time_us(e) / 1e3 / n) for e in nccl),
                      key=lambda t: -t[2])
+    host = {e.key: e for e in prof.key_averages() if e.device_type == DeviceType.CPU}
+    comms = host.get("record_param_comms")
     return {"nccl_ms": sum(t[2] for t in by_name),
             "busy_ms": sum(_device_time_us(e) for e in kernels) / 1e3 / n,
-            "nccl_kernels": by_name[:6]}
+            "nccl_kernels": by_name[:6],
+            "launch_calls": sum(host[c].count for c in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                                if c in host) / n,
+            "collectives": comms.count / n if comms else 0.0,
+            "collective_host_ms": comms.cpu_time_total / 1e3 / n if comms else 0.0}
 
 
 def mesh_exchange_alone(trainer) -> dict:
@@ -2810,6 +3137,11 @@ def mesh_phase(card, single_ms=None) -> dict:
             say("  FSDP: not run on the card (--fsdp needs 2 ranks or more and this machine has "
                 "one card); the fused FSDP path is held against JAX on gloo only "
                 "(tests/test_torch_fsdp.py)")
+        fsdp_cell = results["cells"].get(f"resnet18 fsdp {w}", {}).get("K=1")
+        whole = whole_batch_cells(pool, w, card, single_ms, fsdp_cell)
+        results["cells"]["resnet18 whole batch"] = whole["cell"]
+        for name, v in whole["launches"].items():
+            launches[name] = launches.get(name, 0) + v
     finally:
         pool.close()
     for cell in results["cells"].values():
@@ -2888,6 +3220,275 @@ def mesh_cli_runs(card, w) -> dict:
         out[label] = {"seconds": secs, "final": final}
         shutil.rmtree(out_dir, ignore_errors=True)
     return out
+
+
+# ------------------------------------------- phase 4b: the whole-batch step
+# parallel/train_fsdp.py, the XLA-managed float32 FSDP step of the JAX
+# package: ResNet-18 at the global batch of 128, SmaQ 6/8 full coverage,
+# SGD momentum 0.9, float32; every statistic the whole batch's
+WHOLE_STEPS = 4
+WHOLE_TIMED = 6
+WHOLE_COMPARED = 1
+
+
+def whole_batch_plan() -> tuple[int, int]:
+    """(smaq_stats, smaq_quantize) launches of a whole-batch ResNet-18
+    step: every tap call takes a stats launch for its sums (the small form
+    computes its stats inside the quantize block, where no sum comes out),
+    the optimizer's calls on whole leaves the stats launch of the split
+    form above ``SMALL_MAX``; each of the 282 calls one quantize launch."""
+    from smart_quantization_tpu_torch.models.resnet import resnet18
+    from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import SMALL_MAX
+    from smart_quantization_tpu_torch.optim.compressed import norm_param_mask
+
+    named = [(n, p.numel()) for n, p in resnet18(num_classes=10).named_parameters()]
+    exempt = norm_param_mask(n for n, _ in named)
+    opt = ([k for _, k in named] * 2 + [k for n, k in named if not exempt[n]])
+    taps = 2 * RESNET18_TAPS
+    return taps + sum(k > SMALL_MAX for k in opt), taps + len(opt)
+
+
+def _whole_batch_setup(stochastic, taps, n_batches):
+    """The whole-batch cells' model (ResNet-18, seeded, SmaQ 6/8 on the
+    optimizer's structures and with ``taps`` on the feature and gradient
+    maps), optimizer (SGD momentum 0.9) and seeded global batches of 128,
+    on this process's card."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.compress import build_compressor
+    from smart_quantization_tpu_torch.inject.tap import TapConfig
+    from smart_quantization_tpu_torch.models.resnet import resnet18
+    from smart_quantization_tpu_torch.optim.compressed import (
+        OptimizerCompression,
+        build_optimizer,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.manual_seed(0)
+    comp = build_compressor("smart", stochastic_rounding=stochastic)
+    model = resnet18(num_classes=10, tap=TapConfig(compressor=comp) if taps else None)
+    gen = torch.Generator().manual_seed(5)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), generator=gen, dtype=torch.uint8)
+                .to(device), torch.randint(0, 10, (128,), generator=gen).to(device))
+               for _ in range(n_batches)]
+    return (model.to(device), build_optimizer("sgd", 0.1, momentum=0.9),
+            OptimizerCompression(compressor=comp), batches)
+
+
+def _whole_batch_run(step, tensors_of, batches, steps, timed, arrays) -> dict:
+    """``steps`` calls ``step(images_u8, labels, key)`` with the launch
+    counts read around them, a digest of ``tensors_of()`` (and with
+    ``arrays`` the arrays), then ``timed`` calls timed (median ms, peak
+    memory)."""
+    import hashlib
+
+    import torch
+
+    reset_counts()
+    metrics = [step(x, y, 1000 + i) for i, (x, y) in enumerate(batches[:steps])]
+    torch.cuda.synchronize()
+    counts = {k: v / steps for k, v in read_counts().items() if v}
+    tensors = tensors_of()
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(tensors[name].detach().float().cpu().numpy().tobytes())
+    out = {"losses": [float(m["train_loss"]) for m in metrics], "digest": h.hexdigest(),
+           "counts": counts,
+           "ratio": float(sum(v[0] for k, v in metrics[-1].items() if k.startswith("_ratio/"))
+                          / sum(v[1] for k, v in metrics[-1].items() if k.startswith("_ratio/")))}
+    if arrays:
+        out["tensors"] = {k: v.detach().float().cpu().numpy() for k, v in tensors.items()}
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, (x, y) in enumerate(batches[steps:]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y, 2000 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = statistics.median(times) if times else None
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def whole_batch_rank_cell(mesh_shape, stochastic, taps, steps, timed, arrays=False):
+    """ResNet-18's whole-batch step (``make_fsdp_train_step``) on a
+    (data, fsdp) mesh of the pool's ranks (``_whole_batch_setup``):
+    ``_whole_batch_run`` over the global parameters, momentum and BatchNorm
+    statistics, and with ``timed`` two profiled steps."""
+    from smart_quantization_tpu_torch.parallel.train_fsdp import make_fsdp_train_step
+
+    model, spec, optim_comp, batches = _whole_batch_setup(stochastic, taps, steps + timed)
+    fsdp_step = make_fsdp_train_step(model, spec, optim_comp, _rank_mesh(*mesh_shape))
+    state = fsdp_step.init_state()
+
+    def tensors():
+        trace = fsdp_step.global_opt_state(state)["trace"]
+        return {**fsdp_step.global_params(state), **dict(model.named_buffers()),
+                **{f"momentum/{k}": v for k, v in trace.items()}}
+
+    out = _whole_batch_run(lambda x, y, key: fsdp_step(state, x, y, key), tensors, batches,
+                           steps, timed, arrays)
+    if timed:
+        out.update(profile_mesh_steps(lambda g: fsdp_step(state, *g[0], 3000),
+                                      [batches[:1], batches[1:2]], 1))
+    del fsdp_step, state, model
+    return out
+
+
+def trainer_reference_cell(stochastic, taps, steps, timed, arrays=False):
+    """The port's single-card step, ``Trainer.train_step``, on the whole-batch
+    cell's model, optimizer and batches, each batch's input the whole-batch
+    step's (``train_fsdp.global_inputs`` of its key): ``_whole_batch_run``
+    over the same tensors."""
+    from smart_quantization_tpu_torch.parallel.train_fsdp import global_inputs
+    from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
+
+    model, spec, optim_comp, batches = _whole_batch_setup(stochastic, taps, steps + timed)
+    trainer = Trainer(model, None, spec, optim_comp=optim_comp, device=model.fc.weight.device,
+                      config=TrainConfig(measure_compression_ratio=True))
+    state = trainer.init_state()
+
+    def tensors():
+        return {**dict(model.named_parameters()), **dict(model.named_buffers()),
+                **{f"momentum/{k}": v for k, v in state.opt_state["trace"].items()}}
+
+    def step(x, y, key):
+        return trainer.train_step(state, global_inputs(x, key), y)
+
+    out = _whole_batch_run(step, tensors, batches, steps, timed, arrays)
+    if timed:
+        out.update(profile_mesh_steps(lambda g: step(*g[0], 3000), [batches[:1], batches[1:2]], 1))
+    del trainer, state, model
+    return out
+
+
+def flip_rule(got: dict, want: dict, label: str) -> float:
+    """``tests/test_torch_parallel.py``'s rule for a leaf after the
+    optimizer's truncation SmaQ: at most 1 % of the elements beyond float32's
+    wiggle (1e-4 of the leaf's largest value), none more than one
+    main-bucket quantum (its std / 15) apart.  Returns the largest share
+    apart."""
+    import numpy as np
+
+    worst = 0.0
+    for name, b in want.items():
+        a = np.asarray(got[name], np.float64)
+        b = np.asarray(b, np.float64)
+        diff = np.abs(a - b)
+        wiggle = 1e-4 * np.abs(b).max() + 1e-6
+        share = float((diff > wiggle).mean())
+        worst = max(worst, share)
+        if (not np.isfinite(a).all() or share > 0.01
+                or diff.max() > np.std(b) / 15 * (1 + 1e-4) + wiggle):
+            fail(f"[{label}] {name}: {share:.4%} of the elements apart, the largest "
+                 f"{diff.max()!r} (a quantum {np.std(b) / 15!r})")
+    return worst
+
+
+def whole_batch_cells(pool, w, card, single_ms, fsdp_cell) -> dict:
+    """The whole-batch step on the pool's W ranks (a (1, W) mesh): its
+    launches a step against the plan, every rank's parameters, momentum,
+    BatchNorm statistics and losses bitwise equal, and one step with the
+    optimizer's truncation SmaQ (taps off) against the single-card
+    trainer's step (``Trainer.train_step``) on the same batch by the flip
+    rule: its BatchNorm normalizes through ``var_mean`` and its loss is a
+    mean, where the whole-batch step folds float64 sums (all-reduced from
+    W = 2) and sums its rows' losses.  Prints the step's median time, peak
+    memory, a step's device time in all kernels and in NCCL's, beside the
+    single-card trainer's step with the same taps and, at W >= 2, the fused
+    FSDP cell's.  Returns the launches summed over the ranks."""
+    import numpy as np
+
+    plan_stats, plan_quant = whole_batch_plan()
+    outs = pool.run(whole_batch_rank_cell, (1, w), True, True, WHOLE_STEPS, WHOLE_TIMED)
+    o = outs[0]
+    label = f"whole-batch resnet18 W={w}"
+    for r, ro in enumerate(outs):
+        per = (ro["counts"].get("smaq_stats", 0), ro["counts"].get("smaq_quantize", 0))
+        if per != (plan_stats, plan_quant):
+            fail(f"[{label}] rank {r} launched {per} smaq_stats + smaq_quantize a step, the "
+                 f"plan {plan_stats} + {plan_quant}: {ro['counts']}")
+    if len({ro["digest"] for ro in outs}) != 1 or any(ro["losses"] != o["losses"] for ro in outs):
+        fail(f"[{label}] the ranks' parameters, momentum, BatchNorm statistics or losses differ")
+    if not all(math.isfinite(v) for v in o["losses"]) or not 4.5 <= o["ratio"] <= 5.5:
+        fail(f"[{label}] losses {o['losses']}, ratio {o['ratio']}")
+    say(f"  [{label}] {WHOLE_STEPS} steps, losses {o['losses'][0]!r} .. {o['losses'][-1]!r}, "
+        f"ratio {o['ratio']!r}, launches a step {plan_stats} smaq_stats + {plan_quant} "
+        f"smaq_quantize (the plan: every tap call's sums from smaq_stats), ranks bitwise equal")
+    # taps off: a tap's truncation flip travels on through the layers (the
+    # tapped steps are held to the trainer's on the CPU, at TinyCNN's size:
+    # tests/test_torch_train_fsdp.py; the tap path's kernels in phase 3)
+    trunc = pool.run(whole_batch_rank_cell, (1, w), False, False, WHOLE_COMPARED, 0, True)
+    ref = trainer_reference_cell(False, False, WHOLE_COMPARED, 0, True)
+    one = trainer_reference_cell(True, True, 1, WHOLE_TIMED)
+    if len({t["digest"] for t in trunc}) != 1:
+        fail(f"[{label}] truncation: the ranks' parameters differ")
+    got, want = trunc[0]["tensors"], ref["tensors"]
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    for k in stats:
+        if not np.allclose(got[k], want[k], rtol=1e-5, atol=1e-6):
+            fail(f"[{label}] BatchNorm statistics {k} differ from the trainer's")
+    leaves = [k for k in want if k not in stats and "batches" not in k]
+    moved = flip_rule({k: got[k] for k in leaves}, {k: want[k] for k in leaves},
+                      f"{label} truncation")
+    same = sum(np.array_equal(got[k], want[k]) for k in leaves)
+    rel = abs(trunc[0]["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    if rel > 1e-5:
+        fail(f"[{label}] truncation loss {trunc[0]['losses']} against the trainer's "
+             f"{ref['losses']}")
+    say(f"  [{label}] the optimizer's truncation SmaQ, taps off, one step against the "
+        f"single-card trainer's (Trainer.train_step; var_mean BatchNorm, mean loss): loss "
+        f"within {rel:.2e}, BatchNorm statistics within 1e-5, parameters and momentum by the "
+        f"flip rule ({moved:.4%} of a leaf apart at most; {same} of {len(leaves)} leaves "
+        f"bitwise)")
+    line = (f"  [{label}] median step {o['step_ms']:.2f} ms, peak memory {o['peak_gb']:.2f} GB "
+            f"a rank, a step's device time {o['busy_ms']:.2f} ms, NCCL's kernels "
+            f"{o['nccl_ms']:.3f} ms of it (profiler, waits included), host: "
+            f"{o['launch_calls']:.0f} kernel launch calls and {o['collectives']:.0f} "
+            f"collectives a step, {o['collective_host_ms']:.2f} ms inside the collectives; the "
+            f"single-card trainer's step, the same taps: {one['step_ms']:.2f} ms, peak "
+            f"{one['peak_gb']:.2f} GB, device time {one['busy_ms']:.2f} ms, "
+            f"{one['launch_calls']:.0f} launch calls, SmaQ launches a step {one['counts']}")
+    if single_ms is not None:
+        line += f"; phase 4's single-card CLI step {single_ms:.2f} ms"
+    if fsdp_cell is not None:
+        line += (f"; the fused FSDP cell (packed state, int8 exchanges) K=1 "
+                 f"{fsdp_cell['step_ms']:.2f} ms, peak {fsdp_cell['peak_gb']:.2f} GB a rank")
+    say(line + f" on {card}")
+    o["single_card"] = {k: one[k] for k in ("step_ms", "peak_gb", "counts", "busy_ms",
+                                            "launch_calls")}
+    launches = {}
+    for ro in outs:
+        for k, v in ro.pop("counts").items():
+            launches[k] = launches.get(k, 0) + int(round(v * WHOLE_STEPS))
+    return {"cell": o, "launches": launches}
+
+
+def run_drivers() -> None:
+    """Two of the experiment drivers on the card, as ``python -m`` runs
+    them (their ``main`` in this process): ``memory_footprint`` (ResNet-18,
+    Adam, per-shard bytes at fsdp 4, ``torch.cuda.memory_allocated``
+    beside the tensor bytes) and a tiny ``bert_nan_probe`` (one warm-up
+    and one fine-tune epoch of the tiny config); each prints its JSON
+    line."""
+    from smart_quantization_tpu_torch.experiments import bert_nan_probe, memory_footprint
+
+    t0 = time.perf_counter()
+    say("  experiments/memory_footprint --model resnet18 --opt adam --fsdp 4:")
+    mem = memory_footprint.main(["--model", "resnet18", "--opt", "adam", "--fsdp", "4"])
+    if mem["cuda_allocated_fp32_state_bytes"] < mem["fp32_state_bytes"]:
+        fail(f"[memory_footprint] the card holds less than the float32 state's tensors: {mem}")
+    say("  experiments/bert_nan_probe (tiny config, 1 + 1 epochs):")
+    probe = bert_nan_probe.main(["--fp32_warmup_epochs", "1", "--epochs", "1", "--train_n",
+                                 "256", "--val_n", "64", "--batch_size", "64"])
+    if not probe["params_finite"]:
+        fail(f"[bert_nan_probe] non-finite parameters: {probe}")
+    say(f"  drivers: {time.perf_counter() - t0:.0f} s")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3874,6 +4475,11 @@ def main() -> int:
     errs.update(check_bn_kernel(device))
     check_codebook(device)
     errs["philox_fill"] = check_philox_fill(device)
+    check_golden(device)
+    say("  the whole-batch step's entries: the stats kernels' sums, their folds over ranks, "
+        "the quantize kernels on given statistics")
+    for k, v in check_whole_tensor_stats(device).items():
+        errs[k] = max(errs.get(k, 0.0), v)
     say("  the bfloat16 forms (--compute_dtype bfloat16)")
     errs.update(check_bf16_kernels(device))
     say("  the redesigned bfloat16 forms: one-launch SmaQ, two-launch SmaQ, float_quantize")
@@ -4014,6 +4620,7 @@ def main() -> int:
     say("[4b] the mesh: data parallelism and the fused FSDP path over NCCL")
     for k, v in mesh_phase(card, res["ms"]).items():
         launches[k] = launches.get(k, 0) + v
+    run_drivers()
     # phase 5 times kernels under PyTorch's defaults, as before
     nondeterministic()
 

@@ -110,9 +110,10 @@ class S2FP8(CompressorBase):
     name = "s2fp8"
 
     def __call__(self, x, gen, *, all_positive=False, gamma=None, beta=None,
-                 mean=None, std=None):
+                 mean=None, std=None, log2_stats=None):
+        # log2_stats: the mean and max of log2|x| given (reduced over ranks)
         y = s2fp8_fused_or_reference(
-            x, gen, stochastic=self.stochastic, check_inf=self.check_inf
+            x, gen, stochastic=self.stochastic, check_inf=self.check_inf, stats=log2_stats
         )
         stats = SizeStats.of(x.numel(), 32, 8, x.device, overhead=OVERHEAD_BITS)
         return y, stats

@@ -357,7 +357,8 @@ __device__ __forceinline__ float table_entry(int k, float beta, float inv_alpha)
 // instance's shared memory alone.
 template <typename T, bool kTable = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-s2fp8_stats_kernel(const T* __restrict__ x, int64_t n, unsigned long long* __restrict__ ws) {
+s2fp8_stats_kernel(const T* __restrict__ x, int64_t n, unsigned long long* __restrict__ ws,
+                   double* __restrict__ sums) {
   __shared__ LogStats sm[32];
   __shared__ bool last;
   Consts* out = reinterpret_cast<Consts*>(ws + kCounterWords);
@@ -405,10 +406,15 @@ s2fp8_stats_kernel(const T* __restrict__ x, int64_t n, unsigned long long* __res
       }
     }
   }
-  const Coefs c = make_coefs(block_stats(f, sm), n);
+  const LogStats folded = block_stats(f, sm);
+  const Coefs c = make_coefs(folded, n);
   for (int k = threadIdx.x; k < kTableSize; k += blockDim.x)
     out->table[k] = table_entry(k, c.beta, c.inv_alpha);
   if (threadIdx.x == 0) {
+    if (sums != nullptr) {  // the folded sums, for a reduction over ranks
+      sums[0] = folded.s;
+      sums[1] = folded.mx;
+    }
     out->mu = c.mu;
     out->m = c.m;
     out->alpha = c.alpha;
@@ -765,17 +771,19 @@ extern "C" {
 // (one block).  s2fp8_stats_table and s2fp8_quantize_window are the
 // bfloat16 split form's table kernels (the note at the top; blocks of at
 // most kBf16Threads for the second); the wrapper picks them
-// (s2fp8_kernel.py: split_forms).
+// (s2fp8_kernel.py: split_forms).  The stats kernels' `sums`, unless NULL,
+// gets the folded sum and max of log2|x| (2 doubles) the constants come
+// from, for a reduction over ranks.
 
-int s2fp8_stats(const void* x, long long n, int dtype, unsigned long long* ws, int num_blocks,
-                int threads, void* stream) {
+int s2fp8_stats(const void* x, long long n, int dtype, unsigned long long* ws, double* sums,
+                int num_blocks, int threads, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     s2fp8_stats_kernel<float><<<num_blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int64_t>(n), ws);
+        static_cast<const float*>(x), static_cast<int64_t>(n), ws, sums);
   else if (dtype == 1)
     s2fp8_stats_kernel<bf16><<<num_blocks, threads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<int64_t>(n), ws);
+        static_cast<const bf16*>(x), static_cast<int64_t>(n), ws, sums);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -796,10 +804,10 @@ int s2fp8_quantize(const void* x, void* y, long long n, int dtype, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-int s2fp8_stats_table(const void* x, long long n, unsigned long long* ws, int num_blocks,
-                      int threads, void* stream) {
+int s2fp8_stats_table(const void* x, long long n, unsigned long long* ws, double* sums,
+                      int num_blocks, int threads, void* stream) {
   s2fp8_stats_kernel<bf16, true><<<num_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<int64_t>(n), ws);
+      static_cast<const bf16*>(x), static_cast<int64_t>(n), ws, sums);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -341,7 +341,8 @@ __device__ Sums fold_partials(const double* partials, int blocks, Sums* sm) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 smaq_stats_kernel(const T* __restrict__ x, int64_t n, int range_std, QParams p,
-                  unsigned long long* __restrict__ ws, Consts* __restrict__ out) {
+                  unsigned long long* __restrict__ ws, Consts* __restrict__ out,
+                  double* __restrict__ sums) {
   __shared__ Sums sm[32];
   __shared__ bool last;
   double* partials = reinterpret_cast<double*>(ws + kCounterWords);
@@ -360,6 +361,13 @@ smaq_stats_kernel(const T* __restrict__ x, int64_t n, int range_std, QParams p,
   const Sums f = fold_partials(partials, gridDim.x, sm);
   if (threadIdx.x == 0) {
     *out = finish_stats(f, pivot, n, range_std, p);
+    if (sums != nullptr) {  // the folded sums, for a reduction over ranks
+      sums[0] = f.s1;
+      sums[1] = f.s2;
+      sums[2] = f.mn;
+      sums[3] = f.mx;
+      sums[4] = pivot;
+    }
     ws[kStatsTicket] = 0;
   }
 }
@@ -945,11 +953,11 @@ constexpr int kFloat32 = 0, kBFloat16 = 1;
 
 template <typename T>
 void launch_stats(const void* x, long long n, int range_std, const QParams& p,
-                  unsigned long long* ws, float* consts, int num_blocks, int threads,
-                  cudaStream_t stream) {
+                  unsigned long long* ws, float* consts, double* sums, int num_blocks,
+                  int threads, cudaStream_t stream) {
   smaq_stats_kernel<T><<<num_blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<int64_t>(n), range_std, p, ws,
-      reinterpret_cast<Consts*>(consts));
+      reinterpret_cast<Consts*>(consts), sums);
 }
 
 template <typename T>
@@ -1086,20 +1094,22 @@ extern "C" {
 // float32 (dtype 0) or bfloat16 (dtype 1) elements; everything else is
 // float32.  `ws` is the stream's workspace: kCounterWords 64-bit words, zero
 // between calls, then 4 doubles per stats block.  `consts` holds 8 floats,
-// 16-byte aligned.
+// 16-byte aligned.  smaq_stats' `sums`, unless NULL, gets the folded sums
+// the constants come from, 5 doubles: sum(d), sum(d * d), min, max (of x)
+// and the pivot (d = x - pivot), for a reduction over ranks.
 
 int smaq_stats(const void* x, long long n, int dtype, int range_std, float t,
                float range_main, float range_outlier, float inv_range_main,
                float inv_range_outlier, float std_lo, float std_hi, int bits_main,
-               int bits_outlier, unsigned long long* ws, float* consts, int num_blocks,
-               int threads, void* stream) {
+               int bits_outlier, unsigned long long* ws, float* consts, double* sums,
+               int num_blocks, int threads, void* stream) {
   const QParams p = qparams(t, range_main, range_outlier, inv_range_main, inv_range_outlier,
                             std_lo, std_hi, bits_main, bits_outlier);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    launch_stats<float>(x, n, range_std, p, ws, consts, num_blocks, threads, s);
+    launch_stats<float>(x, n, range_std, p, ws, consts, sums, num_blocks, threads, s);
   else if (dtype == kBFloat16)
-    launch_stats<bf16>(x, n, range_std, p, ws, consts, num_blocks, threads, s);
+    launch_stats<bf16>(x, n, range_std, p, ws, consts, sums, num_blocks, threads, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

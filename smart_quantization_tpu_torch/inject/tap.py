@@ -22,6 +22,11 @@ Under ``--use_batch_norm`` a BatchNorm tap hands its (detached) gamma and
 beta to the forward compress only, as the JAX tap does (``tap.py:95-117``).
 The tap stays straight-through: gamma and beta get their gradient from the
 BatchNorm alone, which is what the JAX tap's VJP specifies.
+
+A context with a ``stats_group`` (``parallel/whole_batch.py``) runs each
+call, both directions, through the group: the statistics of the whole
+tensor over the ranks' rows, as one device sees the global batch
+(``parallel/train_fsdp.py``); its BatchNorms take the whole batch's too.
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ class TapContext:
     gen: torch.Generator | DeviceKey
     sizes: SizeTotals | None = None
     dropout_gen: torch.Generator | DeviceKey | None = None
+    # statistics over the whole batch of the ranks' rows (a
+    # parallel/whole_batch.py StatsGroup), or None: this tensor's own
+    stats_group: object = None
 
 
 def _key(k: int | DeviceKey) -> torch.Generator | DeviceKey:
@@ -63,17 +71,26 @@ def _key(k: int | DeviceKey) -> torch.Generator | DeviceKey:
     return gen
 
 
+def _compress(compressor, x, key, group, gamma=None, beta=None):
+    """One compressor call on ``x``'s own statistics, or through ``group``
+    on those of the whole tensor over its ranks."""
+    if group is None:
+        return compressor(x, key, gamma=gamma, beta=beta)
+    return group.compress(compressor, x, key, gamma=gamma, beta=beta)
+
+
 class _CompressionTap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, compressor, compress_forward, compress_backward,
-                key_fwd, key_bwd, sizes, gamma, beta):
+                key_fwd, key_bwd, sizes, gamma, beta, group):
         ctx.compressor = compressor
         ctx.compress_backward = compress_backward
         ctx.key_bwd = key_bwd
         ctx.sizes = sizes
+        ctx.group = group
         if compress_forward:
             with scope("compress/forward"):
-                y, s = compressor(x, _key(key_fwd), gamma=gamma, beta=beta)
+                y, s = _compress(compressor, x, _key(key_fwd), group, gamma, beta)
         else:
             y, s = x, SizeStats.of(x.numel(), 32, 32, x.device)
         if y is x:  # a passthrough still has to be a new autograd output
@@ -85,10 +102,10 @@ class _CompressionTap(torch.autograd.Function):
     def backward(ctx, g, _g_orig, _g_new):
         if ctx.compress_backward:
             with scope("compress/backward"):
-                g, s = ctx.compressor(g.contiguous(), _key(ctx.key_bwd))
+                g, s = _compress(ctx.compressor, g.contiguous(), _key(ctx.key_bwd), ctx.group)
             if ctx.sizes is not None:
                 ctx.sizes.add("backward_autograd", s)
-        return g, None, None, None, None, None, None, None, None
+        return g, None, None, None, None, None, None, None, None, None
 
 
 def compression_tap(
@@ -101,17 +118,19 @@ def compression_tap(
     sizes: SizeTotals | None = None,
     gamma: torch.Tensor | None = None,
     beta: torch.Tensor | None = None,
+    stats_group=None,
 ) -> tuple[torch.Tensor, SizeStats]:
     """Apply the tap; returns ``(y, forward SizeStats)``.  The backward
     sizes are added to ``sizes`` under ``backward_autograd``.  ``gamma`` and
-    ``beta`` (no gradient flows to them here) go to the forward compress."""
+    ``beta`` (no gradient flows to them here) go to the forward compress;
+    ``stats_group`` as ``TapContext``'s."""
     if isinstance(gen, DeviceKey):
         key_fwd, key_bwd = gen.reserve(DRAWS_PER_COMPRESS), gen.reserve(DRAWS_PER_COMPRESS)
     else:
         key_fwd, key_bwd = torch.randint(0, 2**62, (2,), generator=gen).tolist()
     y, orig_bits, new_bits = _CompressionTap.apply(
         x, compressor, compress_forward, compress_backward, key_fwd, key_bwd, sizes,
-        gamma, beta,
+        gamma, beta, stats_group,
     )
     return y, SizeStats(orig_bits, new_bits)
 
@@ -202,6 +221,7 @@ def module_tap(
         sizes=tap_ctx.sizes,
         gamma=gamma,
         beta=beta,
+        stats_group=tap_ctx.stats_group,
     )
     if tap_ctx.sizes is not None:
         tap_ctx.sizes.add(cfg.tag, stats)

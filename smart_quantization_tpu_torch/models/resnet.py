@@ -66,7 +66,9 @@ class TappedBatchNorm(nn.Module):
     BIASED batch variance, as ``flax.linen.BatchNorm`` does (torch's own
     BatchNorm2d uses the unbiased one, so the update is written here).  The
     statistics and the normalization are float32 whatever ``x``'s dtype,
-    and the output takes ``x``'s dtype, as flax's ``BatchNorm(dtype=...)``."""
+    and the output takes ``x``'s dtype, as flax's ``BatchNorm(dtype=...)``.
+    A context with a ``stats_group`` takes the statistics of the whole
+    batch over its ranks (``parallel/whole_batch.py``)."""
 
     momentum = 0.9
     eps = 1e-5
@@ -83,7 +85,10 @@ class TappedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, tap_ctx: TapContext | None = None) -> torch.Tensor:
         xf = x.float()
-        if self.training:
+        group = tap_ctx.stats_group if tap_ctx is not None else None
+        if self.training and group is not None:
+            y = group.batch_norm(self, xf)
+        elif self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)

@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     u32 = ctypes.c_uint
     quant = [f, f, f, f, f, f, f, i, i]  # SmaQ's threshold, ranges, clamp and bits
     # the elementwise kernels take x, y, n and the elements' dtype (launch.DTYPES)
-    lib.smaq_stats.argtypes = [p, ll, i, i, *quant, p, p, i, i, p]
+    lib.smaq_stats.argtypes = [p, ll, i, i, *quant, p, p, p, i, i, p]
     lib.smaq_stats.restype = i
     # a stochastic kernel takes a pointer to its step key and a call index
     lib.smaq_quantize.argtypes = [p, p, ll, i, p, p, i, i, p, u32, i, i, i, *quant, p, p, i, i, p]
@@ -131,12 +131,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.float_quantize.restype = i
     lib.float_occupancy.argtypes = [i, i, p]
     lib.float_occupancy.restype = i
-    lib.s2fp8_stats.argtypes = [p, ll, i, p, i, i, p]
+    lib.s2fp8_stats.argtypes = [p, ll, i, p, p, i, i, p]
     lib.s2fp8_stats.restype = i
     lib.s2fp8_quantize.argtypes = [p, p, ll, i, p, p, u32, i, i, i, i, p]
     lib.s2fp8_quantize.restype = i
     # the bfloat16 split form's table kernels (csrc/s2fp8.cu: bfloat16 only)
-    lib.s2fp8_stats_table.argtypes = [p, ll, p, i, i, p]
+    lib.s2fp8_stats_table.argtypes = [p, ll, p, p, i, i, p]
     lib.s2fp8_stats_table.restype = i
     lib.s2fp8_quantize_window.argtypes = [p, p, ll, p, p, u32, i, i, i, i, p]
     lib.s2fp8_quantize_window.restype = i

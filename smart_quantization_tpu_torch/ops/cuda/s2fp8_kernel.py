@@ -170,17 +170,23 @@ def workspace(xf: torch.Tensor) -> torch.Tensor:
     return launch.workspace(xf, "s2fp8", workspace_words(sm_count(xf.device)))
 
 
-def s2fp8_stats(xf: torch.Tensor, *, table: bool | None = None) -> torch.Tensor:
+def s2fp8_stats(xf: torch.Tensor, *, table: bool | None = None,
+                sums: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the stats kernel on a flat float32 or bfloat16 tensor, or
     with ``table`` (bfloat16 only; by default as ``split_forms`` says)
     ``s2fp8_stats_table``; returns the constants its last block
     writes, float32 ``[mu, m, alpha, beta, 1/alpha, 0, 0, 0, table[128]]``
     (``read_consts`` names them).  They live in the stream's workspace: the
-    next stats launch on the stream overwrites them."""
+    next stats launch on the stream overwrites them.  ``sums``, 2 float64
+    on the card, also gets the folded sum and max of ``log2|x|`` they come
+    from, for statistics reduced over ranks."""
     check_input(xf)
     n = xf.numel()
     if n == 0:
         raise ValueError("s2fp8_stats takes a non-empty tensor")
+    if sums is not None and (sums.dtype != torch.float64 or sums.numel() != 2
+                             or sums.device != xf.device or not sums.is_contiguous()):
+        raise ValueError("sums must be 2 contiguous float64 on the tensor's device")
     if table is None:
         table = split_forms(n, xf.dtype)[0]
     elif table and xf.dtype != torch.bfloat16:
@@ -189,11 +195,12 @@ def s2fp8_stats(xf: torch.Tensor, *, table: bool | None = None) -> torch.Tensor:
     blocks = split_blocks(n, sm_count(xf.device))
     lib = build.library()
     if table:
-        rc = lib.s2fp8_stats_table(xf.data_ptr(), n, ws.data_ptr(), blocks, THREADS, stream(xf))
+        rc = lib.s2fp8_stats_table(xf.data_ptr(), n, ws.data_ptr(), ptr(sums), blocks, THREADS,
+                                   stream(xf))
         name = "s2fp8_stats_table_bf16"
     else:
-        rc = lib.s2fp8_stats(xf.data_ptr(), n, DTYPES[xf.dtype], ws.data_ptr(), blocks, THREADS,
-                             stream(xf))
+        rc = lib.s2fp8_stats(xf.data_ptr(), n, DTYPES[xf.dtype], ws.data_ptr(), ptr(sums),
+                             blocks, THREADS, stream(xf))
         name = form_name("s2fp8_stats", xf)
     raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -286,26 +293,45 @@ def unsqueeze_table_reference(alpha: torch.Tensor, beta: torch.Tensor) -> torch.
     return unsqueeze_reference(from_bits((k + TABLE_BASE) << 21), beta, 1.0 / alpha)
 
 
+def given_consts(mu: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The constants ``s2fp8_quantize`` reads, in PyTorch ops, from a given
+    mean ``mu`` and max ``m`` of ``log2|x|`` (0-d float32 on the card):
+    ``[mu, m, alpha, beta, 1/alpha, 0, 0, 0, table[128]]`` with the stats
+    kernel's expressions (``squeeze_coefs``, ``unsqueeze_table_reference``)."""
+    alpha, beta = squeeze_coefs(mu, m)
+    inv_alpha = torch.ones_like(alpha) / alpha
+    zero = torch.zeros_like(alpha)
+    head = torch.stack([mu, m, alpha, beta, inv_alpha, zero, zero, zero])
+    return torch.cat([head, unsqueeze_table_reference(alpha, beta)]).contiguous()
+
+
 def s2fp8_fused(
     x: torch.Tensor,
     gen: torch.Generator | None = None,
     *,
     stochastic: bool = True,
     check_inf: bool = True,
+    stats: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """S2FP8 of a CUDA tensor through the kernels, in the form
-    ``s2fp8_plan`` names; same contract as ``s2fp8_quantize_dequantize``."""
+    ``s2fp8_plan`` names; same contract as ``s2fp8_quantize_dequantize``.
+    Given ``stats`` (the mean and max of ``log2|x|``, as reduced over
+    ranks) skip the stats launch: the quantize kernel reads
+    ``given_consts``."""
     if not x.is_cuda:
         raise ValueError(f"s2fp8_fused takes CUDA tensors, got {x.device}")
     if x.numel() == 0:
         return x
     xf = kernel_input(x)
-    small = s2fp8_plan(xf.numel(), sm_count(xf.device))[0] == "small"
+    if stats is not None:
+        consts = given_consts(*(torch.as_tensor(v, device=x.device).float() for v in stats))
+    elif s2fp8_plan(xf.numel(), sm_count(xf.device))[0] == "small":
+        consts = None
+    else:
+        consts = s2fp8_stats(xf)
     key, call = key_for(gen, stochastic, x.device)
-    y = s2fp8_quantize(
-        xf, None if small else s2fp8_stats(xf), key=key, call=call,
-        stochastic=stochastic, check_inf=check_inf,
-    )
+    y = s2fp8_quantize(xf, consts, key=key, call=call, stochastic=stochastic,
+                       check_inf=check_inf)
     return y.view(x.shape).to(x.dtype)
 
 
@@ -347,10 +373,13 @@ def s2fp8_fused_or_reference(
     *,
     stochastic: bool = True,
     check_inf: bool = True,
+    stats: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """A CUDA tensor goes to the kernels, a CPU tensor to ``ops/s2fp8.py``."""
+    """A CUDA tensor goes to the kernels, a CPU tensor to ``ops/s2fp8.py``;
+    ``stats`` as ``s2fp8_fused``'s."""
     if x.is_cuda:
-        return s2fp8_fused(x, gen, stochastic=stochastic, check_inf=check_inf)
+        return s2fp8_fused(x, gen, stochastic=stochastic, check_inf=check_inf, stats=stats)
     if x.device.type == "cpu":
-        return s2fp8_quantize_dequantize(x, gen, stochastic=stochastic, check_inf=check_inf)
+        return s2fp8_quantize_dequantize(x, gen, stochastic=stochastic, check_inf=check_inf,
+                                         stats=stats)
     raise ValueError(f"no S2FP8 path for device {x.device}")

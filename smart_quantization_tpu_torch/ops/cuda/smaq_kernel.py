@@ -190,18 +190,30 @@ def _quant_args(params: SmaQParams) -> tuple:
     )
 
 
-def smaq_stats(xf: torch.Tensor, params: SmaQParams) -> torch.Tensor:
+# smaq_stats' folded sums (its ``sums`` output): sum(d), sum(d * d), min
+# and max of x, and the pivot, d = x - pivot; float64
+SUM_WORDS = 5
+
+
+def smaq_stats(xf: torch.Tensor, params: SmaQParams,
+               sums: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the stats kernel on a flat float32 or bfloat16 tensor; returns
     the per-tensor constants its last block folds, float32 ``[mean, std, 1 / std,
     std / range_main, std / range_outlier, t * std, 0, 0]`` (std after the zero-std guard and
-    the clamp; ``consts_reference`` is their plain version)."""
+    the clamp; ``consts_reference`` is their plain version).  ``sums``, a
+    float64 tensor of ``SUM_WORDS`` on the card, also gets the folded sums
+    the constants come from (``pivot_sums_reference`` is their plain
+    version), for statistics reduced over ranks."""
     check_input(xf)
     n = xf.numel()
+    if sums is not None and (sums.dtype != torch.float64 or sums.numel() != SUM_WORDS
+                             or sums.device != xf.device or not sums.is_contiguous()):
+        raise ValueError(f"sums must be {SUM_WORDS} contiguous float64 on the tensor's device")
     consts = torch.empty(8, dtype=torch.float32, device=xf.device)
     rc = build.library().smaq_stats(
         xf.data_ptr(), n, DTYPES[xf.dtype], int(params.use_range_std_dev), *_quant_args(params),
-        workspace(xf).data_ptr(), consts.data_ptr(), split_blocks(n, sm_count(xf.device)),
-        THREADS, stream(xf),
+        workspace(xf).data_ptr(), consts.data_ptr(), ptr(sums),
+        split_blocks(n, sm_count(xf.device)), THREADS, stream(xf),
     )
     raise_on(rc, "smaq_stats")
     LAUNCHES[form_name("smaq_stats", xf)] += 1
@@ -369,23 +381,45 @@ def sample_stats(flat: torch.Tensor, params: SmaQParams) -> torch.Tensor:
     return torch.stack([m1, std])
 
 
+def pivot_sums_reference(flat: torch.Tensor) -> torch.Tensor:
+    """``smaq_stats``' folded sums in PyTorch ops: float64 ``[sum(d),
+    sum(d * d), min, max, pivot]`` of ``d = x - pivot``, the pivot the mean
+    of the first 256 elements in float32."""
+    flat = flat.reshape(-1).float()
+    pivot = flat[: min(flat.numel(), 256)].mean()
+    d = (flat - pivot).double()
+    return torch.stack([d.sum(), (d * d).sum(), flat.min().double(), flat.max().double(),
+                        pivot.double()])
+
+
+def fold_sums(sums: torch.Tensor, n: int, params: SmaQParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and std (0-d float32, before the guard and the clamp) of a
+    tensor whose W parts hold ``n`` elements each and folded ``sums`` (W,
+    5) (ranks' parts: ``parallel/whole_batch.py``): each part's sums moved
+    to part 0's pivot, added in order, then ``smaq_stats``' expressions
+    (``csrc/smaq.cu``: ``finish_stats``): ddof=1, or the range std.  One
+    part's sums give its own mean and std."""
+    s1, s2, mn, mx, pivot = sums.unbind(1)
+    d = pivot - pivot[0]
+    s1_all = (s1 + n * d).sum()
+    s2_all = (s2 + 2.0 * d * s1 + n * d * d).sum()
+    total = float(n * sums.shape[0])
+    mean = (pivot[0] + s1_all / total).float()
+    if params.use_range_std_dev:
+        std = (mx.max().float() - mn.min().float()) / math.sqrt(2.0 * math.log(total))
+    else:
+        var = ((s2_all - s1_all * (s1_all / total)) / max(total - 1.0, 1.0)).clamp_min(0.0)
+        std = var.sqrt().float()
+    return mean, std
+
+
 def pivot_stats_reference(
     flat: torch.Tensor, params: SmaQParams
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The stats kernel's plain version, before the guard and the clamp:
     mean and ddof=1 std from the sums of ``d = x - pivot`` in float64
     (pivot = mean of the first 256 elements), or the range std."""
-    n = flat.numel()
-    pivot = flat[: min(n, 256)].mean()
-    d = (flat - pivot).double()
-    s1, s2 = d.sum(), (d * d).sum()
-    mean = (pivot.double() + s1 / n).float()
-    if params.use_range_std_dev:
-        std = (flat.max() - flat.min()) / math.sqrt(2.0 * math.log(n))
-    else:
-        var = ((s2 - s1 * (s1 / n)) / max(n - 1.0, 1.0)).clamp_min(0.0)
-        std = var.sqrt().float()
-    return mean, std
+    return fold_sums(pivot_sums_reference(flat)[None], flat.numel(), params)
 
 
 def consts_reference(mean: torch.Tensor, std: torch.Tensor, params: SmaQParams) -> torch.Tensor:

@@ -53,13 +53,18 @@ def s2fp8_quantize_dequantize(
     check_inf: bool = True,
     rand: torch.Tensor | None = None,
     rows: bool = False,
+    stats: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """S2FP8 of ``x``; ``rand`` is passed on to ``float_quantize``.
-    ``rows``: ``x`` is 2-D and each row takes its own (alpha, beta)."""
+    ``rows``: ``x`` is 2-D and each row takes its own (alpha, beta).
+    ``stats``: the mean and max of ``log2|x|`` given (as reduced over
+    ranks), in place of ``x``'s own."""
     xf = x.to(torch.float32)
     x_abs = xf.abs()
-    lg = torch.where(x_abs == 0.0, x_abs, torch.log2(x_abs))
-    alpha, beta = squeeze_coefs(*log2_stats(lg, rows))
+    if stats is None:
+        lg = torch.where(x_abs == 0.0, x_abs, torch.log2(x_abs))
+        stats = log2_stats(lg, rows)
+    alpha, beta = squeeze_coefs(*stats)
     beta_pow2 = torch.exp2(beta)
     squeezed = torch.pow(x_abs, alpha) * beta_pow2
     t = float_quantize(

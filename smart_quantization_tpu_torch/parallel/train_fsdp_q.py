@@ -61,7 +61,9 @@ class FSDPLayout:
             shape[d] //= self.fsdp
         return tuple(shape)
 
-    def _block(self, name: str, leaf, index: int):
+    def block(self, name: str, leaf, index: int):
+        """Block ``index`` of leaf ``name`` (contiguous), or the leaf whole
+        (a copy) where it is replicated."""
         d = self.dims.get(name, -1)
         if isinstance(leaf, SmaQCodes):
             if leaf.mean.numel() > 1:  # one codebook a block
@@ -77,14 +79,16 @@ class FSDPLayout:
     def local(self, tree: dict, index: int) -> dict:
         """A global tree's block ``index`` of every sharded leaf (each leaf
         contiguous), the replicated leaves whole."""
-        return {k: self._block(k, v, index) for k, v in tree.items()}
+        return {k: self.block(k, v, index) for k, v in tree.items()}
 
     def local_opt_state(self, opt_state, index: int):
         """:meth:`local` on every per-parameter tree of an optimizer state
         (momentum buffers, master weights)."""
         return _map_state(opt_state, lambda tree: self.local(tree, index))
 
-    def _gather(self, name: str, leaf, group):
+    def gather_leaf(self, name: str, leaf, group):
+        """The whole of leaf ``name`` from every fsdp rank's block (an
+        all-gather over ``group``); a replicated leaf as it is."""
         d = self.dims.get(name, -1)
         if isinstance(leaf, SmaQCodes):
             if d < 0 or leaf.codes.numel() == 0:
@@ -99,7 +103,7 @@ class FSDPLayout:
     def gather(self, tree: dict, group) -> dict:
         """The global layout of a rank's tree, by an all-gather over
         ``fsdp`` of every sharded leaf (packed stats to ``(fsdp,)``)."""
-        return {k: self._gather(k, v, group) for k, v in tree.items()}
+        return {k: self.gather_leaf(k, v, group) for k, v in tree.items()}
 
     def gather_opt_state(self, opt_state, group):
         return _map_state(opt_state, lambda tree: self.gather(tree, group))

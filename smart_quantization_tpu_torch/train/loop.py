@@ -209,6 +209,16 @@ def make_reproducible() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def float32_on_card() -> None:
+    """The card's settings of a training step: TF32 off for cuDNN
+    convolutions and matmuls, bfloat16 products with float32 accumulation
+    (as XLA's), and deterministic kernels (:func:`make_reproducible`)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    make_reproducible()
+
+
 def _assign(dst, src) -> None:
     """Copy ``src``'s tensors into ``dst``'s, in place, over one tree shape
     (dicts, ``SmaQCodes``, ``CompressedOptState``); other leaves (Adam's
@@ -264,13 +274,9 @@ class Trainer:
             raise ValueError(f"--steps_per_call must be 1 or more, got {config.steps_per_call}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            # bfloat16 products accumulate in float32 throughout, as XLA's do
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            float32_on_card()
             print("NOTE: TF32 is off for convolutions and matmuls; the card trains "
                   "in the model's compute dtype with float32 accumulation.")
-            make_reproducible()
         self.model = model.to(self.device)
         self.data = data
         self.spec = spec

@@ -340,7 +340,9 @@ def test_inception_cli_smoke_smart(tmp_path):
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, SMAQ_SYNTH_TEST_N="8", SMAQ_DISABLE_TB="1")
+    # two threads, as on a machine shared with the suite's other workers
+    env = dict(os.environ, SMAQ_SYNTH_TEST_N="8", SMAQ_DISABLE_TB="1", OMP_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
     out = subprocess.run(
         [sys.executable, "-m", "smart_quantization_tpu_torch.train", "--device", "cpu",
          "--model", "inception", "--dataset", "cifar10", "--compress", "smart",

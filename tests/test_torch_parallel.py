@@ -404,7 +404,9 @@ def test_cli_dp_on_joined_ranks(pools, tmp_path):
 
 @pytest.mark.slow  # three processes start (the CLI's own spawn), about 12 s
 def test_cli_dp_spawns_its_ranks(tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT, **CLI_ENV)
+    # the spawned ranks take cores / world threads each (distributed.py's
+    # _threads_for); the CLI's own process two, beside the suite's workers
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2", **CLI_ENV)
     out = subprocess.run(
         [sys.executable, "-m", "smart_quantization_tpu_torch.train",
          *cli_argv(tmp_path, "--dp", "2", "--grad_allreduce_bits", "8")],

@@ -52,6 +52,9 @@ from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TAGS = ("forward_autograd", "backward_autograd", "optimizer_grad",
         "optimizer_weight", "optimizer_momentum")
+# a CLI subprocess's thread pools: the suite runs beside it on the same
+# cores, and a full pool of them stalls when the other workers are busy
+SUBPROCESS_THREADS = {"OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
 
 
 def run_both_steps(jcomp, comp, taps):
@@ -385,8 +388,9 @@ def test_git_tags_the_run_and_writes_the_header(tmp_path, monkeypatch):
 
 def test_cli_reports_every_tag(tmp_path):
     # a small synthetic test split: --limit_val_batches 1 means the whole
-    # split (Lightning's float semantics) at a validation batch of 1
-    env = dict(os.environ, SMAQ_SYNTH_TEST_N="8", SMAQ_DISABLE_TB="1")
+    # split (Lightning's float semantics) at a validation batch of 1; two
+    # threads, as on a machine shared with the suite's other workers
+    env = dict(os.environ, SMAQ_SYNTH_TEST_N="8", SMAQ_DISABLE_TB="1", **SUBPROCESS_THREADS)
     out = subprocess.run(
         [sys.executable, "-m", "smart_quantization_tpu_torch.train", "--device", "cpu",
          "--resnet_model", "resnet18", "--compress", "smart", "--measure_compression_ratio",
@@ -434,8 +438,8 @@ def test_bert_cli_runs_on_cpu(tmp_path, dataset, metrics):
          "--optimizer_type", "adamw", "--learning_rate", "2e-5", "--max_input_length", "32",
          "--measure_compression_ratio", "--limit_train_batches", "2", "--limit_val_batches", "4",
          "--batch_size", "8", "--logdir", str(tmp_path)],
-        cwd=ROOT, env=dict(os.environ, SMAQ_DISABLE_TB="1"), capture_output=True, text=True,
-        timeout=300,
+        cwd=ROOT, env=dict(os.environ, SMAQ_DISABLE_TB="1", **SUBPROCESS_THREADS),
+        capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     final = json.loads(out.stdout.split("final:", 1)[1])
