@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --s2fp8_times_of DIR
-    python3 chip_smoke.py --bf16_times_of DIR
+    python3 chip_smoke.py --mesh_only
+    python3 chip_smoke.py --times_of DIR
 
 With no arguments, phases, each printing its own lines; any failure exits
 non-zero:
@@ -61,7 +61,11 @@ non-zero:
    whole-batch step's entries (``check_whole_tensor_stats``: the stats
    kernels' ``sums`` and their folds over 4 parts, ``given_consts``, the
    SmaQ, BN and S2FP8 quantize kernels on given statistics) at the largest
-   and a ragged shape, float32 and bfloat16;
+   and a ragged shape, float32 and bfloat16; every stochastic kernel at an
+   element offset (``check_offsets``: each quantize form on 4 parts at
+   their offsets against the whole launch, each part and an offset beyond
+   32 bits against its plain version fed the fill's words there, the
+   one-launch form against the two-launch form at an offset, the fill);
 4. the main paths: ``python -m smart_quantization_tpu_torch.train``'s
    ``main`` on full-width ResNet-18, batch 128, synthetic CIFAR-10, with
    every structure compressed by SmaQ 6/8, FP8, FP16, BF16, S2FP8, and SmaQ
@@ -124,7 +128,14 @@ non-zero:
    step of the optimizer's truncation SmaQ (taps off) against the
    single-card trainer's step by the flip rule, its median step, peak
    memory and NCCL time beside the single-card trainer's and the fused
-   FSDP steps (``chiprun_out/mesh_times.json``); and two experiment
+   FSDP steps (``chiprun_out/mesh_times.json``); then the step stochastic
+   with taps off, with ``--use_sample_stats`` and stochastic taps, and with
+   packed state (``WHOLE_CELLS``): ranks bitwise equal, launches, step
+   time, peak and held memory, and at W >= 2 one step against the (1, 1)
+   step in this process with the same key by the flip rule (the sampled
+   cell's taps: every tap call bitwise one card's call on its input
+   gathered from the ranks, ``tap_trace_check``), and packed state's held
+   memory and state bytes below float32 state's; and two experiment
    drivers on the card, ``memory_footprint`` (ResNet-18, Adam, fsdp 4)
    and a tiny ``bert_nan_probe``, each printing its JSON line;
 5. kernel times at 8 388 608 elements (CUDA events, L2 flushed between
@@ -146,25 +157,26 @@ non-zero:
    ResNet-18 step's S2FP8 calls in one graph, the bf16 BN call and a bf16
    ``--use_batch_norm`` step's BN calls in one graph, the float32 calls
    beside them and digests of their outputs, and the new kernels' blocks
-   resident per SM;
+   resident per SM; each stochastic quantize kernel at element offset 0
+   and 2 (``chiprun_out/offset_times.json``);
 6. the kernel table as one JSON line (the bfloat16 forms as rows of their
    own), then the result as the last line.
 
 ``--mesh_only`` builds the kernels and runs phase 4b's mesh cells alone
 (not the drivers): the check of the mesh on a machine of two to four
 cards, which would otherwise pay for phases 3-5 on every card it holds.
-``--s2fp8_times_of DIR`` times only the S2FP8 call of the port in DIR
-(``s2fp8_fused`` by size, alone at 8 388 608 elements and in streams of 20,
-and a ResNet-18 step's calls in one CUDA graph) with this script's timer
-and prints them as one JSON line: one chip call can run it on two trees in
-turns.  ``--bf16_times_of DIR`` does the same for the bf16 forms
-(``bf16_call_times``: the SmaQ call and float_quantize at 8 388 608
-elements, the SmaQ call by size, a bf16 ResNet-18 step's and a bf16
-bert-base codecs step's calls in one CUDA graph each; the S2FP8 call at
-8 388 608 elements and by size, a bf16 S2FP8 ResNet-18 step's calls in one
-graph; the BN call at BN_SHAPE and a bf16 ``--use_batch_norm`` step's BN
-calls in one graph; the float32 calls at the same sizes and digests of the
-S2FP8 and BN outputs): run parent, change, change, parent in one call.
+``--times_of DIR`` builds the port in DIR and prints, as one JSON line,
+phase 5's time of every kernel at 8 388 608 elements (float32 and bf16),
+its S2FP8 call (by size, and a ResNet-18 step's calls in one CUDA graph)
+and its bf16 forms' calls (``bf16_call_times``: the SmaQ call and
+float_quantize at 8 388 608 elements, the SmaQ call by size, a bf16
+ResNet-18 step's and a bf16 bert-base codecs step's calls in one CUDA
+graph each; the S2FP8 call at 8 388 608 elements and by size, a bf16
+S2FP8 ResNet-18 step's calls in one graph; the BN call at BN_SHAPE and a
+bf16 ``--use_batch_norm`` step's BN calls in one graph; the float32 calls
+at the same sizes and digests of the S2FP8 and BN outputs), all with this
+script's timer: run parent, change, change, parent in one chip call to
+hold a change against its parent.
 
 Needs the repository beside it (or in DIR) and one CUDA card.
 """
@@ -173,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -1197,7 +1210,7 @@ def check_whole_tensor_stats(device) -> dict:
 
     from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
     from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
-    from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize, squeeze_coefs
+    from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize
     from smart_quantization_tpu_torch.ops.smaq import SmaQParams
 
     gen = torch.Generator(device=device).manual_seed(23)
@@ -1250,25 +1263,218 @@ def check_whole_tensor_stats(device) -> dict:
             if {k: v for k, v in S.LAUNCHES.items() if "stats" in k} != before:
                 fail(f"{label}: s2fp8_fused with the statistics given launched a stats kernel")
             y_ref = s2fp8_quantize_dequantize(x, None, stochastic=False, stats=stats)
-            alpha, beta = (v.double() for v in squeeze_coefs(*stats))
-
-            def squeezed(t):
-                a = t.reshape(-1).double().abs()
-                return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
-
-            steps = e5m2_steps(squeezed(y), squeezed(y_ref))
-            other = float((steps > 0.5).float().mean())
-            flipped = int(((y.float() * y_ref.float()) < 0).sum())
-            ok = (float(steps.max()) <= 1.01 and other <= 1e-3 and flipped == 0
-                  and bool(torch.isfinite(y).all()))
-            say(f"  {label} s2fp8_fused(stats=) (nearest, {n} elements): at most "
-                f"{float(steps.max()):.3f} e5m2 steps from s2fp8_quantize_dequantize(stats=), "
-                f"{other:.2e} of the elements on another code, {flipped} signs flipped -> "
-                f"{'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"s2fp8_fused with given statistics disagrees with its plain version: {label}")
+            s2fp8_rule(f"{label} s2fp8_fused(stats=) (nearest, {n} elements)", y, y_ref, stats,
+                       "s2fp8_quantize_dequantize(stats=)")
             errs["s2fp8_quantize"] = max(errs["s2fp8_quantize"],
                                          float((y.float() - y_ref.float()).abs().max()))
+    return errs
+
+
+def s2fp8_rule(label, y, y_ref, stats, ref_name) -> None:
+    """S2FP8's rule against its plain version: at most one e5m2 step of the
+    squeeze (``stats``' alpha and beta) apart, at most 1e-3 of the elements
+    on another code, no sign flipped, every output finite."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.s2fp8 import squeeze_coefs
+
+    alpha, beta = (v.double() for v in squeeze_coefs(*stats))
+
+    def squeezed(t):
+        a = t.reshape(-1).double().abs()
+        return torch.where(a == 0, a, torch.exp2(alpha * torch.log2(a) + beta))
+
+    steps = e5m2_steps(squeezed(y), squeezed(y_ref))
+    other = float((steps > 0.5).float().mean())
+    flipped = int(((y.float() * y_ref.float()) < 0).sum())
+    ok = (float(steps.max()) <= 1.01 and other <= 1e-3 and flipped == 0
+          and bool(torch.isfinite(y).all()))
+    say(f"  {label}: at most {float(steps.max()):.3f} e5m2 steps from {ref_name}, "
+        f"{other:.2e} of the elements on another code, {flipped} signs flipped -> "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"S2FP8 disagrees with its plain version: {label}")
+
+
+# The element offset of a stochastic launch (csrc/philox.cuh: Draws): a
+# ragged tensor cut into 4 parts, offsets 0, 75 001, 150 001 and 225 001
+# (none but the first a multiple of 4), a BatchNorm map cut by rows (1050
+# elements a part: offsets 2 past a multiple of 4), and one launch far
+# beyond 32 bits of offset
+OFFSET_PARTS = (75_001, 75_000, 75_000, 75_000)
+OFFSET_BN_SHAPE = (12, 10, 7, 5)
+FAR_OFFSET = 2**33 + 6
+
+
+def check_offsets(device) -> dict:
+    """Every stochastic kernel at an element offset: each quantize form on 4
+    parts of a tensor, each part at its offset (a clone, so the vector
+    paths run across two of the whole's Philox groups), against the whole
+    tensor's launch under the same given statistics and (key, call):
+    bitwise for float_quantize and S2FP8 (float32, bf16, the window form),
+    by the flip rule for SmaQ and BN (float32, bf16; bitwise printed);
+    each part's launch against its plain version fed the fill's words at
+    that offset (``philox_fill_reference(offset=)``): float bitwise, S2FP8
+    by ``s2fp8_rule``, SmaQ and BN by the flip rule; the one-launch form
+    at an offset bitwise the two-launch form on its constants at the same
+    offset; the fill at each offset bitwise its plain version and the
+    whole fill's slice; every form once at FAR_OFFSET against its plain
+    version.  Returns the largest difference from a plain version by
+    kernel."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import philox_kernel as P
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT, float_quantize
+    from smart_quantization_tpu_torch.ops.keys import key_tensor, step_key
+    from smart_quantization_tpu_torch.ops.s2fp8 import s2fp8_quantize_dequantize
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    key, call = key_tensor(step_key(3, 1), device), 5
+    gen = torch.Generator(device=device).manual_seed(31)
+    params = SmaQParams()
+    errs: dict[str, float] = {}
+    bf = torch.bfloat16
+
+    def words(n, o):
+        return P.philox_fill_reference(n, key, call, uniform=False, offset=o).to(
+            torch.int64) & 0xFFFFFFFF
+
+    def uniforms(n, o):
+        return P.philox_fill_reference(n, key, call, uniform=True, offset=o)
+
+    def rounded(y, like):
+        return y.to(like.dtype)
+
+    flat = torch.randn(sum(OFFSET_PARTS), generator=gen, device=device) * 1.7 + 0.3
+    nchw = torch.randn(OFFSET_BN_SHAPE, generator=gen, device=device) * 0.8 - 0.1
+    g = torch.randn(OFFSET_BN_SHAPE[1], generator=gen, device=device) * 0.3 + 1.0
+    b = torch.randn(OFFSET_BN_SHAPE[1], generator=gen, device=device) * 0.2
+    channels, inner = OFFSET_BN_SHAPE[1], math.prod(OFFSET_BN_SHAPE[2:])
+    for dtype in (torch.float32, bf):
+        tag = "" if dtype == torch.float32 else "_bf16"
+        x, xn = flat.to(dtype), nchw.to(dtype)
+        stats = torch.stack([x.float().mean(), x.float().std()])
+        stats_n = torch.stack([xn.float().mean(), xn.float().std()])
+        a = x.float().abs()
+        lg = torch.where(a == 0, a, torch.log2(a))
+        mu_m = ((lg.double().sum() / lg.numel()).float(), lg.max())
+        consts = S.given_consts(*mu_m)
+        quantum, quantum_n = stats[1] / params.range_main, stats_n[1] * g.abs().max() / params.range_main
+        window = dtype == bf
+        # name: (whole tensor, parts, launch(part, o), plain(part, o), rule)
+        forms = {
+            "smaq_quantize": (x, x.split(OFFSET_PARTS), lambda t, o: K.smaq_quantize(
+                t, params, key=key, call=call, offset=o, stats=stats), lambda t, o: (
+                rounded(K.smaq_fused_reference(t.float(), None, params, mean=stats[0],
+                                               std=stats[1], u=uniforms(t.numel(), o))[0], t),
+                None), "flip"),
+            "smaq_quantize_bn": (xn.reshape(-1), [r.reshape(-1) for r in xn.split(3)],
+                                 lambda t, o: K.smaq_quantize_bn(
+                t, g, b, channels, inner, params, key=key, call=call, offset=o, stats=stats_n),
+                lambda t, o: (rounded(K.smaq_fused_bn_reference(
+                    t.float().view(-1, *OFFSET_BN_SHAPE[1:]), None, g, b, params,
+                    mean=stats_n[0], std=stats_n[1], u=uniforms(t.numel(), o))[0].reshape(-1),
+                    t), None), "flip"),
+            "float_quantize": (x, x.split(OFFSET_PARTS), lambda t, o: (F.float_quantize_launch(
+                t, FP8_FORMAT, key=key, call=call, offset=o, stochastic=True, check_inf=True),
+                None), lambda t, o: (rounded(float_quantize(
+                    t.float(), FP8_FORMAT, None, stochastic=True, check_inf=True,
+                    rand=words(t.numel(), o)), t), None), "bits"),
+            "s2fp8_quantize" + ("_window" if window else ""): (
+                x, x.split(OFFSET_PARTS), lambda t, o: (S.s2fp8_quantize(
+                    t, consts, key=key, call=call, offset=o, stochastic=True, check_inf=True,
+                    window=window), None), lambda t, o: (s2fp8_quantize_dequantize(
+                        t, None, stochastic=True, stats=mu_m, rand=words(t.numel(), o)), None),
+                "s2fp8"),
+        }
+        if window:
+            # a bf16 S2FP8 form: bitwise its float32 form at the same offset
+            # on the widened input, rounded; that launch by S2FP8's rule
+            # against the plain version (two bf16 roundings of outputs one
+            # e5m2 step apart can land further apart than one step)
+            def s2fp8_plain(t, o):
+                y32 = S.s2fp8_quantize(t.float(), consts, key=key, call=call, offset=o,
+                                       stochastic=True, check_inf=True, window=False)
+                s2fp8_rule(f"offset s2fp8_quantize at {o} (the float32 form of a bf16 part)",
+                           y32, s2fp8_quantize_dequantize(t.float(), None, stochastic=True,
+                                                          stats=mu_m, rand=words(t.numel(), o)),
+                           mu_m, "its plain version")
+                return y32.to(bf), None
+
+            forms["s2fp8_quantize_window"] = (*forms["s2fp8_quantize_window"][:3], s2fp8_plain,
+                                              "bits")
+        if window:  # the bf16 instance of the float32 split-form kernel too
+            forms["s2fp8_quantize"] = (*forms["s2fp8_quantize_window"][:2], lambda t, o: (
+                S.s2fp8_quantize(t, consts, key=key, call=call, offset=o, stochastic=True,
+                                 check_inf=True, window=False), None),
+                *forms["s2fp8_quantize_window"][3:])
+        for name, (whole_x, parts, launch, plain, rule) in forms.items():
+            label = f"offset {name}{tag}"
+            whole, whole_size = launch(whole_x, 0)
+            outs, sizes, at, worst = [], 0.0, 0, 0.0
+            for part in [*parts, None]:
+                o = FAR_OFFSET if part is None else at
+                t = (parts[0] if part is None else part).clone()
+                y, size = launch(t, o)
+                y_ref, _ = plain(t, o)
+                if rule == "bits":
+                    if not bitwise_equal(y, y_ref):
+                        fail(f"{label} at {o}: not bitwise its plain version")
+                elif rule == "s2fp8":
+                    s2fp8_rule(f"{label} at {o}", y, y_ref, mu_m, "its plain version")
+                    worst = max(worst, float((y.float() - y_ref.float()).abs().max()))
+                else:
+                    worst = max(worst, flip_check(
+                        f"{label} at {o} against its plain version", y.float(),
+                        y_ref.float(), 0.0, 0.0, quantum_n if "bn" in name else quantum))
+                if part is not None:
+                    outs.append(y)
+                    sizes += 0.0 if size is None else float(size)
+                    at += t.numel()
+            errs[name + tag] = max(errs.get(name + tag, 0.0), worst)
+            got = torch.cat(outs)
+            same = bitwise_equal(got, whole)
+            if rule == "flip":
+                flip_check(f"{label}: 4 parts at their offsets against the whole launch",
+                           got.float(), whole.float(), sizes, float(whole_size),
+                           quantum_n if "bn" in name else quantum)
+            elif not same:
+                fail(f"{label}: the parts at their offsets are not bitwise the whole launch")
+            say(f"  {label}: 4 parts at offsets {[0, *itertools.accumulate(p.numel() for p in parts)][:4]}"
+                f" bitwise the whole launch {same}; each part and offset {FAR_OFFSET} against "
+                f"the plain version fed the fill's words there -> ok")
+
+    # the one-launch form: at an offset, bitwise the two-launch form on its
+    # constants at that offset
+    xb = flat.to(bf)
+    for o in (0, 6, FAR_OFFSET):
+        y1, size1, c1 = K.smaq_onepass(xb, params, key=key, call=call, offset=o)
+        y2, size2 = K.smaq_quantize(xb, params, key=key, call=call, offset=o, consts=c1)
+        if not bitwise_equal(y1, y2) or float(size1) != float(size2):
+            fail(f"smaq_onepass at offset {o}: not bitwise the two-launch form")
+        y_ref = K.smaq_fused_reference(xb.float(), None, params, mean=c1[0], std=c1[1],
+                                       u=uniforms(xb.numel(), o))[0].to(bf)
+        errs["smaq_onepass_bf16"] = max(errs.get("smaq_onepass_bf16", 0.0), flip_check(
+            f"offset smaq_onepass_bf16 at {o} against its plain version", y1.float(),
+            y_ref.float(), 0.0, 0.0, c1[1] / params.range_main))
+    say(f"  offset smaq_onepass_bf16 at 0, 6 and {FAR_OFFSET}: bitwise the two-launch form "
+        "on its constants at the same offset -> ok")
+    whole_fill = P.philox_fill(sum(OFFSET_PARTS), key, call, uniform=False)
+    at = 0
+    for n in (*OFFSET_PARTS, None):
+        o = FAR_OFFSET if n is None else at
+        n = n or 4099
+        got = P.philox_fill(n, key, call, uniform=False, offset=o)
+        if not bitwise_equal(got, P.philox_fill_reference(n, key, call, uniform=False, offset=o)):
+            fail(f"philox_fill at offset {o}: not bitwise its plain version")
+        if o != FAR_OFFSET and not bitwise_equal(got, whole_fill[o:o + n]):
+            fail(f"philox_fill at offset {o}: not the whole fill's words")
+        at += n
+    say(f"  offset philox_fill: each part's words bitwise the whole fill's and its plain "
+        f"version's, and at {FAR_OFFSET} -> ok")
     return errs
 
 
@@ -1558,7 +1764,7 @@ def check_bf16_redesign(device) -> dict:
     xb = torch.empty(n, dtype=bf, device=device)
     y, size, consts = torch.empty_like(xb), torch.empty((), device=device), torch.empty(8, device=device)
     rc = build.library().smaq_onepass(
-        xb.data_ptr(), y.data_ptr(), n, DTYPES[bf], 0, None, 0, 0, 0, 1,
+        xb.data_ptr(), y.data_ptr(), n, DTYPES[bf], 0, None, 0, 0, 0, 0, 1,
         *K._quant_args(trunc), K.workspace(xb).data_ptr(), consts.data_ptr(), size.data_ptr(),
         sms * K.BLOCKS_PER_SM, THREADS, stream(xb))
     say(f"  smaq_onepass with {slots + 1} slots a thread: cudaError {rc} (720: too large for "
@@ -2724,16 +2930,17 @@ def profile_dir_run():
 # warm-up, timed and profiled dispatches)
 # (bert-base at K=1: 1 warm-up, 2 timed, 1 profiled step; at K=4: 1, 1 and
 # 1 dispatches of 4 steps)
+# (ResNet-18 at K=1: 2 warm-up, 6 timed, 2 profiled steps; at K=8: 1, 3
+# and 1 dispatches.)  The bert-base z-score, packed and bf16 --no_compress
+# cells (rows of PERF.md section 5) are no longer timed here: their trainer
+# builds and graph captures took 90 s of a script that must end in 900 s.
 BERT_K_COUNTS = ((1, 2, 1), (1, 1, 1))
+RESNET_K_COUNTS = ((2, 6, 2), (1, 3, 1))
 K_CELLS = [
-    ("ResNet-18 smart", MAIN_ARGV, K_RESNET, ((3, 10, 5), (2, 6, 1))),
-    ("bert-base z-score", BERT_ARGV, K_BERT, BERT_K_COUNTS),
+    ("ResNet-18 smart", MAIN_ARGV, K_RESNET, RESNET_K_COUNTS),
     ("bert-base codecs", BERT_ARGV + CODEC_ARGV, K_BERT, BERT_K_COUNTS),
-    ("bert-base packed", BERT_ARGV + PACKED_ARGV, K_BERT, BERT_K_COUNTS),
-    ("ResNet-18 smart bf16", MAIN_ARGV + BF16_ARGV, K_RESNET, ((3, 10, 5), (2, 6, 1))),
+    ("ResNet-18 smart bf16", MAIN_ARGV + BF16_ARGV, K_RESNET, RESNET_K_COUNTS),
     ("bert-base codecs bf16", BERT_ARGV + CODEC_ARGV + BF16_ARGV, K_BERT, BERT_K_COUNTS),
-    ("bert-base no_compress bf16", BERT_ARGV + ["--no_compress"] + BF16_ARGV, K_BERT,
-     BERT_K_COUNTS),
 ]
 
 
@@ -2779,9 +2986,10 @@ def k_timings(card, cells=K_CELLS, out_name="k_step_times.json") -> dict:
 # ------------------------------------------------------ phase 4: Inception-v3
 # its K-step timings: (label, command line, K, and at K=1 and at K the
 # warm-up, timed and profiled dispatches)
+INCEPTION_K_COUNTS = ((1, 4, 1), (1, 2, 1))
 INCEPTION_K_CELLS = [
-    ("Inception-v3 smart", INCEPTION_ARGV, K_RESNET, ((2, 5, 2), (2, 3, 1))),
-    ("Inception-v3 smart bf16", INCEPTION_ARGV + BF16_ARGV, K_RESNET, ((2, 5, 2), (2, 3, 1))),
+    ("Inception-v3 smart", INCEPTION_ARGV, K_RESNET, INCEPTION_K_COUNTS),
+    ("Inception-v3 smart bf16", INCEPTION_ARGV + BF16_ARGV, K_RESNET, INCEPTION_K_COUNTS),
 ]
 
 
@@ -3229,6 +3437,17 @@ def mesh_cli_runs(card, w) -> dict:
 WHOLE_STEPS = 4
 WHOLE_TIMED = 6
 WHOLE_COMPARED = 1
+# the cells whose draws are one card's on any mesh (W = 4 against W = 1
+# with the same keys under --mesh_only): (label, stochastic, taps,
+# --use_sample_stats, packed state); taps off where a flip of a tap would
+# travel on through the layers (with full statistics a tap's statistics
+# are summed in another order on W ranks), on with sampled statistics,
+# which are bitwise one card's on any mesh: there every tap call is held
+# bitwise to one card's call on its gathered input (tap_trace_check)
+WHOLE_CELLS = (("stochastic, taps off", True, False, False, False),
+               ("sampled statistics, stochastic taps", True, True, True, False),
+               ("packed state, stochastic, taps off", True, False, False, True))
+WHOLE_CELL_TIMED = 2
 
 
 def whole_batch_plan() -> tuple[int, int]:
@@ -3248,11 +3467,12 @@ def whole_batch_plan() -> tuple[int, int]:
     return taps + sum(k > SMALL_MAX for k in opt), taps + len(opt)
 
 
-def _whole_batch_setup(stochastic, taps, n_batches):
+def _whole_batch_setup(stochastic, taps, n_batches, sample=False, packed=False):
     """The whole-batch cells' model (ResNet-18, seeded, SmaQ 6/8 on the
     optimizer's structures and with ``taps`` on the feature and gradient
-    maps), optimizer (SGD momentum 0.9) and seeded global batches of 128,
-    on this process's card."""
+    maps, ``--use_sample_stats`` as ``sample``), optimizer (SGD momentum
+    0.9; packed momentum and weights as ``packed``) and seeded global
+    batches of 128, on this process's card."""
     import gc
 
     import torch
@@ -3269,21 +3489,23 @@ def _whole_batch_setup(stochastic, taps, n_batches):
     torch.cuda.empty_cache()
     device = torch.device("cuda", torch.cuda.current_device())
     torch.manual_seed(0)
-    comp = build_compressor("smart", stochastic_rounding=stochastic)
+    comp = build_compressor("smart", stochastic_rounding=stochastic, use_sample_stats=sample)
     model = resnet18(num_classes=10, tap=TapConfig(compressor=comp) if taps else None)
     gen = torch.Generator().manual_seed(5)
     batches = [(torch.randint(0, 256, (128, 32, 32, 3), generator=gen, dtype=torch.uint8)
                 .to(device), torch.randint(0, 10, (128,), generator=gen).to(device))
                for _ in range(n_batches)]
     return (model.to(device), build_optimizer("sgd", 0.1, momentum=0.9),
-            OptimizerCompression(compressor=comp), batches)
+            OptimizerCompression(compressor=comp, packed_momentum=packed, packed_weights=packed),
+            batches)
 
 
-def _whole_batch_run(step, tensors_of, batches, steps, timed, arrays) -> dict:
+def _whole_batch_run(step, tensors_of, batches, steps, timed, arrays, base=0) -> dict:
     """``steps`` calls ``step(images_u8, labels, key)`` with the launch
     counts read around them, a digest of ``tensors_of()`` (and with
     ``arrays`` the arrays), then ``timed`` calls timed (median ms, peak
-    memory)."""
+    memory, and the memory held after them above ``base``, what was
+    allocated before the cell's model was made)."""
     import hashlib
 
     import torch
@@ -3302,6 +3524,7 @@ def _whole_batch_run(step, tensors_of, batches, steps, timed, arrays) -> dict:
                           / sum(v[1] for k, v in metrics[-1].items() if k.startswith("_ratio/")))}
     if arrays:
         out["tensors"] = {k: v.detach().float().cpu().numpy() for k, v in tensors.items()}
+    del tensors  # gathered and decoded copies: not what the step holds
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i, (x, y) in enumerate(batches[steps:]):
@@ -3312,32 +3535,200 @@ def _whole_batch_run(step, tensors_of, batches, steps, timed, arrays) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     out["step_ms"] = statistics.median(times) if times else None
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["held_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
     return out
 
 
-def whole_batch_rank_cell(mesh_shape, stochastic, taps, steps, timed, arrays=False):
+def _state_bytes(*trees) -> tuple[int, int, int]:
+    """The bytes of every tensor in the trees (packed leaves' codes and
+    statistics included), and the elements and leaves stored as uint8
+    codes."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.codebook import SmaQCodes
+    from smart_quantization_tpu_torch.optim.compressed import CompressedOptState
+
+    total = [0, 0, 0]
+
+    def walk(t):
+        if isinstance(t, SmaQCodes):
+            total[1] += t.codes.numel()
+            total[2] += 1
+        if isinstance(t, torch.Tensor):
+            total[0] += t.numel() * t.element_size()
+        elif isinstance(t, (dict, SmaQCodes, CompressedOptState)):
+            for v in (t.values() if isinstance(t, dict) else t):
+                walk(v)
+
+    for t in trees:
+        walk(t)
+    return tuple(total)
+
+
+def whole_batch_rank_cell(mesh_shape, stochastic, taps, steps, timed, arrays=False,
+                          sample=False, packed=False):
     """ResNet-18's whole-batch step (``make_fsdp_train_step``) on a
-    (data, fsdp) mesh of the pool's ranks (``_whole_batch_setup``):
-    ``_whole_batch_run`` over the global parameters, momentum and BatchNorm
-    statistics, and with ``timed`` two profiled steps."""
+    (data, fsdp) mesh of the pool's ranks, or of this process alone at (1,
+    1) (``_whole_batch_setup``): ``_whole_batch_run`` over the global
+    parameters, momentum (packed leaves decoded) and BatchNorm statistics,
+    and with ``timed`` two profiled steps.  With ``arrays`` and ``taps``
+    the first step's first tap output (conv1's, bn1's input) on this
+    rank's rows as ``probe``."""
+    import gc
+
+    import torch
+
+    from smart_quantization_tpu_torch.optim.compressed import _decode_tree, packed_smaq_params
     from smart_quantization_tpu_torch.parallel.train_fsdp import make_fsdp_train_step
 
-    model, spec, optim_comp, batches = _whole_batch_setup(stochastic, taps, steps + timed)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    model, spec, optim_comp, batches = _whole_batch_setup(stochastic, taps, steps + timed,
+                                                          sample, packed)
     fsdp_step = make_fsdp_train_step(model, spec, optim_comp, _rank_mesh(*mesh_shape))
     state = fsdp_step.init_state()
+    probe = []
+    hook = model.bn1.register_forward_pre_hook(
+        lambda m, args: probe.append(args[0].detach().float().cpu().numpy())
+        if arrays and taps and not probe else None)
 
     def tensors():
         trace = fsdp_step.global_opt_state(state)["trace"]
+        if packed:
+            trace = _decode_tree(trace, packed_smaq_params(optim_comp), False)
         return {**fsdp_step.global_params(state), **dict(model.named_buffers()),
                 **{f"momentum/{k}": v for k, v in trace.items()}}
 
     out = _whole_batch_run(lambda x, y, key: fsdp_step(state, x, y, key), tensors, batches,
-                           steps, timed, arrays)
+                           steps, timed, arrays, base)
+    state_bytes, out["code_elements"], out["code_leaves"] = _state_bytes(state.shards,
+                                                                          state.opt_state)
+    out["state_mb"] = state_bytes / 1e6
+    hook.remove()
+    if probe:
+        out["probe"] = probe[0]
     if timed:
         out.update(profile_mesh_steps(lambda g: fsdp_step(state, *g[0], 3000),
                                       [batches[:1], batches[1:2]], 1))
     del fsdp_step, state, model
     return out
+
+
+def _tensor_digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _key_copy(key):
+    """A key that draws what ``key`` draws next: a step key's call indices,
+    or a host generator's state."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.keys import DeviceKey
+
+    if isinstance(key, DeviceKey):
+        return DeviceKey(key.key, key._next, key._stop)
+    gen = torch.Generator()
+    gen.set_state(key.get_state())
+    return gen
+
+
+def trace_taps(step, blocks: int, replay: bool) -> list:
+    """Wrap the whole-batch step's ``StatsGroup.compress``, through which
+    every tap call goes, forward and backward: each call's log entry holds
+    its direction, the input's shape on this rank, the module that ran
+    last before a forward call, whether its statistics are sampled (SmaQ
+    ``--use_sample_stats`` above ``num_samples`` elements: one card's
+    sample on any mesh), and the SHA-256 of its input and output
+    on each of ``blocks`` blocks of rows (one: this rank's own).  With
+    ``replay`` each call is also made as one device makes it, on the
+    whole input gathered from the ranks with a copy of the call's key
+    (``StatsGroup()``), and ``apart`` counts the elements of this rank's
+    output that differ from its rows of that call, bit for bit.  Returns
+    the log, filled by the steps that follow."""
+    import torch
+
+    from smart_quantization_tpu_torch.parallel.whole_batch import StatsGroup
+
+    stats, log, where = step.stats, [], {"phase": "forward", "after": None}
+    inner = stats.compress
+
+    def seen(name):
+        def hook(module, args, out):
+            where["after"] = name
+        return hook
+
+    for name, m in step.model.named_modules():
+        if not list(m.children()):
+            m.register_forward_hook(seen(name))
+    step.model.register_forward_hook(lambda *a: where.update(phase="backward", after=None))
+
+    def compress(compressor, x, key, *, gamma=None, beta=None):
+        copy = _key_copy(key) if replay else None
+        y, sizes = inner(compressor, x, key, gamma=gamma, beta=beta)
+        p = compressor.params
+        entry = {"phase": where["phase"], "shape": tuple(x.shape), "after": where["after"],
+                 "sampled": p.use_sample_stats and x.numel() * stats.size > p.num_samples,
+                 "in": [_tensor_digest(c) for c in x.chunk(blocks)],
+                 "out": [_tensor_digest(c) for c in y.chunk(blocks)]}
+        if replay:
+            whole = stats.gather(x.contiguous()).reshape(-1, *x.shape[1:])
+            one, _ = StatsGroup().compress(compressor, whole, copy, gamma=gamma, beta=beta)
+            mine = one.chunk(stats.size)[stats.rank]
+            entry["apart"] = int((mine.view(torch.int32) != y.view(torch.int32)).sum())
+        log.append(entry)
+        if where["phase"] == "backward":
+            where["after"] = None
+        return y, sizes
+
+    stats.compress = compress
+    return log
+
+
+def conv_rows_apart(model, blocks: int) -> dict:
+    """Forward hooks on every convolution of ``model``: the elements of its
+    output that its ``blocks`` blocks of rows, each convolved alone as a
+    rank convolves its rows, give otherwise, bit for bit; filled by the
+    steps that follow."""
+    import torch
+
+    apart = {}
+
+    def hook(name):
+        def run(m, args, out):
+            with torch.no_grad():
+                parts = torch.cat([m._conv_forward(c, m.weight, m.bias)
+                                   for c in args[0].chunk(blocks)])
+            apart[name] = (int((parts.view(torch.int32) != out.view(torch.int32)).sum()),
+                           out.numel())
+        return run
+
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook(name))
+    return apart
+
+
+def whole_batch_trace_cell(mesh_shape, blocks, sample):
+    """One step of the tapped stochastic whole-batch cell (``--use_sample_stats``
+    as ``sample``) with its first compared key, its tap calls traced
+    (``trace_taps``: replayed as one device's above one rank); at (1, 1)
+    the tap calls cut into ``blocks`` blocks of rows and every
+    convolution's output against its blocks of rows convolved alone
+    (``conv_rows_apart``)."""
+    from smart_quantization_tpu_torch.parallel.train_fsdp import make_fsdp_train_step
+
+    model, spec, optim_comp, batches = _whole_batch_setup(True, True, 1, sample)
+    fsdp_step = make_fsdp_train_step(model, spec, optim_comp, _rank_mesh(*mesh_shape))
+    state = fsdp_step.init_state()
+    one = mesh_shape == (1, 1)
+    log = trace_taps(fsdp_step, blocks if one else 1, not one)
+    convs = conv_rows_apart(model, blocks) if one else None
+    x, y = batches[0]
+    fsdp_step(state, x, y, 1000)
+    del fsdp_step, state, model
+    return {"log": log, "convs": convs}
 
 
 def trainer_reference_cell(stochastic, taps, steps, timed, arrays=False):
@@ -3367,15 +3758,16 @@ def trainer_reference_cell(stochastic, taps, steps, timed, arrays=False):
     return out
 
 
-def flip_rule(got: dict, want: dict, label: str) -> float:
+def flip_rule(got: dict, want: dict, label: str, strict: bool = True) -> tuple[float, float]:
     """``tests/test_torch_parallel.py``'s rule for a leaf after the
     optimizer's truncation SmaQ: at most 1 % of the elements beyond float32's
     wiggle (1e-4 of the leaf's largest value), none more than one
-    main-bucket quantum (its std / 15) apart.  Returns the largest share
-    apart."""
+    main-bucket quantum (its std / 15) apart; ``strict=False`` measures
+    without failing.  Returns the largest share apart and the largest
+    difference in quanta."""
     import numpy as np
 
-    worst = 0.0
+    worst, quanta = 0.0, 0.0
     for name, b in want.items():
         a = np.asarray(got[name], np.float64)
         b = np.asarray(b, np.float64)
@@ -3383,11 +3775,12 @@ def flip_rule(got: dict, want: dict, label: str) -> float:
         wiggle = 1e-4 * np.abs(b).max() + 1e-6
         share = float((diff > wiggle).mean())
         worst = max(worst, share)
-        if (not np.isfinite(a).all() or share > 0.01
-                or diff.max() > np.std(b) / 15 * (1 + 1e-4) + wiggle):
+        quanta = max(quanta, float(diff.max() / max(np.std(b) / 15, 1e-30)))
+        if strict and (not np.isfinite(a).all() or share > 0.01
+                       or diff.max() > np.std(b) / 15 * (1 + 1e-4) + wiggle):
             fail(f"[{label}] {name}: {share:.4%} of the elements apart, the largest "
                  f"{diff.max()!r} (a quantum {np.std(b) / 15!r})")
-    return worst
+    return worst, quanta
 
 
 def whole_batch_cells(pool, w, card, single_ms, fsdp_cell) -> dict:
@@ -3435,7 +3828,7 @@ def whole_batch_cells(pool, w, card, single_ms, fsdp_cell) -> dict:
             fail(f"[{label}] BatchNorm statistics {k} differ from the trainer's")
     leaves = [k for k in want if k not in stats and "batches" not in k]
     moved = flip_rule({k: got[k] for k in leaves}, {k: want[k] for k in leaves},
-                      f"{label} truncation")
+                      f"{label} truncation")[0]
     same = sum(np.array_equal(got[k], want[k]) for k in leaves)
     rel = abs(trunc[0]["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
     if rel > 1e-5:
@@ -3466,7 +3859,158 @@ def whole_batch_cells(pool, w, card, single_ms, fsdp_cell) -> dict:
     for ro in outs:
         for k, v in ro.pop("counts").items():
             launches[k] = launches.get(k, 0) + int(round(v * WHOLE_STEPS))
+    o["cells"] = {}
+    for name, stochastic, taps, sample, packed in WHOLE_CELLS:
+        cell, got = whole_batch_draw_cell(pool, w, card, name, stochastic, taps, sample, packed)
+        o["cells"][name] = cell
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    plain, packed = o["cells"][WHOLE_CELLS[0][0]], o["cells"][WHOLE_CELLS[2][0]]
+    expected = plain["state_mb"] - (3 * packed["code_elements"] - 8 * packed["code_leaves"]) / 1e6
+    if packed["state_mb"] >= plain["state_mb"] or packed["held_gb"] >= plain["held_gb"]:
+        fail(f"[{label}] packed state holds {packed['held_gb']!r} GB a rank (its state "
+             f"{packed['state_mb']!r} MB), float32 state {plain['held_gb']!r} GB "
+             f"({plain['state_mb']!r} MB)")
+    say(f"  [{label}] packed state against float32 state, both stochastic with taps off: held "
+        f"between steps {packed['held_gb'] * 1e3:.1f} MB a rank against "
+        f"{plain['held_gb'] * 1e3:.1f} MB, above what the process held before each cell; the "
+        f"state's own tensors {packed['state_mb']:.2f} MB against {plain['state_mb']:.2f} MB "
+        f"(uint8 codes for {packed['code_elements']} elements of {packed['code_leaves']} "
+        f"leaves, 8 bytes of statistics each: {expected:.2f} MB expected)")
     return {"cell": o, "launches": launches}
+
+
+def tap_trace_check(pool, w, label, sample) -> tuple[str, dict]:
+    """The tapped cell's first compared step traced (``whole_batch_trace_cell``)
+    at W ranks and at (1, 1): fails unless every tap call takes sampled
+    statistics and, forward and backward, on every rank is bitwise one
+    card's call on the input
+    gathered from the ranks with the same key, and unless every call whose
+    input is bitwise the (1, 1) step's has its output bitwise too.  Returns
+    the text of its line (the calls, how many took the (1, 1) step's input
+    bitwise, the first that did not, and the convolutions whose blocks of
+    rows, convolved alone, differ from the whole batch's) and its
+    summary."""
+    ranks = [r["log"] for r in pool.run(whole_batch_trace_cell, (1, w), w, sample)]
+    one = whole_batch_trace_cell((1, 1), w, sample)
+    ref = one["log"]
+    if any(len(log) != len(ref) for log in ranks):
+        fail(f"[{label}] the ranks made {[len(log) for log in ranks]} tap calls, the (1, 1) "
+             f"step {len(ref)}")
+    if not all(e["sampled"] for e in ref):
+        fail(f"[{label}] {sum(not e['sampled'] for e in ref)} tap calls take full statistics, "
+             f"which W ranks fold in another order than one card: not a bitwise rule")
+    apart = [sum(log[i]["apart"] for log in ranks) for i in range(len(ref))]
+    if any(apart):
+        i = next(i for i, a in enumerate(apart) if a)
+        fail(f"[{label}] tap call {i} ({ref[i]['phase']}, {ranks[0][i]['shape']} a rank): "
+             f"{apart[i]} elements of the ranks' outputs differ from one card's call on the "
+             f"gathered input with the same key; {sum(a > 0 for a in apart)} calls apart")
+    same_in = [all(log[i]["in"][0] == ref[i]["in"][r] for r, log in enumerate(ranks))
+               for i in range(len(ref))]
+    for i, same in enumerate(same_in):
+        if same and any(log[i]["out"][0] != ref[i]["out"][r] for r, log in enumerate(ranks)):
+            fail(f"[{label}] tap call {i} ({ref[i]['phase']}): its input bitwise the (1, 1) "
+                 f"step's, its output not")
+    first = next((i for i, same in enumerate(same_in) if not same), None)
+    convs = {k: v for k, v in one["convs"].items() if v[0]}
+    summary = {"calls": len(ref), "forward": sum(e["phase"] == "forward" for e in ref),
+               "input_bitwise": sum(same_in), "first_apart": None, "convs_apart": convs,
+               "convs": len(one["convs"])}
+    text = (f"; its {len(ref)} tap calls ({summary['forward']} forward) each bitwise, on every "
+            f"rank, one card's call on the input gathered from the ranks with the same key "
+            f"(replayed), {sum(same_in)} of them with an input bitwise the (1, 1) step's and "
+            f"each of those with its output bitwise")
+    if first is not None:
+        e = ref[first]
+        summary["first_apart"] = {"call": first, "phase": e["phase"], "after": e["after"],
+                                  "shape": ranks[0][first]["shape"]}
+        text += (f"; the first input apart: call {first} ({e['phase']}, "
+                 f"{ranks[0][first]['shape']} a rank"
+                 + (f", after {e['after']}" if e["after"] else "") + ")")
+    text += (f"; convolutions whose {w} blocks of rows, each convolved alone, differ bit for "
+             f"bit from the whole batch's: {len(convs)} of {len(one['convs'])}"
+             + "".join(f", {k} {a} of {n} elements" for k, (a, n) in list(convs.items())[:3]))
+    return text, summary
+
+
+def whole_batch_draw_cell(pool, w, card, name, stochastic, taps, sample, packed):
+    """One of WHOLE_CELLS on the pool's W ranks (a (1, W) mesh): every
+    rank's parameters, momentum, BatchNorm statistics and losses bitwise
+    equal, finite losses and a ratio in 4.5-5.5 (packed state: its
+    optimizer's 8 bits an element), and at W >= 2 the first step against
+    the (1, 1) step in this process with the same key: its loss within
+    1e-5, the BatchNorm statistics within 1e-5, and taps off the
+    parameters and momentum by the flip rule; with taps the first tap's
+    output (conv1's, every rank's rows) by the flip rule at FLIP_FRACTION,
+    every tap call bitwise one card's on its gathered input
+    (``tap_trace_check``), and the parameters and momentum measured only:
+    the ranks' convolutions and reductions over their rows sum in other
+    orders than one card's over the whole batch, and a tap's flip from
+    that travels on through 20 layers and their gradients (PERF.md,
+    section 6).  Prints its launches a step, median step, peak and held
+    memory a rank, its state's bytes, device time and host launch calls.
+    Returns the cell and its launches summed over the ranks."""
+    import numpy as np
+
+    label = f"whole-batch resnet18 W={w} {name}"
+    outs = pool.run(whole_batch_rank_cell, (1, w), stochastic, taps, WHOLE_COMPARED,
+                    WHOLE_CELL_TIMED, w > 1, sample, packed)
+    o = outs[0]
+    if len({ro["digest"] for ro in outs}) != 1 or any(ro["losses"] != o["losses"] for ro in outs):
+        fail(f"[{label}] the ranks' parameters, momentum, BatchNorm statistics or losses differ")
+    lo, hi = (3.9, 5.5) if packed else (4.5, 5.5)
+    if not all(math.isfinite(v) for v in o["losses"]) or not lo <= o["ratio"] <= hi:
+        fail(f"[{label}] losses {o['losses']}, ratio {o['ratio']}")
+    compared = ""
+    if w > 1:
+        one = whole_batch_rank_cell((1, 1), stochastic, taps, WHOLE_COMPARED, 0, True,
+                                    sample, packed)
+        got, want = o.pop("tensors"), one["tensors"]
+        for ro in outs[1:]:
+            ro.pop("tensors", None)
+        stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+        for k in stats:
+            if not np.allclose(got[k], want[k], rtol=1e-5, atol=1e-6):
+                fail(f"[{label}] BatchNorm statistics {k} differ from the (1, 1) step's")
+        leaves = [k for k in want if k not in stats and "batches" not in k]
+        moved, quanta = flip_rule({k: got[k] for k in leaves}, {k: want[k] for k in leaves},
+                                  label, strict=not taps)
+        same = sum(np.array_equal(got[k], want[k]) for k in leaves)
+        rel = abs(o["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        if rel > 1e-5:
+            fail(f"[{label}] loss {o['losses']} against the (1, 1) step's {one['losses']}")
+        compared = (f"; one step against the (1, 1) step in one process with the same key: "
+                    f"loss within {rel:.2e}, parameters and momentum "
+                    f"{'by the flip rule' if not taps else 'measured'} ({moved:.4%} of a leaf "
+                    f"apart at most, {quanta:.3f} quanta; {same} of {len(leaves)} leaves "
+                    f"bitwise)")
+        if taps:
+            mesh_probe = np.concatenate([ro.pop("probe") for ro in outs])
+            ref = one["probe"]
+            diff = np.abs(mesh_probe - ref)
+            apart = int((diff > 1e-5 + 2.5e-7 * np.abs(ref)).sum())
+            step = np.std(ref) / 15
+            if apart > FLIP_FRACTION * ref.size or diff.max() > step * (1 + 1e-4) + 1e-6:
+                fail(f"[{label}] the first tap's output: {apart} of {ref.size} elements apart, "
+                     f"the largest {diff.max()!r} (a quantum {step!r})")
+            compared += (f"; the first tap's output (conv1's, {ref.size} elements) "
+                         f"{apart} elements apart, {int((diff == 0).sum())} bitwise")
+            text, o["trace"] = tap_trace_check(pool, w, label, sample)
+            compared += text
+    counts = {k: v for k, v in o["counts"].items()}
+    say(f"  [{label}] ranks bitwise equal, loss {o['losses'][0]!r}, ratio {o['ratio']!r}, "
+        f"launches a step {counts}{compared}")
+    say(f"  [{label}] median step {o['step_ms']:.2f} ms, peak {o['peak_gb']:.2f} GB and held "
+        f"between steps {o['held_gb'] * 1e3:.1f} MB a rank above the process's before the "
+        f"cell (its state {o['state_mb']:.1f} MB), a step's device time {o['busy_ms']:.2f} "
+        f"ms (NCCL {o['nccl_ms']:.3f}), {o['launch_calls']:.0f} kernel launch calls and "
+        f"{o['collectives']:.0f} collectives a step on {card}")
+    launches = {}
+    for ro in outs:
+        for k, v in ro.pop("counts").items():
+            launches[k] = launches.get(k, 0) + int(round(v * WHOLE_COMPARED))
+    return o, launches
 
 
 def run_drivers() -> None:
@@ -3612,6 +4156,61 @@ def time_kernels(device, timed):
     for k in ("float_fp8_nearest", "float_fp16_nearest", "float_bf16_nearest"):
         bound[k] = bound["float_quantize"]
     return t, bound, n
+
+
+def time_offsets(device, timed, card) -> dict:
+    """Each stochastic quantize kernel at 8 388 608 elements at element
+    offset 0 and at offset 2 (every group of four across two of the
+    whole's Philox groups: two Philox calls a group), timed 0, 2, 2, 0 in
+    one process; printed and written to ``chiprun_out/offset_times.json``.
+    Returns the medians in ms, ``{kernel: {offset: ms}}``."""
+    import torch
+
+    from smart_quantization_tpu_torch.ops.cuda import float_kernel as F
+    from smart_quantization_tpu_torch.ops.cuda import s2fp8_kernel as S
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.float_format import FP8_FORMAT
+    from smart_quantization_tpu_torch.ops.smaq import SmaQParams
+
+    params = SmaQParams()
+    gen = torch.Generator(device=device).manual_seed(6)
+    tkey = timing_key(device)
+    x = torch.randn(ACT_SHAPE, generator=gen, device=device).reshape(-1)
+    xb = x.to(torch.bfloat16)
+    channels = BN_SHAPE[1]
+    inner = x.numel() // (BN_SHAPE[0] * channels)
+    gamma = torch.randn(channels, generator=gen, device=device) * 0.3 + 1.0
+    beta = torch.randn(channels, generator=gen, device=device) * 0.2
+    calls = {}
+    for t, tag in ((x, ""), (xb, "_bf16")):
+        consts = K.smaq_stats(t, params)
+        s2 = S.s2fp8_stats(t).clone()
+        calls.update({
+            "smaq_quantize" + tag: lambda o, t=t, c=consts: K.smaq_quantize(
+                t, params, key=tkey, offset=o, consts=c),
+            "smaq_quantize_bn" + tag: lambda o, t=t, c=consts: K.smaq_quantize_bn(
+                t, gamma, beta, channels, inner, params, key=tkey, offset=o, consts=c),
+            "float_quantize" + tag: lambda o, t=t: F.float_quantize_launch(
+                t, FP8_FORMAT, key=tkey, offset=o, stochastic=True, check_inf=True),
+            "s2fp8_quantize" + tag: lambda o, t=t, c=s2: S.s2fp8_quantize(
+                t, c, key=tkey, offset=o, stochastic=True, check_inf=True, window=False),
+        })
+        if tag:
+            calls["s2fp8_quantize_window_bf16"] = lambda o, c=s2: S.s2fp8_quantize(
+                xb, c, key=tkey, offset=o, stochastic=True, check_inf=True, window=True)
+            calls["smaq_onepass_bf16"] = lambda o: K.smaq_onepass(xb, params, key=tkey, offset=o)
+    out = {}
+    for name, fn in calls.items():
+        got = {0: [], 2: []}
+        for o in (0, 2, 2, 0):
+            got[o].append(timed(lambda fn=fn, o=o: fn(o)))
+        out[name] = {o: statistics.mean(v) for o, v in got.items()}
+    say("  the element offset: each stochastic quantize kernel at offset 0 and at offset 2 "
+        "(two Philox calls a group), us: " + ", ".join(
+            f"{k} {v[0] * 1e3:.1f} / {v[2] * 1e3:.1f}" for k, v in out.items()) + f" on {card}")
+    with open(os.path.join(OUT, "offset_times.json"), "w") as f:
+        json.dump({"card": card, "ms": out}, f, indent=1)
+    return out
 
 
 def time_bf16_kernels(device, timed):
@@ -4067,23 +4666,38 @@ def time_bf16_redesign(device, timed, per_call, step_calls_of, card, s2fp8_maps=
     return out
 
 
-def bf16_times_of(root: str) -> int:
-    """``--bf16_times_of DIR``: build the port in DIR and print its
-    ``bf16_call_times`` (a bf16 ResNet-18 step's calls and a bert-base
-    codecs bf16 step's) as one JSON line."""
+def times_of(root: str) -> int:
+    """``--times_of DIR``: build the port in DIR and print, as one JSON
+    line, phase 5's time of every kernel at 8 388 608 elements, float32
+    (``time_kernels``) and bf16 (``time_bf16_kernels``), in us, its S2FP8
+    call (``s2fp8_call_times``: by size, and a ResNet-18 step's calls in
+    one CUDA graph) and its bf16 forms' calls (``bf16_call_times``: a bf16
+    ResNet-18 step's, a bert-base codecs bf16 step's, a bf16 S2FP8 step's
+    and a bf16 BN step's).  Run parent, change, change, parent in one
+    call to hold a change against its parent on one card."""
     import torch
 
     sys.path.insert(0, os.path.abspath(root))
     from smart_quantization_tpu_torch.ops.cuda import build
+    from smart_quantization_tpu_torch.train.__main__ import build_trainer
+    from smart_quantization_tpu_torch.utils.config import parse_args
 
     build.library()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     timed, per_call = make_timer(device)
+    t, _, _ = time_kernels(device, timed)
+    t.update(time_bf16_kernels(device, timed)[0])
+    trainer = build_trainer(parse_args(MAIN_ARGV + ["--compress", "s2fp8", "--logdir", ""]))
+    s2fp8 = s2fp8_call_times(device, timed, per_call,
+                             step_calls(trainer, (torch.zeros(128, 3, 32, 32, device=device),)))
+    del trainer
     calls = {"ResNet-18 bf16": model_step_calls(MAIN_ARGV + BF16_ARGV),
              "bert-base codecs bf16": model_step_calls(BERT_ARGV + CODEC_ARGV + BF16_ARGV)}
-    times = bf16_call_times(device, timed, per_call, calls, *bf16_s2fp8_bn_steps())
-    say(json.dumps({"tree": os.path.abspath(root), "card": card_line(), **times}))
+    bf16 = bf16_call_times(device, timed, per_call, calls, *bf16_s2fp8_bn_steps())
+    say(json.dumps({"tree": os.path.abspath(root), "card": card_line(),
+                    "us": {k: round(v * 1e3, 2) for k, v in t.items()}, "s2fp8": s2fp8,
+                    "bf16": bf16}))
     return 0
 
 
@@ -4351,7 +4965,7 @@ def time_s2fp8(device, timed, per_call, calls, card):
         # above SMALL_MAX
         def small(xn=xn, yn=yn, n=n):
             raise_on(lib.s2fp8_quantize(xn.data_ptr(), yn.data_ptr(), n, 0, None,
-                                        tkey.data_ptr(), 0, 1, 1, 1, S.SMALL_THREADS,
+                                        tkey.data_ptr(), 0, 0, 1, 1, 1, S.SMALL_THREADS,
                                         torch.cuda.current_stream(device).cuda_stream),
                      "s2fp8_quantize")
 
@@ -4393,27 +5007,6 @@ def time_s2fp8(device, timed, per_call, calls, card):
     return out
 
 
-def s2fp8_times_of(root: str) -> int:
-    """``--s2fp8_times_of DIR``: build the port in DIR and print its
-    ``s2fp8_call_times`` as one JSON line."""
-    import torch
-
-    sys.path.insert(0, os.path.abspath(root))
-    from smart_quantization_tpu_torch.ops.cuda import build
-    from smart_quantization_tpu_torch.train.__main__ import build_trainer
-    from smart_quantization_tpu_torch.utils.config import parse_args
-
-    build.library()
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    trainer = build_trainer(parse_args(MAIN_ARGV + ["--compress", "s2fp8", "--logdir", ""]))
-    timed, per_call = make_timer(device)
-    calls = step_calls(trainer, (torch.zeros(128, 3, 32, 32, device=device),))
-    times = s2fp8_call_times(device, timed, per_call, calls)
-    say(json.dumps({"tree": os.path.abspath(root), "card": card_line(), **times}))
-    return 0
-
-
 def main() -> int:
     # cuBLAS reads this at its first call: before torch touches the card
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4423,13 +5016,11 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    if len(sys.argv) == 3 and sys.argv[1] == "--s2fp8_times_of":
-        return s2fp8_times_of(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--bf16_times_of":
-        return bf16_times_of(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--times_of":
+        return times_of(sys.argv[2])
     mesh_only = sys.argv[1:] == ["--mesh_only"]
     if len(sys.argv) > 1 and not mesh_only:
-        fail(f"usage: {sys.argv[0]} [--s2fp8_times_of DIR | --bf16_times_of DIR | --mesh_only]")
+        fail(f"usage: {sys.argv[0]} [--times_of DIR | --mesh_only]")
     sys.path.insert(0, ROOT)
     try:
         from smart_quantization_tpu_torch.ops.cuda import build
@@ -4479,6 +5070,9 @@ def main() -> int:
     say("  the whole-batch step's entries: the stats kernels' sums, their folds over ranks, "
         "the quantize kernels on given statistics")
     for k, v in check_whole_tensor_stats(device).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    say("  the element offset of every stochastic kernel (a rank's rows in the whole tensor)")
+    for k, v in check_offsets(device).items():
         errs[k] = max(errs.get(k, 0.0), v)
     say("  the bfloat16 forms (--compute_dtype bfloat16)")
     errs.update(check_bf16_kernels(device))
@@ -4692,6 +5286,7 @@ def main() -> int:
     say(f"  PyTorch moving the same bf16 bytes: xb.sum() {t['torch_sum_bf16'] * 1e3:.1f} us (a "
         f"read), yb.copy_(xb) {t['torch_copy_bf16'] * 1e3:.1f} us (a read and a write)")
     time_bf16_redesign(device, timed, per_call, bf16_calls, card, *bf16_s2fp8_bn_steps())
+    time_offsets(device, timed, card)
     with open(os.path.join(OUT, "bf16_times.json"), "w") as f:
         json.dump({"card": card, "ms": tb, "bound_ms": bound_b}, f, indent=1)
 

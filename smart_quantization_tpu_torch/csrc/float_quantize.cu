@@ -12,8 +12,8 @@
 // over.
 //
 // Random bits: one 32-bit Philox word per element, counted by element index
-// and keyed by the step key in device memory mixed with the call's index
-// (philox.cuh).
+// from the call's element offset and keyed by the step key in device memory
+// mixed with the call's index (philox.cuh: Draws).
 //
 // Element types: float32 or bfloat16 in and out (elem.cuh): a bfloat16 call
 // rounds the widened element as the float32 kernel does and rounds the
@@ -59,14 +59,15 @@ __device__ __forceinline__ float round_one(float v, uint32_t rand, const FloatFm
 // Groups first, first + stride, ... of x, one a thread per step: a float4
 // (or 8 bytes of bf16) where both pointers allow it, else element by
 // element.
-template <typename T>
+template <typename T, bool kOffset>
 __device__ __forceinline__ void round_groups(const T* __restrict__ x, T* __restrict__ y,
                                              int64_t n, int64_t first, int64_t stride,
-                                             const FloatFmt& f, uint2 pkey, bool st, bool ci) {
+                                             const FloatFmt& f, const smaq::Draws& d, bool st,
+                                             bool ci) {
   const bool aligned = group_aligned<T>(x) && group_aligned<T>(y);
   const int64_t groups = (n + 3) >> 2;
   for (int64_t g = first; g < groups; g += stride) {
-    const uint4 r = st ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 r = st ? smaq::group_words<kOffset>(d, g) : make_uint4(0u, 0u, 0u, 0u);
     const int64_t e = g << 2;
     if (aligned && e + 3 < n) {
       const float4 v = smaq::load_group(x, g);
@@ -84,15 +85,17 @@ __device__ __forceinline__ void round_groups(const T* __restrict__ x, T* __restr
   }
 }
 
-template <typename T>
+template <typename T, bool kOffset>
 __global__ void float_quantize_kernel(const T* __restrict__ x, T* __restrict__ y,
                                       int64_t n, FloatFmt f,
                                       const unsigned long long* __restrict__ key,
-                                      uint32_t call, int stochastic, int check_inf) {
+                                      uint32_t call, long long offset, int stochastic,
+                                      int check_inf) {
   const bool st = stochastic != 0, ci = check_inf != 0;
-  const uint2 pkey = st ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
-  round_groups(x, y, n, static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
-               static_cast<int64_t>(gridDim.x) * blockDim.x, f, pkey, st, ci);
+  const smaq::Draws d = st ? smaq::draws(key, call, offset) : smaq::Draws{};
+  round_groups<T, kOffset>(x, y, n,
+                             static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+                             static_cast<int64_t>(gridDim.x) * blockDim.x, f, d, st, ci);
 }
 
 // The bfloat16 loop looks each element's grid_shift up by its exponent
@@ -115,11 +118,13 @@ __device__ __forceinline__ uint32_t round_word(uint32_t w, uint32_t r0, uint32_t
 }
 
 // Chunk c of 8 bf16 (groups 2c and 2c + 1) rounded.
+template <bool kOffset>
 __device__ __forceinline__ uint4 round_chunk(uint4 v, int64_t c, const uint2* shifts,
-                                             const FloatFmt& f, uint2 pkey, bool st, bool ci) {
+                                             const FloatFmt& f, const smaq::Draws& d, bool st,
+                                             bool ci) {
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
-  const uint4 r0 = st ? smaq::philox_group(2 * c, pkey) : none;
-  const uint4 r1 = st ? smaq::philox_group(2 * c + 1, pkey) : none;
+  const uint4 r0 = st ? smaq::group_words<kOffset>(d, 2 * c) : none;
+  const uint4 r1 = st ? smaq::group_words<kOffset>(d, 2 * c + 1) : none;
   return make_uint4(round_word(v.x, r0.x, r0.y, shifts, f, st, ci),
                     round_word(v.y, r0.z, r0.w, shifts, f, st, ci),
                     round_word(v.z, r1.x, r1.y, shifts, f, st, ci),
@@ -128,15 +133,15 @@ __device__ __forceinline__ uint4 round_chunk(uint4 v, int64_t c, const uint2* sh
 
 // The rounding mode and check_inf are template parameters here, so the
 // issue-bound loop carries one rounding path, not both and a select.
-template <bool st, bool ci>
+template <bool st, bool ci, bool kOffset>
 __global__ void __launch_bounds__(256)
 float_quantize_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
                            FloatFmt f, const unsigned long long* __restrict__ key,
-                           uint32_t call) {
+                           uint32_t call, long long offset) {
   __shared__ uint2 shifts[256];
   for (int e = threadIdx.x; e < 256; e += blockDim.x) shifts[e] = smaq::grid_shift(e, f);
   __syncthreads();
-  const uint2 pkey = st ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = st ? smaq::draws(key, call, offset) : smaq::Draws{};
   const bool wide = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int64_t pairs = wide ? n >> 3 : 0;  // 16-byte chunks: groups 2c and 2c + 1
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -148,32 +153,41 @@ float_quantize_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int
   if (first < pairs) v = xv[first];
   for (int64_t c = first; c < pairs; c += stride) {
     if (c + stride < pairs) next = xv[c + stride];
-    yv[c] = round_chunk(v, c, shifts, f, pkey, st, ci);
+    yv[c] = round_chunk<kOffset>(v, c, shifts, f, d, st, ci);
     v = next;
   }
   // the groups past the last whole chunk (all of them when not 16-byte aligned)
-  round_groups(x, y, n, 2 * pairs + first, stride, f, pkey, st, ci);
+  round_groups<bf16, kOffset>(x, y, n, 2 * pairs + first, stride, f, d, st, ci);
 }
+
+// The bfloat16 loop's instances: [4 * has_offset + 2 * stochastic + check_inf].
+using Bf16Kernel = decltype(&float_quantize_bf16_kernel<true, true, false>);
+const Bf16Kernel kBf16Kernels[] = {
+    float_quantize_bf16_kernel<false, false, false>, float_quantize_bf16_kernel<false, true, false>,
+    float_quantize_bf16_kernel<true, false, false>,  float_quantize_bf16_kernel<true, true, false>,
+    float_quantize_bf16_kernel<false, false, true>,  float_quantize_bf16_kernel<false, true, true>,
+    float_quantize_bf16_kernel<true, false, true>,   float_quantize_bf16_kernel<true, true, true>};
 
 template <typename T>
 void launch(const void* x, void* y, long long n, const FloatFmt& f,
-            const unsigned long long* key, unsigned int call, int stochastic, int check_inf,
-            int num_blocks, int threads, cudaStream_t stream) {
-  float_quantize_kernel<T><<<num_blocks, threads, 0, stream>>>(
+            const unsigned long long* key, unsigned int call, long long offset, int stochastic,
+            int check_inf, int num_blocks, int threads, cudaStream_t stream) {
+  const auto kernel = smaq::has_offset(offset) ? float_quantize_kernel<T, true>
+                                               : float_quantize_kernel<T, false>;
+  kernel<<<num_blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n), f, key, call,
-      stochastic, check_inf);
+      offset, stochastic, check_inf);
 }
 
 template <>
 void launch<bf16>(const void* x, void* y, long long n, const FloatFmt& f,
-                  const unsigned long long* key, unsigned int call, int stochastic,
-                  int check_inf, int num_blocks, int threads, cudaStream_t stream) {
-  const auto kernel = stochastic ? (check_inf ? float_quantize_bf16_kernel<true, true>
-                                              : float_quantize_bf16_kernel<true, false>)
-                                 : (check_inf ? float_quantize_bf16_kernel<false, true>
-                                              : float_quantize_bf16_kernel<false, false>);
+                  const unsigned long long* key, unsigned int call, long long offset,
+                  int stochastic, int check_inf, int num_blocks, int threads,
+                  cudaStream_t stream) {
+  const Bf16Kernel kernel =
+      kBf16Kernels[4 * smaq::has_offset(offset) + 2 * (stochastic != 0) + (check_inf != 0)];
   kernel<<<num_blocks, threads, 0, stream>>>(static_cast<const bf16*>(x), static_cast<bf16*>(y),
-                                             static_cast<int64_t>(n), f, key, call);
+                                             static_cast<int64_t>(n), f, key, call, offset);
 }
 
 }  // namespace
@@ -183,36 +197,35 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue
 // for a `dtype` it does not take).  `x` and `y` hold float32 (dtype 0) or
 // bfloat16 (dtype 1) elements: a bfloat16 result is the float32 one rounded
-// to nearest-even (elem.cuh).
+// to nearest-even (elem.cuh).  Stochastic rounding gives element e the word
+// of element offset + e (philox.cuh: Draws).
 int float_quantize(const void* x, void* y, long long n, int dtype, int man, int emin,
                    unsigned int maxv_bits, unsigned int quantum_bits, float c1,
                    float c2, const unsigned long long* key, unsigned int call,
-                   int stochastic, int check_inf,
+                   long long offset, int stochastic, int check_inf,
                    int num_blocks, int threads, void* stream) {
   const FloatFmt f{man, emin, maxv_bits, quantum_bits, c1, c2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float>(x, y, n, f, key, call, stochastic, check_inf, num_blocks, threads, s);
+    launch<float>(x, y, n, f, key, call, offset, stochastic, check_inf, num_blocks, threads, s);
   else if (dtype == 1)
-    launch<bf16>(x, y, n, f, key, call, stochastic, check_inf, num_blocks, threads, s);
+    launch<bf16>(x, y, n, f, key, call, offset, stochastic, check_inf, num_blocks, threads, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of `threads` threads resident on one SM for the form of `dtype`
-// (for bfloat16, the fewest of its four instances).
+// (for bfloat16, the fewest of its four instances at offset 0).
 int float_occupancy(int dtype, int threads, int* blocks_per_sm) {
   if (dtype == 0)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, float_quantize_kernel<float>, threads, 0));
+        blocks_per_sm, float_quantize_kernel<float, false>, threads, 0));
   int fewest = 1 << 30;
-  using Kernel = decltype(&float_quantize_bf16_kernel<true, true>);
-  const Kernel kernels[] = {float_quantize_bf16_kernel<true, true>,
-                            float_quantize_bf16_kernel<true, false>,
-                            float_quantize_bf16_kernel<false, true>,
-                            float_quantize_bf16_kernel<false, false>};
-  for (const Kernel kernel : kernels) {
+  // the grid is sized for offset 0 (the first four instances); a launch at
+  // another offset runs on the same grid
+  for (int i = 0; i < 4; ++i) {
+    const Bf16Kernel kernel = kBf16Kernels[i];
     int b = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, threads, 0);
     if (e != cudaSuccess) return static_cast<int>(e);

@@ -64,4 +64,52 @@ __device__ __forceinline__ uint32_t philox_word(uint4 r, int64_t e) {
   return j == 0 ? r.x : (j == 1 ? r.y : (j == 2 ? r.z : r.w));
 }
 
+// The draws of one call on a part of a larger tensor that starts at
+// element `offset` of it: element e of the call takes the word that
+// element offset + e of the whole takes, so that parts quantized each at
+// its offset draw what one call on the whole draws (a rank's rows of a
+// global batch).  Offset 0 is the call's own counting.  An offset that is
+// not a multiple of 4 puts the call's group g across two of the whole's
+// (lanes s.. of one, then ..s-1 of the next): a second Philox call for
+// each group, on a branch uniform over the launch.  The kernels' hot loops
+// are instantiated with and without an offset (kOffset), and the launch
+// picks one, so that offset 0 runs the loop it always ran, in as many
+// registers.
+struct Draws {
+  uint2 key;
+  int64_t group;  // offset >> 2
+  int shift;      // offset & 3
+};
+
+__device__ __forceinline__ Draws draws(const unsigned long long* key, uint32_t call,
+                                       long long offset) {
+  return Draws{philox_key(key, call), static_cast<int64_t>(offset >> 2),
+               static_cast<int>(offset & 3)};
+}
+
+// The words of the call's elements 4g .. 4g+3, in a loop instantiated for
+// offset 0 (kOffset false) or any other.
+template <bool kOffset>
+__device__ __forceinline__ uint4 group_words(const Draws& d, int64_t g) {
+  if constexpr (!kOffset) {
+    return philox_group(g, d.key);
+  } else {
+    const uint4 a = philox_group(g + d.group, d.key);
+    if (d.shift == 0) return a;
+    const uint4 b = philox_group(g + d.group + 1, d.key);
+    return d.shift == 1 ? make_uint4(a.y, a.z, a.w, b.x)
+                        : (d.shift == 2 ? make_uint4(a.z, a.w, b.x, b.y)
+                                        : make_uint4(a.w, b.x, b.y, b.z));
+  }
+}
+
+// Whether a launch at `offset` takes the kOffset instances.
+__host__ __device__ __forceinline__ bool has_offset(long long offset) { return offset != 0; }
+
+// The word of the call's element e.
+__device__ __forceinline__ uint32_t element_word(const Draws& d, int64_t e) {
+  const int64_t f = e + (d.group << 2) + d.shift;
+  return philox_word(philox_group(f >> 2, d.key), f);
+}
+
 }  // namespace smaq

@@ -461,11 +461,12 @@ struct Squeeze {
 // kTableBase) mod kTableSize, so that the e5m2 value with bits b reads
 // (b >> 21) mod kTableSize (kTableBase .. kTableBase + 127 are 128
 // consecutive integers, so their low 7 bits tell them apart).
-template <typename T, bool kStochastic, bool kCheckInf>
+template <typename T, bool kStochastic, bool kCheckInf, bool kOffset = false>
 __global__ void __launch_bounds__(kSmallThreads)
 s2fp8_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
                       const Consts* __restrict__ consts,
-                      const unsigned long long* __restrict__ key, uint32_t call) {
+                      const unsigned long long* __restrict__ key, uint32_t call,
+                      long long offset) {
   __shared__ float table[kTableSize];
   __shared__ LogStats sm[32];
 
@@ -484,7 +485,7 @@ s2fp8_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
   }
   __syncthreads();
 
-  const uint2 pkey = kStochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = kStochastic ? smaq::draws(key, call, offset) : smaq::Draws{};
   const int64_t n4 = group_aligned<T>(x) && group_aligned<T>(y) ? n >> 2 : 0;
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -502,7 +503,8 @@ s2fp8_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
       const int64_t i = g0 + u * span;
       if (i < n4) {
         const int64_t g = n4 - 1 - i;
-        const uint4 r = kStochastic ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 r =
+            kStochastic ? smaq::group_words<kOffset>(d, g) : make_uint4(0u, 0u, 0u, 0u);
         float4 o;
         o.x = sq(v[u].x, r.x, table);
         o.y = sq(v[u].y, r.y, table);
@@ -514,8 +516,8 @@ s2fp8_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
   }
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + tid; e < n; e += span) {
-    const uint4 r = kStochastic ? smaq::philox_group(e >> 2, pkey) : make_uint4(0u, 0u, 0u, 0u);
-    y[e] = smaq::from_float<T>(sq(to_float(x[e]), smaq::philox_word(r, e), table));
+    y[e] = smaq::from_float<T>(sq(to_float(x[e]), kStochastic ? smaq::element_word(d, e) : 0u,
+                                  table));
   }
 }
 
@@ -603,11 +605,12 @@ __device__ __forceinline__ uint32_t from_window(
 // Launched on one block of kBf16Threads a SM (at most), against the
 // constants s2fp8_stats wrote.  The first chunk's load is issued before the
 // block builds its tables.
-template <bool kStochastic, bool kCheckInf>
+template <bool kStochastic, bool kCheckInf, bool kOffset = false>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 s2fp8_quantize_window_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
                            const Consts* __restrict__ consts,
-                           const unsigned long long* __restrict__ key, uint32_t call) {
+                           const unsigned long long* __restrict__ key, uint32_t call,
+                           long long offset) {
   __shared__ float table[kTableSize];
   __shared__ WindowEntry<kStochastic> win[kWindow];
   __shared__ uint3 sample[kBf16Threads / 32];  // each warp's: max, sum, count
@@ -678,12 +681,12 @@ s2fp8_quantize_window_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, i
   }
   __syncthreads();
 
-  const uint2 pkey = kStochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = kStochastic ? smaq::draws(key, call, offset) : smaq::Draws{};
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
   for (int64_t c = first; c < chunks; c += stride) {
     if (c + stride < chunks) next = xv[c + stride];
-    const uint4 r0 = kStochastic ? smaq::philox_group(2 * c, pkey) : none;
-    const uint4 r1 = kStochastic ? smaq::philox_group(2 * c + 1, pkey) : none;
+    const uint4 r0 = kStochastic ? smaq::group_words<kOffset>(d, 2 * c) : none;
+    const uint4 r1 = kStochastic ? smaq::group_words<kOffset>(d, 2 * c + 1) : none;
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
     const uint32_t rw[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
     uint32_t o[4];
@@ -720,18 +723,22 @@ s2fp8_quantize_window_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, i
   // the elements past the last whole chunk (all of them when x or y is not
   // 16-byte aligned), by the full expression
   for (int64_t e = (chunks << 3) + first; e < n; e += stride) {
-    const uint32_t rand =
-        kStochastic ? smaq::philox_word(smaq::philox_group(e >> 2, pkey), e) : 0u;
+    const uint32_t rand = kStochastic ? smaq::element_word(d, e) : 0u;
     y[e] = smaq::from_float<bf16>(sq(to_float(x[e]), rand, table));
   }
 }
 
 template <typename T>
 using QuantizeKernel = void (*)(const T*, T*, int64_t, const Consts*,
-                                const unsigned long long*, uint32_t);
+                                const unsigned long long*, uint32_t, long long);
 
+// The instance of a mode; a stochastic launch at an element offset other
+// than 0 takes the offset's (philox.cuh: Draws).
 template <typename T>
-QuantizeKernel<T> quantize_kernel(int stochastic, int check_inf) {
+QuantizeKernel<T> quantize_kernel(int stochastic, int check_inf, long long offset = 0) {
+  if (stochastic && smaq::has_offset(offset))
+    return check_inf ? s2fp8_quantize_kernel<T, true, true, true>
+                     : s2fp8_quantize_kernel<T, true, false, true>;
   if (stochastic)
     return check_inf ? s2fp8_quantize_kernel<T, true, true>
                      : s2fp8_quantize_kernel<T, true, false>;
@@ -741,16 +748,21 @@ QuantizeKernel<T> quantize_kernel(int stochastic, int check_inf) {
 
 template <typename T>
 void launch_quantize(const void* x, void* y, long long n, const float* consts,
-                     const unsigned long long* key, unsigned int call, int stochastic,
-                     int check_inf, int num_blocks, int threads, cudaStream_t stream) {
-  quantize_kernel<T>(stochastic, check_inf)<<<num_blocks, threads, 0, stream>>>(
+                     const unsigned long long* key, unsigned int call, long long offset,
+                     int stochastic, int check_inf, int num_blocks, int threads,
+                     cudaStream_t stream) {
+  quantize_kernel<T>(stochastic, check_inf, offset)<<<num_blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n),
-      reinterpret_cast<const Consts*>(consts), key, call);
+      reinterpret_cast<const Consts*>(consts), key, call, offset);
 }
 
 using QuantizeWindowKernel = decltype(&s2fp8_quantize_window_kernel<true, true>);
 
-QuantizeWindowKernel quantize_window_kernel(int stochastic, int check_inf) {
+QuantizeWindowKernel quantize_window_kernel(int stochastic, int check_inf,
+                                            long long offset = 0) {
+  if (stochastic && smaq::has_offset(offset))
+    return check_inf ? s2fp8_quantize_window_kernel<true, true, true>
+                     : s2fp8_quantize_window_kernel<true, false, true>;
   if (stochastic)
     return check_inf ? s2fp8_quantize_window_kernel<true, true>
                      : s2fp8_quantize_window_kernel<true, false>;
@@ -773,7 +785,8 @@ extern "C" {
 // most kBf16Threads for the second); the wrapper picks them
 // (s2fp8_kernel.py: split_forms).  The stats kernels' `sums`, unless NULL,
 // gets the folded sum and max of log2|x| (2 doubles) the constants come
-// from, for a reduction over ranks.
+// from, for a reduction over ranks.  The quantize kernels give element e
+// the random word of element offset + e (philox.cuh: Draws).
 
 int s2fp8_stats(const void* x, long long n, int dtype, unsigned long long* ws, double* sums,
                 int num_blocks, int threads, void* stream) {
@@ -790,15 +803,15 @@ int s2fp8_stats(const void* x, long long n, int dtype, unsigned long long* ws, d
 }
 
 int s2fp8_quantize(const void* x, void* y, long long n, int dtype, const float* consts,
-                   const unsigned long long* key, unsigned int call, int stochastic,
-                   int check_inf, int num_blocks, int threads, void* stream) {
+                   const unsigned long long* key, unsigned int call, long long offset,
+                   int stochastic, int check_inf, int num_blocks, int threads, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_quantize<float>(x, y, n, consts, key, call, stochastic, check_inf, num_blocks,
-                           threads, s);
+    launch_quantize<float>(x, y, n, consts, key, call, offset, stochastic, check_inf,
+                           num_blocks, threads, s);
   else if (dtype == 1)
-    launch_quantize<bf16>(x, y, n, consts, key, call, stochastic, check_inf, num_blocks,
-                          threads, s);
+    launch_quantize<bf16>(x, y, n, consts, key, call, offset, stochastic, check_inf,
+                          num_blocks, threads, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -812,13 +825,14 @@ int s2fp8_stats_table(const void* x, long long n, unsigned long long* ws, double
 }
 
 int s2fp8_quantize_window(const void* x, void* y, long long n, const float* consts,
-                          const unsigned long long* key, unsigned int call, int stochastic,
-                          int check_inf, int num_blocks, int threads, void* stream) {
+                          const unsigned long long* key, unsigned int call, long long offset,
+                          int stochastic, int check_inf, int num_blocks, int threads,
+                          void* stream) {
   if (consts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  quantize_window_kernel(stochastic, check_inf)<<<num_blocks, threads, 0,
-                                                static_cast<cudaStream_t>(stream)>>>(
+  quantize_window_kernel(stochastic, check_inf, offset)<<<num_blocks, threads, 0,
+                                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y), static_cast<int64_t>(n),
-      reinterpret_cast<const Consts*>(consts), key, call);
+      reinterpret_cast<const Consts*>(consts), key, call, offset);
   return static_cast<int>(cudaGetLastError());
 }
 

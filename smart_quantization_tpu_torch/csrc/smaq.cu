@@ -31,9 +31,11 @@
 //                  element.  Rounding is trunc or floor(q + u), u the top 24
 //                  bits of a counter-based Philox4x32-10 (philox.cuh) keyed
 //                  by the step key in device memory and the call's index,
-//                  and counted by element index
-//                  (the output does not depend on the launch shape or walk
-//                  order).  The outlier count goes through a block reduction
+//                  and counted by element index from the call's element
+//                  offset in a larger tensor (philox.cuh: Draws; 0 for a
+//                  tensor of its own), so the output does not depend on
+//                  the launch shape or walk order, nor on how a tensor is
+//                  cut into parts.  The outlier count goes through a block reduction
 //                  and one 64-bit integer atomicAdd per block that also
 //                  draws the block's ticket; the block with the last ticket
 //                  turns the count into the size in bits, on the device.
@@ -473,13 +475,14 @@ __device__ void write_size(int cnt, int64_t n, int compute_size, const QParams& 
 }
 
 // Launched with kThreads-thread blocks, or as one block of kSmallThreads in
-// the small form.
-template <typename T>
+// the small form.  kOffset: an element offset other than 0 (philox.cuh:
+// Draws).
+template <typename T, bool kOffset = false>
 __global__ void __launch_bounds__(kSmallThreads)
 smaq_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
                      const float* __restrict__ stats, const Consts* __restrict__ consts,
                      int stats_mode, int range_std, const unsigned long long* __restrict__ key,
-                     unsigned int call, int stochastic,
+                     unsigned int call, long long offset, int stochastic,
                      int all_positive, int compute_size, QParams p,
                      unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
   __shared__ Sums sm[32];
@@ -497,7 +500,7 @@ smaq_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
   }
   const auto qz = make_quant(c, p, stochastic, all_positive);
 
-  const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = qz.stochastic ? smaq::draws(key, call, offset) : smaq::Draws{};
   const int64_t n4 = group_aligned<T>(x) && group_aligned<T>(y) ? n >> 2 : 0;
   const int64_t span = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
@@ -518,15 +521,16 @@ smaq_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
       const int64_t i = g0 + u * span;
       if (i < n4) {
         const int64_t g = n4 - 1 - i;
-        const uint4 r = qz.stochastic ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 r =
+            qz.stochastic ? smaq::group_words<kOffset>(d, g) : make_uint4(0u, 0u, 0u, 0u);
         store_group(y, g, quantize4(qz, widen(v[u]), r, cnt));
       }
     }
   }
   // the elements past the last whole group (all of them when unaligned)
   for (int64_t e = (n4 << 2) + blockIdx.x * blockDim.x + threadIdx.x; e < n; e += span) {
-    const uint4 r = qz.stochastic ? smaq::philox_group(e >> 2, pkey) : make_uint4(0u, 0u, 0u, 0u);
-    y[e] = smaq::from_float<T>(qz(to_float(x[e]), smaq::philox_word(r, e), cnt));
+    y[e] = smaq::from_float<T>(
+        qz(to_float(x[e]), qz.stochastic ? smaq::element_word(d, e) : 0u, cnt));
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su);
 }
@@ -605,11 +609,11 @@ __device__ __forceinline__ Consts load_consts_l2(const Consts* c) {
   return Consts{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
-template <bool kSto, bool kPos>
+template <bool kSto, bool kPos, bool kOffset = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 smaq_onepass_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n, int range_std,
                     const unsigned long long* __restrict__ key, unsigned int call,
-                    int compute_size, QParams p,
+                    long long offset, int compute_size, QParams p,
                     unsigned long long* __restrict__ ws, Consts* __restrict__ consts,
                     float* __restrict__ size_out) {
   __shared__ Sums sm[32];
@@ -641,7 +645,7 @@ smaq_onepass_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
   const float tail = has_tail ? to_float(x[e_tail]) : 0.f;
   const float pivot = warp_pivot(x, n);
   constexpr bool st = kSto;
-  const uint2 pkey = st ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = st ? smaq::draws(key, call, offset) : smaq::Draws{};
   cp_async_wait_all();
   PHASE(1)
 
@@ -679,7 +683,8 @@ smaq_onepass_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
     PHASE(3)
   } else {
     pre = vec && st ? min(m, spare / 2) : 0;
-    for (int k = 0; k < pre; ++k) words[k * nt + t] = smaq::philox_group(g0 + k * span, pkey);
+    for (int k = 0; k < pre; ++k)
+      words[k * nt + t] = smaq::group_words<kOffset>(d, g0 + k * span);
     if (t == 0) {
       while (load_acquire(&ws[kArrive]) <= blocks) {
       }
@@ -713,17 +718,14 @@ smaq_onepass_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
     for (int k = 0; k < pre; ++k) quantize_group(k, words[k * nt + t]);
 #pragma unroll 4
     for (int k = pre; k < m; ++k)
-      quantize_group(k, st ? smaq::philox_group(g0 + k * span, pkey) : none);
-    if (has_tail) {
-      const uint4 r = st ? smaq::philox_group(e_tail >> 2, pkey) : none;
-      y[e_tail] = smaq::from_float<bf16>(qz(tail, smaq::philox_word(r, e_tail), cnt));
-    }
+      quantize_group(k, st ? smaq::group_words<kOffset>(d, g0 + k * span) : none);
+    if (has_tail)
+      y[e_tail] = smaq::from_float<bf16>(qz(tail, st ? smaq::element_word(d, e_tail) : 0u, cnt));
   } else {
     for (int k = 0; k < m; ++k) {
       const int64_t e = g0 + k * span;
-      const uint4 r = st ? smaq::philox_group(e >> 2, pkey) : none;
       y[e] = smaq::from_float<bf16>(
-          qz(widen_bf16(held1[k * nt + t]), smaq::philox_word(r, e), cnt));
+          qz(widen_bf16(held1[k * nt + t]), st ? smaq::element_word(d, e) : 0u, cnt));
     }
   }
   write_size(cnt, n, compute_size, p, ws, size_out, su, true);
@@ -794,13 +796,13 @@ struct ChannelOf {
 // x is (outer, channels, inner) in memory (NCHW: inner = H * W); element e
 // is in channel (e / inner) % channels.  The per-channel constants live in
 // dynamic shared memory, one float4 per channel.
-template <typename T>
+template <typename T, bool kOffset = false>
 __global__ void smaq_quantize_bn_kernel(
     const T* __restrict__ x, T* __restrict__ y, int64_t n,
     const float* __restrict__ stats, const Consts* __restrict__ consts, int stats_mode,
     const float* __restrict__ gamma, const float* __restrict__ beta, int channels,
     int64_t inner, const unsigned long long* __restrict__ key, unsigned int call,
-    int stochastic, int all_positive, int compute_size,
+    long long offset, int stochastic, int all_positive, int compute_size,
     QParams p, unsigned long long* __restrict__ ws, float* __restrict__ size_out) {
   __shared__ unsigned long long su[32];
   extern __shared__ float4 chan[];
@@ -815,13 +817,14 @@ __global__ void smaq_quantize_bn_kernel(
   // a float4 group lies in one channel when inner % 4 == 0
   const ChannelOf chan_of{inner, channels, n <= 0xFFFFFFFFll};
   const bool group_in_one = (inner & 3) == 0;
-  const uint2 pkey = qz.stochastic ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = qz.stochastic ? smaq::draws(key, call, offset) : smaq::Draws{};
   const bool aligned = group_aligned<T>(x) && group_aligned<T>(y);
   const int64_t groups = (n + 3) >> 2;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int cnt = 0;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    const uint4 r = qz.stochastic ? smaq::philox_group(g, pkey) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 r =
+        qz.stochastic ? smaq::group_words<kOffset>(d, g) : make_uint4(0u, 0u, 0u, 0u);
     const int64_t e = g << 2;
     if (aligned && group_in_one && e + 3 < n) {
       const float4 k = chan[chan_of(e)];
@@ -863,14 +866,14 @@ __device__ __forceinline__ uint32_t bn_word(const QuantBN<kRound>& qz, uint32_t 
   return smaq::pack_bf16x2(qz(smaq::widen_lo(w), k, r0, cnt), qz(smaq::widen_hi(w), k, r1, cnt));
 }
 
-template <bool kSto, bool kPos>
+template <bool kSto, bool kPos, bool kOffset = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 smaq_quantize_bn_bf16_kernel(
     const bf16* __restrict__ x, bf16* __restrict__ y, int64_t n,
     const float* __restrict__ stats, const Consts* __restrict__ consts, int stats_mode,
     const float* __restrict__ gamma, const float* __restrict__ beta, int channels,
     int64_t inner, const unsigned long long* __restrict__ key, unsigned int call,
-    int compute_size, QParams p, unsigned long long* __restrict__ ws,
+    long long offset, int compute_size, QParams p, unsigned long long* __restrict__ ws,
     float* __restrict__ size_out) {
   __shared__ unsigned long long su[32];
   extern __shared__ float4 chan[];
@@ -893,7 +896,7 @@ smaq_quantize_bn_bf16_kernel(
 
   const QuantBN<(kSto ? kStochastic : kTrunc) | (kPos ? kPositive : 0)> qz{
       p.t, p.range_main, p.range_outlier, p.inv_range_main, p.inv_range_outlier, kSto, kPos};
-  const uint2 pkey = kSto ? smaq::philox_key(key, call) : make_uint2(0u, 0u);
+  const smaq::Draws d = kSto ? smaq::draws(key, call, offset) : smaq::Draws{};
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
   int cnt = 0;
   // chunk c starts at element 8c, offset r in its plane, plane q of channel
@@ -909,8 +912,8 @@ smaq_quantize_bn_bf16_kernel(
     // the first ends one
     const int ch2 = r + 4 < inner ? ch : (ch + 1 == channels ? 0 : ch + 1);
     const float4 ka = chan[ch], kb = chan[ch2];
-    const uint4 r0 = kSto ? smaq::philox_group(2 * c, pkey) : none;
-    const uint4 r1 = kSto ? smaq::philox_group(2 * c + 1, pkey) : none;
+    const uint4 r0 = kSto ? smaq::group_words<kOffset>(d, 2 * c) : none;
+    const uint4 r1 = kSto ? smaq::group_words<kOffset>(d, 2 * c + 1) : none;
     yv[c] = make_uint4(bn_word(qz, v.x, ka, r0.x, r0.y, cnt), bn_word(qz, v.y, ka, r0.z, r0.w, cnt),
                        bn_word(qz, v.z, kb, r1.x, r1.y, cnt), bn_word(qz, v.w, kb, r1.z, r1.w, cnt));
     v = next;
@@ -925,7 +928,7 @@ smaq_quantize_bn_bf16_kernel(
   const ChannelOf chan_of{inner, channels, n <= 0xFFFFFFFFll};
   const int64_t groups = (n + 3) >> 2;
   for (int64_t g = 2 * chunks + first; g < groups; g += stride) {
-    const uint4 rg = kSto ? smaq::philox_group(g, pkey) : none;
+    const uint4 rg = kSto ? smaq::group_words<kOffset>(d, g) : none;
     const uint32_t rw[4] = {rg.x, rg.y, rg.z, rg.w};
     for (int j = 0; j < 4 && 4 * g + j < n; ++j) {
       const int64_t e = 4 * g + j;
@@ -935,11 +938,15 @@ smaq_quantize_bn_bf16_kernel(
   write_size(cnt, n, compute_size, p, ws, size_out, su);
 }
 
-// The instances: [2 * stochastic + all_positive].
+// The instances: [4 * has_offset + 2 * stochastic + all_positive].
 using BnBf16Kernel = decltype(&smaq_quantize_bn_bf16_kernel<false, false>);
 const BnBf16Kernel kBnBf16Kernels[] = {
     smaq_quantize_bn_bf16_kernel<false, false>, smaq_quantize_bn_bf16_kernel<false, true>,
-    smaq_quantize_bn_bf16_kernel<true, false>, smaq_quantize_bn_bf16_kernel<true, true>};
+    smaq_quantize_bn_bf16_kernel<true, false>, smaq_quantize_bn_bf16_kernel<true, true>,
+    smaq_quantize_bn_bf16_kernel<false, false, true>,
+    smaq_quantize_bn_bf16_kernel<false, true, true>,
+    smaq_quantize_bn_bf16_kernel<true, false, true>,
+    smaq_quantize_bn_bf16_kernel<true, true, true>};
 
 QParams qparams(float t, float range_main, float range_outlier, float inv_range_main,
                 float inv_range_outlier, float std_lo, float std_hi, int bits_main,
@@ -963,21 +970,25 @@ void launch_stats(const void* x, long long n, int range_std, const QParams& p,
 template <typename T>
 void launch_quantize(const void* x, void* y, long long n, const float* stats,
                      const float* consts, int stats_mode, int range_std,
-                     const unsigned long long* key, unsigned int call, int stochastic,
-                     int all_positive, int compute_size, const QParams& p,
+                     const unsigned long long* key, unsigned int call, long long offset,
+                     int stochastic, int all_positive, int compute_size, const QParams& p,
                      unsigned long long* ws, float* size_out, int num_blocks, int threads,
                      cudaStream_t stream) {
-  smaq_quantize_kernel<T><<<num_blocks, threads, 0, stream>>>(
+  const auto kernel = smaq::has_offset(offset) ? smaq_quantize_kernel<T, true>
+                                               : smaq_quantize_kernel<T, false>;
+  kernel<<<num_blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n), stats,
-      reinterpret_cast<const Consts*>(consts), stats_mode, range_std, key, call, stochastic,
-      all_positive, compute_size, p, ws, size_out);
+      reinterpret_cast<const Consts*>(consts), stats_mode, range_std, key, call, offset,
+      stochastic, all_positive, compute_size, p, ws, size_out);
 }
 
-// The kernel's instances: [2 * stochastic + all_positive].
+// The kernel's instances: [4 * has_offset + 2 * stochastic + all_positive].
 using OnepassKernel = decltype(&smaq_onepass_kernel<false, false>);
 const OnepassKernel kOnepassKernels[] = {
-    smaq_onepass_kernel<false, false>, smaq_onepass_kernel<false, true>,
-    smaq_onepass_kernel<true, false>, smaq_onepass_kernel<true, true>};
+    smaq_onepass_kernel<false, false>,       smaq_onepass_kernel<false, true>,
+    smaq_onepass_kernel<true, false>,        smaq_onepass_kernel<true, true>,
+    smaq_onepass_kernel<false, false, true>, smaq_onepass_kernel<false, true, true>,
+    smaq_onepass_kernel<true, false, true>,  smaq_onepass_kernel<true, true, true>};
 
 // The dynamic shared memory a block of smaq_onepass may take with `blocks`
 // blocks of `threads` resident on each SM of the current card: the SM's
@@ -1036,8 +1047,8 @@ cudaError_t onepass_setup(long long* bytes) {
 }
 
 cudaError_t launch_onepass(const void* x, void* y, long long n, int range_std,
-                           const unsigned long long* key, unsigned int call, int stochastic,
-                           int all_positive, int compute_size, const QParams& p,
+                           const unsigned long long* key, unsigned int call, long long offset,
+                           int stochastic, int all_positive, int compute_size, const QParams& p,
                            unsigned long long* ws, float* consts, float* size_out,
                            int num_blocks, int threads, cudaStream_t stream) {
   long long bytes = 0;
@@ -1055,34 +1066,38 @@ cudaError_t launch_onepass(const void* x, void* y, long long n, int range_std,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kOnepassKernels[2 * (stochastic != 0) + (all_positive != 0)],
+  return cudaLaunchKernelEx(&cfg,
+                            kOnepassKernels[4 * smaq::has_offset(offset) +
+                                            2 * (stochastic != 0) + (all_positive != 0)],
                             static_cast<const bf16*>(x), static_cast<bf16*>(y),
-                            static_cast<int64_t>(n), range_std, key, call, compute_size, p, ws,
-                            reinterpret_cast<Consts*>(consts), size_out);
+                            static_cast<int64_t>(n), range_std, key, call, offset, compute_size,
+                            p, ws, reinterpret_cast<Consts*>(consts), size_out);
 }
 
 template <typename T>
 void launch_quantize_bn(const void* x, void* y, long long n, const float* stats,
                         const float* consts, int stats_mode, const float* gamma,
                         const float* beta, int channels, long long inner,
-                        const unsigned long long* key, unsigned int call, int stochastic,
-                        int all_positive, int compute_size, const QParams& p,
+                        const unsigned long long* key, unsigned int call, long long offset,
+                        int stochastic, int all_positive, int compute_size, const QParams& p,
                         unsigned long long* ws, float* size_out, int num_blocks, int threads,
                         cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(channels) * sizeof(float4);
   if constexpr (std::is_same<T, bf16>::value) {
-    kBnBf16Kernels[2 * (stochastic != 0) + (all_positive != 0)]
+    kBnBf16Kernels[4 * smaq::has_offset(offset) + 2 * (stochastic != 0) + (all_positive != 0)]
         <<<num_blocks, threads, smem, stream>>>(
             static_cast<const bf16*>(x), static_cast<bf16*>(y), static_cast<int64_t>(n), stats,
             reinterpret_cast<const Consts*>(consts), stats_mode, gamma, beta, channels,
-            static_cast<int64_t>(inner), key, call, compute_size, p, ws, size_out);
+            static_cast<int64_t>(inner), key, call, offset, compute_size, p, ws, size_out);
     return;
   }
-  smaq_quantize_bn_kernel<T><<<num_blocks, threads, smem, stream>>>(
+  const auto kernel = smaq::has_offset(offset) ? smaq_quantize_bn_kernel<T, true>
+                                               : smaq_quantize_bn_kernel<T, false>;
+  kernel<<<num_blocks, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<int64_t>(n), stats,
       reinterpret_cast<const Consts*>(consts), stats_mode, gamma, beta, channels,
-      static_cast<int64_t>(inner), key, call, stochastic, all_positive, compute_size, p, ws,
-      size_out);
+      static_cast<int64_t>(inner), key, call, offset, stochastic, all_positive, compute_size, p,
+      ws, size_out);
 }
 
 }  // namespace
@@ -1096,7 +1111,9 @@ extern "C" {
 // between calls, then 4 doubles per stats block.  `consts` holds 8 floats,
 // 16-byte aligned.  smaq_stats' `sums`, unless NULL, gets the folded sums
 // the constants come from, 5 doubles: sum(d), sum(d * d), min, max (of x)
-// and the pivot (d = x - pivot), for a reduction over ranks.
+// and the pivot (d = x - pivot), for a reduction over ranks.  The quantize
+// entry points give element e the random word of element offset + e
+// (philox.cuh: Draws).
 
 int smaq_stats(const void* x, long long n, int dtype, int range_std, float t,
                float range_main, float range_outlier, float inv_range_main,
@@ -1117,8 +1134,8 @@ int smaq_stats(const void* x, long long n, int dtype, int range_std, float t,
 
 int smaq_quantize(const void* x, void* y, long long n, int dtype, const float* stats,
                   const float* consts, int stats_mode, int range_std,
-                  const unsigned long long* key, unsigned int call, int stochastic,
-                  int all_positive,
+                  const unsigned long long* key, unsigned int call, long long offset,
+                  int stochastic, int all_positive,
                   int compute_size, float t, float range_main, float range_outlier,
                   float inv_range_main, float inv_range_outlier, float std_lo,
                   float std_hi, int bits_main, int bits_outlier, unsigned long long* ws,
@@ -1127,11 +1144,13 @@ int smaq_quantize(const void* x, void* y, long long n, int dtype, const float* s
                             std_lo, std_hi, bits_main, bits_outlier);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    launch_quantize<float>(x, y, n, stats, consts, stats_mode, range_std, key, call, stochastic,
-                           all_positive, compute_size, p, ws, size_out, num_blocks, threads, s);
+    launch_quantize<float>(x, y, n, stats, consts, stats_mode, range_std, key, call, offset,
+                           stochastic, all_positive, compute_size, p, ws, size_out, num_blocks,
+                           threads, s);
   else if (dtype == kBFloat16)
-    launch_quantize<bf16>(x, y, n, stats, consts, stats_mode, range_std, key, call, stochastic,
-                          all_positive, compute_size, p, ws, size_out, num_blocks, threads, s);
+    launch_quantize<bf16>(x, y, n, stats, consts, stats_mode, range_std, key, call, offset,
+                          stochastic, all_positive, compute_size, p, ws, size_out, num_blocks,
+                          threads, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -1140,8 +1159,8 @@ int smaq_quantize(const void* x, void* y, long long n, int dtype, const float* s
 int smaq_quantize_bn(const void* x, void* y, long long n, int dtype, const float* stats,
                      const float* consts, int stats_mode, const float* gamma,
                      const float* beta, int channels, long long inner,
-                     const unsigned long long* key, unsigned int call, int stochastic,
-                     int all_positive,
+                     const unsigned long long* key, unsigned int call, long long offset,
+                     int stochastic, int all_positive,
                      int compute_size, float t, float range_main, float range_outlier,
                      float inv_range_main, float inv_range_outlier, float std_lo,
                      float std_hi, int bits_main, int bits_outlier,
@@ -1152,11 +1171,11 @@ int smaq_quantize_bn(const void* x, void* y, long long n, int dtype, const float
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     launch_quantize_bn<float>(x, y, n, stats, consts, stats_mode, gamma, beta, channels, inner,
-                              key, call, stochastic, all_positive, compute_size, p, ws,
+                              key, call, offset, stochastic, all_positive, compute_size, p, ws,
                               size_out, num_blocks, threads, s);
   else if (dtype == kBFloat16)
     launch_quantize_bn<bf16>(x, y, n, stats, consts, stats_mode, gamma, beta, channels, inner,
-                             key, call, stochastic, all_positive, compute_size, p, ws,
+                             key, call, offset, stochastic, all_positive, compute_size, p, ws,
                              size_out, num_blocks, threads, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1170,8 +1189,8 @@ int smaq_quantize_bn(const void* x, void* y, long long n, int dtype, const float
 // Every block must be resident at once and hold its groups: the launch
 // fails (cudaErrorCooperativeLaunchTooLarge) where they do not fit.
 int smaq_onepass(const void* x, void* y, long long n, int dtype, int range_std,
-                 const unsigned long long* key, unsigned int call, int stochastic,
-                 int all_positive, int compute_size, float t, float range_main,
+                 const unsigned long long* key, unsigned int call, long long offset,
+                 int stochastic, int all_positive, int compute_size, float t, float range_main,
                  float range_outlier, float inv_range_main, float inv_range_outlier,
                  float std_lo, float std_hi, int bits_main, int bits_outlier,
                  unsigned long long* ws, float* consts, float* size_out, int num_blocks,
@@ -1185,8 +1204,8 @@ int smaq_onepass(const void* x, void* y, long long n, int dtype, int range_std,
   if (e == cudaSuccess && (n + 4 * span - 1) / (4 * span) * threads * kSlotBytes > bytes)
     e = cudaErrorCooperativeLaunchTooLarge;  // x's groups would not fit
   if (e == cudaSuccess)
-    e = launch_onepass(x, y, n, range_std, key, call, stochastic, all_positive, compute_size, p,
-                       ws, consts, size_out, num_blocks, threads,
+    e = launch_onepass(x, y, n, range_std, key, call, offset, stochastic, all_positive,
+                       compute_size, p, ws, consts, size_out, num_blocks, threads,
                        static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);

@@ -114,35 +114,37 @@ def _declare(lib: ctypes.CDLL) -> None:
     # the elementwise kernels take x, y, n and the elements' dtype (launch.DTYPES)
     lib.smaq_stats.argtypes = [p, ll, i, i, *quant, p, p, p, i, i, p]
     lib.smaq_stats.restype = i
-    # a stochastic kernel takes a pointer to its step key and a call index
-    lib.smaq_quantize.argtypes = [p, p, ll, i, p, p, i, i, p, u32, i, i, i, *quant, p, p, i, i, p]
+    # a stochastic kernel takes a pointer to its step key, a call index and
+    # the element offset of its tensor in a larger one
+    lib.smaq_quantize.argtypes = [p, p, ll, i, p, p, i, i, p, u32, ll, i, i, i, *quant, p, p, i,
+                                  i, p]
     lib.smaq_quantize.restype = i
     lib.smaq_quantize_bn.argtypes = [
-        p, p, ll, i, p, p, i, p, p, i, ll, p, u32, i, i, i, *quant, p, p, i, i, p,
+        p, p, ll, i, p, p, i, p, p, i, ll, p, u32, ll, i, i, i, *quant, p, p, i, i, p,
     ]
     lib.smaq_quantize_bn.restype = i
-    lib.smaq_onepass.argtypes = [p, p, ll, i, i, p, u32, i, i, i, *quant, p, p, p, i, i, p]
+    lib.smaq_onepass.argtypes = [p, p, ll, i, i, p, u32, ll, i, i, i, *quant, p, p, p, i, i, p]
     lib.smaq_onepass.restype = i
     lib.smaq_onepass_smem.argtypes = [i, i, p]
     lib.smaq_onepass_smem.restype = i
     lib.smaq_occupancy.argtypes = [i, i, ll, p]
     lib.smaq_occupancy.restype = i
-    lib.float_quantize.argtypes = [p, p, ll, i, i, i, u32, u32, f, f, p, u32, i, i, i, i, p]
+    lib.float_quantize.argtypes = [p, p, ll, i, i, i, u32, u32, f, f, p, u32, ll, i, i, i, i, p]
     lib.float_quantize.restype = i
     lib.float_occupancy.argtypes = [i, i, p]
     lib.float_occupancy.restype = i
     lib.s2fp8_stats.argtypes = [p, ll, i, p, p, i, i, p]
     lib.s2fp8_stats.restype = i
-    lib.s2fp8_quantize.argtypes = [p, p, ll, i, p, p, u32, i, i, i, i, p]
+    lib.s2fp8_quantize.argtypes = [p, p, ll, i, p, p, u32, ll, i, i, i, i, p]
     lib.s2fp8_quantize.restype = i
     # the bfloat16 split form's table kernels (csrc/s2fp8.cu: bfloat16 only)
     lib.s2fp8_stats_table.argtypes = [p, ll, p, p, i, i, p]
     lib.s2fp8_stats_table.restype = i
-    lib.s2fp8_quantize_window.argtypes = [p, p, ll, p, p, u32, i, i, i, i, p]
+    lib.s2fp8_quantize_window.argtypes = [p, p, ll, p, p, u32, ll, i, i, i, i, p]
     lib.s2fp8_quantize_window.restype = i
     lib.s2fp8_occupancy.argtypes = [i, i, i, i, p]
     lib.s2fp8_occupancy.restype = i
-    lib.philox_fill.argtypes = [p, ll, p, u32, i, i, i, p]
+    lib.philox_fill.argtypes = [p, ll, p, u32, ll, i, i, i, p]
     lib.philox_fill.restype = i
 
 

@@ -21,9 +21,10 @@ loads, several in flight a thread) on every block the card holds at once,
 read from the card's occupancy once.
 
 Stochastic rounding keys the kernel's Philox words by a step key in device
-memory and a call index (``launch.key_for``); the plain version draws its
-words from the caller's key by ``ops/rounding.py``, which gives other bits,
-so stochastic outputs compare by statistics only.
+memory and a call index, counted from the call's element offset in a
+larger tensor (``launch.key_for``: a ``PartKey``'s); the plain version
+draws its words from the caller's key by ``ops/rounding.py``, which gives
+other bits, so stochastic outputs compare by statistics only.
 """
 
 from __future__ import annotations
@@ -94,13 +95,14 @@ def launch_blocks(n: int, dtype: torch.dtype, sms: int = 0, resident: int = 0) -
 
 def float_quantize_launch(
     xf: torch.Tensor, fmt: FloatFormat, *, key: torch.Tensor | None, call: int = 0,
-    stochastic: bool, check_inf: bool
+    offset: int = 0, stochastic: bool, check_inf: bool
 ) -> torch.Tensor:
     """Launch the kernel on a flat float32 or bfloat16 CUDA tensor;
     stochastic rounding draws (``key``, ``call``), ``key`` a 1-element
-    int64 step key on the card.  Returns the output, of ``xf``'s dtype."""
+    int64 step key on the card, element e the word of element ``offset +
+    e``.  Returns the output, of ``xf``'s dtype."""
     check_input(xf)
-    check_key(key, xf, stochastic)
+    check_key(key, xf, stochastic, offset)
     n = xf.numel()
     y = torch.empty_like(xf)
     if xf.dtype == torch.bfloat16:
@@ -109,7 +111,7 @@ def float_quantize_launch(
         blocks = launch_blocks(n, xf.dtype)
     rc = build.library().float_quantize(
         xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], *format_args(fmt), ptr(key), call,
-        int(stochastic), int(check_inf), blocks, THREADS, stream(xf),
+        offset, int(stochastic), int(check_inf), blocks, THREADS, stream(xf),
     )
     raise_on(rc, "float_quantize")
     LAUNCHES[form_name("float_quantize", xf)] += 1
@@ -132,9 +134,9 @@ def float_quantize_fused(
     if x.numel() == 0:
         return x if x.dtype in DTYPES else x.to(torch.float32)
     xf = kernel_input(x)
-    key, call = key_for(gen, stochastic, x.device)
+    key, call, offset = key_for(gen, stochastic, x.device, xf.numel())
     y = float_quantize_launch(
-        xf, fmt, key=key, call=call, stochastic=stochastic, check_inf=check_inf
+        xf, fmt, key=key, call=call, offset=offset, stochastic=stochastic, check_inf=check_inf
     )
     return y.view(x.shape)
 

@@ -1,13 +1,19 @@
 """What every kernel wrapper of the port shares: the launch shapes, the SM
-count, the per-stream workspaces, the key of a stochastic launch, the
-element types, the input checks, the stream and the error check after a
-launch."""
+count, the per-stream workspaces, the key of a stochastic launch (its step
+key, call index and element offset), the element types, the input checks,
+the stream and the error check after a launch."""
 
 from __future__ import annotations
 
 import torch
 
-from smart_quantization_tpu_torch.ops.keys import DeviceKey, draw_seed, key_tensor
+from smart_quantization_tpu_torch.ops.keys import (
+    DeviceKey,
+    check_part,
+    draw_seed,
+    key_tensor,
+    split_key,
+)
 
 THREADS = 256
 # The element types the elementwise kernels read and write (csrc/elem.cuh),
@@ -75,25 +81,38 @@ def workspace(xf: torch.Tensor, kind: str, words: int) -> torch.Tensor:
     return ws
 
 
-def key_for(gen, stochastic: bool, device: torch.device) -> tuple[torch.Tensor | None, int]:
-    """A stochastic launch's key pointer and call index (``ops/keys.py``):
-    a :class:`DeviceKey`'s slot and its next call index, or, for a host
-    ``torch.Generator`` (initialization, tests), one draw from it written
-    to the card by a fill (no copy, no sync) with call index 0.  None and 0
-    when the launch rounds by truncation."""
+def key_for(gen, stochastic: bool, device: torch.device,
+            n: int) -> tuple[torch.Tensor | None, int, int]:
+    """A stochastic launch's key pointer, call index and element offset
+    (``ops/keys.py``): a :class:`DeviceKey`'s slot and its next call index,
+    or, for a host ``torch.Generator`` (initialization, tests), one draw
+    from it written to the card by a fill (no copy, no sync) with call
+    index 0; the offset of a :class:`PartKey`'s part (of ``n`` elements),
+    else 0.  None, 0 and 0 when the launch rounds by truncation."""
     if not stochastic:
-        return None, 0
+        return None, 0, 0
+    gen, offset, total = split_key(gen)
+    check_part(n, offset, total)
     if gen is None:
         raise ValueError("stochastic rounding requires a torch.Generator or a DeviceKey")
     if isinstance(gen, DeviceKey):
         if gen.device != device:
             raise ValueError(f"step key on {gen.device}, tensor on {device}")
-        return gen.key, gen.take()
-    return key_tensor(draw_seed(gen), device), 0
+        return gen.key, gen.take(), offset
+    return key_tensor(draw_seed(gen), device), 0, offset
 
 
-def check_key(key: torch.Tensor | None, x: torch.Tensor, stochastic: bool) -> None:
-    """A stochastic launch needs a 1-element int64 step key on ``x``'s card."""
+def check_offset(offset: int) -> None:
+    """An element offset is in ``[0, 2^62)`` (a 64-bit argument)."""
+    if not 0 <= offset < 2**62:
+        raise ValueError(f"an element offset is in [0, 2^62), got {offset}")
+
+
+def check_key(key: torch.Tensor | None, x: torch.Tensor, stochastic: bool,
+              offset: int = 0) -> None:
+    """A stochastic launch needs a 1-element int64 step key on ``x``'s card,
+    and an element offset in ``[0, 2^62)``."""
+    check_offset(offset)
     if not stochastic:
         return
     if key is None or key.dtype != torch.int64 or key.numel() != 1 or key.device != x.device:

@@ -17,7 +17,9 @@ draws (``ops/keys.py``).  Here:
   to the plain version.
 
 Word ``e`` of a fill is the word a quantize kernel gives element ``e`` for
-the same (key, call); ``uniform=True`` turns it into ``(w >> 8) * 2^-24``.
+the same (key, call) and element offset (``offset``: the fill of a part of
+a larger tensor, from its element ``offset`` on); ``uniform=True`` turns it
+into ``(w >> 8) * 2^-24``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,13 @@ from __future__ import annotations
 import torch
 
 from smart_quantization_tpu_torch.ops.cuda import build
-from smart_quantization_tpu_torch.ops.cuda.launch import THREADS, quant_blocks, raise_on, stream
+from smart_quantization_tpu_torch.ops.cuda.launch import (
+    THREADS,
+    check_offset,
+    quant_blocks,
+    raise_on,
+    stream,
+)
 from smart_quantization_tpu_torch.ops.keys import MIX_GAMMA, MIX_M1, MIX_M2, MIX_SHIFTS
 
 # Launches of the kernel since the last reset (one per launch, nowhere else).
@@ -47,17 +55,20 @@ def _check_key(key: torch.Tensor) -> None:
         raise ValueError(f"a step key is one int64 word, got {key.dtype} x {key.numel()}")
 
 
-def philox_fill(n: int, key: torch.Tensor, call: int, *, uniform: bool) -> torch.Tensor:
+def philox_fill(n: int, key: torch.Tensor, call: int, *, uniform: bool,
+                offset: int = 0) -> torch.Tensor:
     """Launch the fill: ``n`` words of (``key``, ``call``) on ``key``'s
-    card, int32 bit patterns or float32 uniforms in [0, 1)."""
+    card from element ``offset`` on, int32 bit patterns or float32
+    uniforms in [0, 1)."""
     _check_key(key)
+    check_offset(offset)
     if not key.is_cuda:
         raise ValueError(f"philox_fill takes a key on the card, got {key.device}")
     out = torch.empty(n, dtype=torch.float32 if uniform else torch.int32, device=key.device)
     if n == 0:
         return out
     rc = build.library().philox_fill(
-        out.data_ptr(), n, key.data_ptr(), call, int(uniform), quant_blocks(n), THREADS,
+        out.data_ptr(), n, key.data_ptr(), call, offset, int(uniform), quant_blocks(n), THREADS,
         stream(out),
     )
     raise_on(rc, "philox_fill")
@@ -108,26 +119,28 @@ def philox4x32_10(ctr: tuple, key: tuple) -> tuple:
     return c0, c1, c2, c3
 
 
-def philox_fill_reference(n: int, key: torch.Tensor, call: int, *, uniform: bool) -> torch.Tensor:
+def philox_fill_reference(n: int, key: torch.Tensor, call: int, *, uniform: bool,
+                          offset: int = 0) -> torch.Tensor:
     """The fill's plain version on ``key``'s device: the same words."""
     _check_key(key)
+    check_offset(offset)
     dev = key.device
     k = mix_reference(key, call)
     k0, k1 = k & _U32, _srl(k, 32)
-    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=dev)
+    g = torch.arange(offset // 4, (offset + n + 3) // 4, dtype=torch.int64, device=dev)
     zero = torch.zeros_like(g)
     words = torch.stack(philox4x32_10((g & _U32, _srl(g, 32), zero, zero), (k0, k1)), 1)
-    words = words.reshape(-1)[:n]
+    words = words.reshape(-1)[offset % 4:offset % 4 + n]
     if uniform:
         return (words >> 8).to(torch.float32) * 2.0**-24
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def philox_fill_or_reference(n: int, key: torch.Tensor, call: int, *,
-                             uniform: bool) -> torch.Tensor:
+def philox_fill_or_reference(n: int, key: torch.Tensor, call: int, *, uniform: bool,
+                             offset: int = 0) -> torch.Tensor:
     """A key on the card goes to the kernel, a CPU key to the plain version."""
     if key.is_cuda:
-        return philox_fill(n, key, call, uniform=uniform)
+        return philox_fill(n, key, call, uniform=uniform, offset=offset)
     if key.device.type == "cpu":
-        return philox_fill_reference(n, key, call, uniform=uniform)
+        return philox_fill_reference(n, key, call, uniform=uniform, offset=offset)
     raise ValueError(f"no Philox fill for device {key.device}")

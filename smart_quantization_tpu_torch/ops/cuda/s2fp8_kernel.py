@@ -223,6 +223,7 @@ def s2fp8_quantize(
     *,
     key: torch.Tensor | None,
     call: int = 0,
+    offset: int = 0,
     stochastic: bool,
     check_inf: bool,
     window: bool | None = None,
@@ -232,10 +233,10 @@ def s2fp8_quantize(
     ``s2fp8_quantize_window``; without them, the small form (``SMALL_MAX``
     elements at most): one block computes the stats itself, then
     quantizes.  Stochastic rounding draws (``key``, ``call``): ``key`` a
-    1-element int64 step key on the card.  Returns the flat output, of
-    ``xf``'s dtype."""
+    1-element int64 step key on the card, element e the word of element
+    ``offset + e``.  Returns the flat output, of ``xf``'s dtype."""
     check_input(xf)
-    check_key(key, xf, stochastic)
+    check_key(key, xf, stochastic, offset)
     n = xf.numel()
     if window is None:
         window = consts is not None and split_forms(n, xf.dtype)[1]
@@ -258,13 +259,13 @@ def s2fp8_quantize(
     lib = build.library()
     if window:
         rc = lib.s2fp8_quantize_window(
-            xf.data_ptr(), y.data_ptr(), n, ptr(consts), ptr(key), call, int(stochastic),
-            int(check_inf), blocks, threads, stream(xf))
+            xf.data_ptr(), y.data_ptr(), n, ptr(consts), ptr(key), call, offset,
+            int(stochastic), int(check_inf), blocks, threads, stream(xf))
         name = "s2fp8_quantize_window_bf16"
     else:
         rc = lib.s2fp8_quantize(
             xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(consts), ptr(key), call,
-            int(stochastic), int(check_inf), blocks, threads, stream(xf))
+            offset, int(stochastic), int(check_inf), blocks, threads, stream(xf))
         name = form_name("s2fp8_quantize", xf)
     raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -329,8 +330,8 @@ def s2fp8_fused(
         consts = None
     else:
         consts = s2fp8_stats(xf)
-    key, call = key_for(gen, stochastic, x.device)
-    y = s2fp8_quantize(xf, consts, key=key, call=call, stochastic=stochastic,
+    key, call, offset = key_for(gen, stochastic, x.device, xf.numel())
+    y = s2fp8_quantize(xf, consts, key=key, call=call, offset=offset, stochastic=stochastic,
                        check_inf=check_inf)
     return y.view(x.shape).to(x.dtype)
 

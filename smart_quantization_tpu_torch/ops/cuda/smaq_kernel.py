@@ -38,9 +38,10 @@ tensor of another dtype is cast to float32 and back.
 
 Stochastic rounding keys the kernel's Philox stream by a step key in device
 memory and a call index (``launch.key_for``: a ``DeviceKey``'s next index,
-or one draw from a host ``torch.Generator``); the plain versions draw their
-noise from the caller's key by ``ops/rounding.py``, which gives other bits,
-so stochastic outputs compare by statistics only.
+or one draw from a host ``torch.Generator``), counted from the call's
+element offset in a larger tensor (a ``PartKey``'s); the plain versions
+draw their noise from the caller's key by ``ops/rounding.py``, which gives
+other bits, so stochastic outputs compare by statistics only.
 """
 
 from __future__ import annotations
@@ -248,6 +249,7 @@ def smaq_quantize(
     *,
     key: torch.Tensor | None,
     call: int = 0,
+    offset: int = 0,
     stats: torch.Tensor | None = None,
     consts: torch.Tensor | None = None,
     all_positive: bool = False,
@@ -257,11 +259,12 @@ def smaq_quantize(
     pair on the device) or ``smaq_stats``' ``consts``; with neither, the
     small form (``SMALL_MAX`` elements at most): one block computes the
     full stats itself, then quantizes.  Stochastic rounding draws
-    (``key``, ``call``): ``key`` a 1-element int64 step key on the card.
-    Returns the flat output, of ``xf``'s dtype, and the size in bits as a
-    0-d float32 device tensor."""
+    (``key``, ``call``): ``key`` a 1-element int64 step key on the card,
+    element e the word of element ``offset + e``.  Returns the flat
+    output, of ``xf``'s dtype, and the size in bits as a 0-d float32
+    device tensor."""
     check_input(xf)
-    check_key(key, xf, params.stochastic_rounding)
+    check_key(key, xf, params.stochastic_rounding, offset)
     stats, consts, mode = _stats_args(xf, stats, consts)
     n = xf.numel()
     if mode == _SMALL and n > SMALL_MAX:
@@ -273,7 +276,7 @@ def smaq_quantize(
         (1, SMALL_THREADS) if mode == _SMALL else (split_blocks(n, sm_count(xf.device)), THREADS))
     rc = build.library().smaq_quantize(
         xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(stats), ptr(consts), mode,
-        int(params.use_range_std_dev), ptr(key), call, int(params.stochastic_rounding),
+        int(params.use_range_std_dev), ptr(key), call, offset, int(params.stochastic_rounding),
         int(all_positive), int(compute_size), *_quant_args(params),
         workspace(xf).data_ptr(), size.data_ptr(), blocks, threads, stream(xf),
     )
@@ -288,18 +291,19 @@ def smaq_onepass(
     *,
     key: torch.Tensor | None,
     call: int = 0,
+    offset: int = 0,
     all_positive: bool = False,
     compute_size: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the one-launch form on a flat bfloat16 tensor that
     ``smaq_plan`` gives it (more than ``SMALL_MAX`` elements, no more than
     the card's ``onepass_capacity``): the full stats, then the quantize pass
-    on the groups held in shared memory.  ``key`` and ``call`` as
-    ``smaq_quantize``'s.  Returns the flat bfloat16 output, the size in
+    on the groups held in shared memory.  ``key``, ``call`` and ``offset``
+    as ``smaq_quantize``'s.  Returns the flat bfloat16 output, the size in
     bits as a 0-d float32 device tensor and the 8 constants ``smaq_stats``
     would write."""
     check_input(xf, (torch.bfloat16,))
-    check_key(key, xf, params.stochastic_rounding)
+    check_key(key, xf, params.stochastic_rounding, offset)
     n = xf.numel()
     form, blocks = smaq_plan(n, sm_count(xf.device), onepass_slots(xf.device))
     if form != "onepass":
@@ -310,8 +314,9 @@ def smaq_onepass(
     consts = torch.empty(8, dtype=torch.float32, device=xf.device)
     rc = build.library().smaq_onepass(
         xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], int(params.use_range_std_dev),
-        ptr(key), call, int(params.stochastic_rounding), int(all_positive), int(compute_size),
-        *_quant_args(params), workspace(xf).data_ptr(), consts.data_ptr(), size.data_ptr(),
+        ptr(key), call, offset, int(params.stochastic_rounding), int(all_positive),
+        int(compute_size), *_quant_args(params), workspace(xf).data_ptr(), consts.data_ptr(),
+        size.data_ptr(),
         blocks, THREADS, stream(xf),
     )
     raise_on(rc, "smaq_onepass")
@@ -329,6 +334,7 @@ def smaq_quantize_bn(
     *,
     key: torch.Tensor | None,
     call: int = 0,
+    offset: int = 0,
     stats: torch.Tensor | None = None,
     consts: torch.Tensor | None = None,
     all_positive: bool = False,
@@ -337,9 +343,10 @@ def smaq_quantize_bn(
     """Launch the BN-folded quantize kernel: ``xf`` is the flat NCHW tensor,
     element e in channel ``(e // inner) % channels``, and ``gamma``/``beta``
     hold ``channels`` float32 values on the device; one of ``stats`` and
-    ``consts`` is required; ``key`` and ``call`` as ``smaq_quantize``'s."""
+    ``consts`` is required; ``key``, ``call`` and ``offset`` as
+    ``smaq_quantize``'s."""
     check_input(xf)
-    check_key(key, xf, params.stochastic_rounding)
+    check_key(key, xf, params.stochastic_rounding, offset)
     for v in (gamma, beta):
         check_input(v, (torch.float32,))
         if v.numel() != channels:
@@ -355,8 +362,8 @@ def smaq_quantize_bn(
     rc = build.library().smaq_quantize_bn(
         xf.data_ptr(), y.data_ptr(), n, DTYPES[xf.dtype], ptr(stats), ptr(consts), mode,
         gamma.data_ptr(), beta.data_ptr(), channels, inner,
-        ptr(key), call, int(params.stochastic_rounding), int(all_positive), int(compute_size),
-        *_quant_args(params), workspace(xf).data_ptr(), size.data_ptr(),
+        ptr(key), call, offset, int(params.stochastic_rounding), int(all_positive),
+        int(compute_size), *_quant_args(params), workspace(xf).data_ptr(), size.data_ptr(),
         bn_blocks(n, xf.dtype, sm_count(xf.device)), THREADS, stream(xf),
     )
     raise_on(rc, "smaq_quantize_bn")
@@ -485,15 +492,15 @@ def smaq_fused(
     if n < params.min_size:
         return x, torch.full((), float(n * 32), device=x.device)
     xf = kernel_input(x)
-    key, call = key_for(gen, params.stochastic_rounding, x.device)
+    key, call, offset = key_for(gen, params.stochastic_rounding, x.device, n)
     form = _stats_form(xf, params, mean, std)
     if form == "onepass":
-        y, size, _ = smaq_onepass(xf, params, key=key, call=call, all_positive=all_positive,
-                                  compute_size=compute_size)
+        y, size, _ = smaq_onepass(xf, params, key=key, call=call, offset=offset,
+                                  all_positive=all_positive, compute_size=compute_size)
     else:
         stats, consts = _device_stats(xf, params, mean, std, form)
         y, size = smaq_quantize(
-            xf, params, key=key, call=call, stats=stats, consts=consts,
+            xf, params, key=key, call=call, offset=offset, stats=stats, consts=consts,
             all_positive=all_positive, compute_size=compute_size,
         )
     return y.view(x.shape).to(x.dtype), size
@@ -533,7 +540,7 @@ def smaq_fused_bn(
         return x, torch.full((), float(n * 32), device=x.device)
     channels, inner = channel_layout(x, gamma)
     xf = kernel_input(x)
-    key, call = key_for(gen, params.stochastic_rounding, x.device)
+    key, call, offset = key_for(gen, params.stochastic_rounding, x.device, n)
     form = _stats_form(xf, params, mean, std)
     # the BN kernel always reads given, sampled or smaq_stats' constants
     stats, consts = _device_stats(xf, params, mean, std,
@@ -541,7 +548,7 @@ def smaq_fused_bn(
     y, size = smaq_quantize_bn(
         xf, gamma.reshape(-1).to(torch.float32).contiguous(),
         beta.reshape(-1).to(torch.float32).contiguous(), channels, inner, params,
-        key=key, call=call, stats=stats, consts=consts,
+        key=key, call=call, offset=offset, stats=stats, consts=consts,
         all_positive=all_positive, compute_size=compute_size,
     )
     return y.view(x.shape).to(x.dtype), size

@@ -24,10 +24,13 @@ A draw whose order autograd decides (a tap's backward) takes its indices
 from a block reserved when the forward runs (:meth:`DeviceKey.reserve`).
 
 On the CPU the trainer keeps its host ``torch.Generator``s; everything that
-draws takes either.
+draws takes either, or a :class:`PartKey` of either: the draws of one part
+of a larger tensor (a rank's rows of a global batch).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -127,3 +130,35 @@ def mesh_step_words(seed: int, step: int, rank: int, fsdp_index: int,
         [seed, step, 2, *((rank,) if fold_payload else ())]).generate_state(1, np.uint64)[0]
     gather = np.random.SeedSequence([seed, step, 3, fsdp_index]).generate_state(1, np.uint64)[0]
     return int(fwd), int(drop), int(payload), int(gather)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartKey:
+    """The key of a call on one part of a larger tensor: element e of the
+    part draws what element ``offset + e`` draws in a call keyed ``key`` on
+    the whole, ``total`` elements (a rank's rows of the global batch,
+    ``parallel/whole_batch.py``).  On the card the kernels and the Philox
+    fill count their words from ``offset`` (``csrc/philox.cuh``: Draws);
+    from a host generator the part takes its slice of the whole's draw."""
+
+    key: torch.Generator | DeviceKey
+    offset: int
+    total: int
+
+    def __post_init__(self):
+        if not 0 <= self.offset <= self.total:
+            raise ValueError(f"a part at element {self.offset} of {self.total}")
+
+
+def split_key(gen) -> tuple[object, int, int | None]:
+    """``(key, offset, total)`` of a :class:`PartKey`, ``(gen, 0, None)``
+    of any other key."""
+    if isinstance(gen, PartKey):
+        return gen.key, gen.offset, gen.total
+    return gen, 0, None
+
+
+def check_part(n: int, offset: int, total: int | None) -> None:
+    """A part of ``n`` elements at ``offset`` lies inside the whole."""
+    if total is not None and offset + n > total:
+        raise ValueError(f"{n} elements at {offset} run past the whole's {total}")

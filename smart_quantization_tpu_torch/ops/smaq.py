@@ -77,6 +77,28 @@ def _range_std(flat: torch.Tensor) -> torch.Tensor:
     return rng / math.sqrt(2.0 * math.log(float(flat.numel())))
 
 
+def stratum_offset(gen, m: int, device) -> torch.Tensor | int:
+    """The offset ``j`` in ``[0, m)`` at which sampled stats take one
+    element of each stratum of ``m``, drawn from ``gen``: a 1-element
+    tensor on ``device`` from a step key (no host read), an int from a host
+    generator."""
+    if gen is None:
+        raise ValueError("sampled stats require a torch.Generator")
+    if isinstance(gen, DeviceKey):
+        return randint(m, (1,), gen, device)
+    return int(torch.randint(0, m, (), generator=gen))
+
+
+def sample_moments(sample: torch.Tensor, params: SmaQParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sampled stats' (mean, std) of the contiguous float32 sample (a
+    strided one sums in another order): the biased std, or the range
+    std."""
+    mean = sample.mean()
+    if params.use_range_std_dev:
+        return mean, _range_std(sample)
+    return mean, sample.std(correction=0)
+
+
 def compute_stats(
     x: torch.Tensor, params: SmaQParams, gen: torch.Generator | None
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -88,21 +110,14 @@ def compute_stats(
     flat = x.reshape(-1).float()
     n = flat.numel()
     if params.use_sample_stats and n > params.num_samples:
-        if gen is None:
-            raise ValueError("sampled stats require a torch.Generator")
         k = params.num_samples
         m = n // k
-        if isinstance(gen, DeviceKey):
-            j = randint(m, (1,), gen, flat.device)
+        j = stratum_offset(gen, m, flat.device)
+        if isinstance(j, torch.Tensor):
             sample = flat[: k * m].view(k, m).index_select(1, j).reshape(k)
         else:
-            j = int(torch.randint(0, m, (), generator=gen))
-            sample = flat[: k * m].view(k, m)[:, j]
-        mean = sample.mean()
-        if params.use_range_std_dev:
-            std = _range_std(sample)
-        else:
-            std = sample.std(correction=0)
+            sample = flat[: k * m].view(k, m)[:, j].contiguous()
+        mean, std = sample_moments(sample, params)
     else:
         mean = flat.mean()
         if params.use_range_std_dev:

@@ -36,8 +36,11 @@ weight decay -> ``trace(decay=momentum)`` -> ``-lr``; Adam: coupled decay
 -> ``scale_by_adam`` -> ``-lr``; AdamW: ``scale_by_adam`` -> decoupled
 decay -> ``-lr``), so the momentum buffers are plain tensors the step can
 quantize.  Parameters, gradients and buffers are flat ``{name: tensor}``
-dicts keyed by ``state_dict`` names.  Each compressor call draws from the
-step's key (a host generator, or the step key on the card), in leaf order.
+dicts keyed by ``state_dict`` names.  Each compressor call draws from a key
+of its own for its (stage, leaf), derived from the step's key (a host
+generator, or the step key on the card) by :class:`LeafKeys`: a leaf draws
+the same bits whether the step runs on the whole tree or on that leaf
+alone (``parallel/train_fsdp.py``, one leaf at a time).
 
 On the card the trainer hands the step its learning rate and Adam's bias
 corrections as a float32 device tensor (:meth:`OptimizerSpec.
@@ -56,18 +59,59 @@ import torch
 
 from smart_quantization_tpu_torch.compress.base import CompressorBase
 from smart_quantization_tpu_torch.convert import jax_axes
+from smart_quantization_tpu_torch.inject.tap import DRAWS_PER_COMPRESS
 from smart_quantization_tpu_torch.ops.codebook import (
     SmaQCodes,
     smaq_decode,
     smaq_encode,
     supports_codebook,
 )
-from smart_quantization_tpu_torch.ops.keys import DeviceKey
+from smart_quantization_tpu_torch.ops.keys import DeviceKey, draw_seed, mix
 from smart_quantization_tpu_torch.ops.smaq import SmaQParams
 from smart_quantization_tpu_torch.parallel.mesh import shard_dim
 from smart_quantization_tpu_torch.utils.profiling import scope
 
 Tree = dict[str, torch.Tensor]
+
+# the stages of an optimizer step's compressor calls: the gradients, the
+# weights, then each momentum buffer (SGD's trace, Adam's mu and nu)
+KEY_STAGES = ("grad", "weight", "trace", "mu", "nu")
+
+
+class LeafKeys:
+    """The keys of one optimizer step's compressor calls, one for each
+    (stage, leaf) of the tree ``names``, from the step's key ``gen``: on
+    the card one reservation of ``DRAWS_PER_COMPRESS`` call indices for
+    each (stage, leaf) of the step key; from a host generator one seed
+    drawn from it, each (stage, leaf) a generator seeded by ``keys.mix`` of
+    that seed and its index; None (truncation) for every call of a None."""
+
+    def __init__(self, gen, names):
+        self.index = {n: i for i, n in enumerate(names)}
+        self._gen = gen
+        count = len(KEY_STAGES) * len(self.index)
+        if isinstance(gen, DeviceKey):
+            self._base = gen.reserve(count * DRAWS_PER_COMPRESS)._next
+        elif gen is not None:
+            self._base = draw_seed(gen)
+
+    def of(self, stage: str, name: str):
+        """The key of stage ``stage``'s call on leaf ``name``."""
+        if self._gen is None:
+            return None
+        i = KEY_STAGES.index(stage) * len(self.index) + self.index[name]
+        if isinstance(self._gen, DeviceKey):
+            start = self._base + i * DRAWS_PER_COMPRESS
+            return DeviceKey(self._gen.key, start, start + DRAWS_PER_COMPRESS)
+        gen = torch.Generator()
+        gen.manual_seed(mix(self._base, i))
+        return gen
+
+
+def _leaf_key(gen, stage: str | None, name: str):
+    """Leaf ``name``'s key at ``stage`` of a :class:`LeafKeys`, or ``gen``
+    itself (one key for every leaf in turn)."""
+    return gen.of(stage, name) if isinstance(gen, LeafKeys) else gen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,18 +331,19 @@ def by_rows(name: str, leaf: torch.Tensor) -> bool:
 
 
 def _quantize_tree(tree: Tree, gen, compressor, *, skip=None, all_positive=False,
-                   rowwise=False, log_domain=False):
+                   rowwise=False, log_domain=False, stage=None):
     """Quantize every non-skipped leaf; returns (tree, orig_bits, new_bits)
     with the bit totals as 0-d device tensors.  ``rowwise`` takes the
     leaves that pass :func:`by_rows` by rows, ``log_domain`` quantizes in
-    the log2 domain (no ``all_positive`` clamp is needed there)."""
+    the log2 domain (no ``all_positive`` clamp is needed there).  A
+    :class:`LeafKeys` ``gen`` gives each leaf its key at ``stage``."""
     out, origs, news = {}, [], []
     for k, leaf in tree.items():
         if skip is not None and skip.get(k, False):
             out[k] = leaf
             continue
         out[k], o, n = _quantize_leaf(
-            compressor, k, leaf, gen, rows=rowwise and by_rows(k, leaf),
+            compressor, k, leaf, _leaf_key(gen, stage, k), rows=rowwise and by_rows(k, leaf),
             log_domain=log_domain, all_positive=all_positive)
         origs.append(o)
         news.append(n)
@@ -324,14 +369,16 @@ def packed_smaq_params(compression: OptimizerCompression) -> SmaQParams:
     return params
 
 
-def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None, stats_rank1=False):
+def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None, stats_rank1=False,
+                 stage=None):
     """Encode every non-skipped leaf of ``min_size`` elements or more to
     ``SmaQCodes`` (smaller ones stay float32, as the fake path passes them
     through); returns (tree, orig_bits, new_bits) with the real sizes:
     ``8 n + 64`` bits a code leaf, ``32 n`` a float32 one, skipped leaves
-    not counted.  Draws from ``gen`` in leaf order, as
-    :func:`_quantize_tree` does.  ``stats_rank1`` stores the stats as
-    ``(1,)`` rows (a shard's slice of the FSDP layout)."""
+    not counted.  Draws from ``gen`` in leaf order (a :class:`LeafKeys`:
+    each leaf's key at ``stage``), as :func:`_quantize_tree` does.
+    ``stats_rank1`` stores the stats as ``(1,)`` rows (a shard's slice of
+    the FSDP layout)."""
     out, orig, new = {}, 0, 0
     for k, leaf in tree.items():
         if skip is not None and skip.get(k, False):
@@ -343,7 +390,7 @@ def _encode_tree(tree: Tree, gen, params: SmaQParams, *, skip=None, stats_rank1=
             out[k] = leaf
             new += 32 * n
         else:
-            out[k] = smaq_encode(leaf, gen, params)
+            out[k] = smaq_encode(leaf, _leaf_key(gen, stage, k), params)
             if stats_rank1:
                 out[k] = _rank1(out[k])
             new += 8 * n + 64
@@ -439,7 +486,7 @@ def _compress_momentum(spec, opt_state, gen, compression, p_params, stats_rank1=
     for name, all_positive in spec.momentum_buffers:
         if p_params is not None:
             opt_state[name], o, n = _encode_tree(opt_state[name], gen, p_params,
-                                                 stats_rank1=stats_rank1)
+                                                 stats_rank1=stats_rank1, stage=name)
         else:
             # nu (the all_positive buffer) may take the log2 codec, by rows
             # with momentum_log_nu_rowwise; mu and SGD's trace may take rows
@@ -448,7 +495,7 @@ def _compress_momentum(spec, opt_state, gen, compression, p_params, stats_rank1=
                 opt_state[name], gen, compression.compressor, all_positive=all_positive,
                 rowwise=(compression.momentum_log_nu_rowwise if log_nu
                          else compression.momentum_rowwise),
-                log_domain=log_nu,
+                log_domain=log_nu, stage=name,
             )
         origs.append(o)
         news.append(n)
@@ -473,8 +520,12 @@ def compressed_optimizer_step(
     (decode packed weights first, :func:`decode_params`); under
     ``packed_weights`` the returned ones hold ``SmaQCodes``.  ``scalars``
     goes to :meth:`OptimizerSpec.update`.  ``packed_stats_rank1``: the
-    FSDP step on a rank's shards, whose packed stats are ``(1,)`` rows."""
+    FSDP step on a rank's shards, whose packed stats are ``(1,)`` rows.
+    ``gen`` is the step's key, or the :class:`LeafKeys` of a larger tree
+    (a step on some of its leaves draws what the whole tree's draws for
+    them)."""
     metrics: dict[str, torch.Tensor] = {}
+    keys = gen if isinstance(gen, LeafKeys) else LeafKeys(gen, params)
     comp = compression.compressor
     active = compression.active
 
@@ -495,7 +546,7 @@ def compressed_optimizer_step(
         with scope("compress/optimizer_grad"):
             if compression.grad_scaling != 1.0:
                 grads = {k: g * compression.grad_scaling for k, g in grads.items()}
-            grads, o, n = _quantize_tree(grads, gen, comp)
+            grads, o, n = _quantize_tree(grads, keys, comp, stage="grad")
         metrics["optimizer_grad"] = torch.stack([o, n])
 
     # with the accumulator the optimizer steps the float32 master
@@ -508,16 +559,18 @@ def compressed_optimizer_step(
     if active and compression.compress_weights:
         with scope("compress/optimizer_weight"):
             if compression.packed_weights:
-                params, o, n = _encode_tree(params, gen, packed_smaq_params(compression),
-                                            skip=weight_exempt, stats_rank1=packed_stats_rank1)
+                params, o, n = _encode_tree(params, keys, packed_smaq_params(compression),
+                                            skip=weight_exempt, stats_rank1=packed_stats_rank1,
+                                            stage="weight")
             else:
-                params, o, n = _quantize_tree(params, gen, comp, skip=weight_exempt)
+                params, o, n = _quantize_tree(params, keys, comp, skip=weight_exempt,
+                                              stage="weight")
         metrics["optimizer_weight"] = torch.stack([o, n])
 
     if active and compression.compress_momentum and spec.has_momentum:
         with scope("compress/optimizer_momentum"):
             opt_state, metrics["optimizer_momentum"] = _compress_momentum(
-                spec, opt_state, gen, compression, p_params if packed else None,
+                spec, opt_state, keys, compression, p_params if packed else None,
                 packed_stats_rank1)
 
     if wrapped:

@@ -123,9 +123,15 @@ class Mesh:
 
 def make_mesh(dp: int | None = None, fsdp: int = 1) -> Mesh:
     """The mesh over the default process group's ranks; ``dp`` defaults to
-    the world size over ``fsdp``.  Every rank calls it in the same order."""
+    the world size over ``fsdp``.  Every rank calls it in the same order.
+    Without a process group, a (1, 1) mesh is one device, as in JAX: no
+    group, no collective."""
     import torch.distributed as dist
 
+    if not dist.is_initialized():
+        if (dp or 1) * fsdp != 1:
+            raise ValueError(f"a mesh of dp={dp} fsdp={fsdp} needs a process group")
+        return Mesh(MeshShape(1, 1), 0, {"world": None, "data": None, "fsdp": None})
     world = dist.get_world_size()
     shape = plan_mesh(dp if dp is not None else world // fsdp, fsdp, world) or MeshShape(1, 1)
     if shape.size != world:

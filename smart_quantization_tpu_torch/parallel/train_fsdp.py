@@ -25,20 +25,30 @@ their own rows.  Here, on a (data, fsdp) mesh of W ranks:
 - optimizer: the float32 gradients summed over the world; at fsdp 1 one
   ``compressed_optimizer_step`` on every leaf, as the trainer's; above, one
   leaf at a time its momentum (or Adam's state, and the master weights)
-  gathered whole, the step on the whole leaf with that leaf's key, the
-  same on every rank, and this rank's block kept: every rank holds what one
-  device would, with one leaf's state in flight;
+  gathered whole, the step on the whole leaf, the same on every rank, and
+  this rank's block kept: every rank holds what one device would, with one
+  leaf's state in flight;
+- packed state (``packed_momentum``, ``packed_weights``): a packed leaf is
+  one codebook of the whole leaf, as one device encodes it; each rank
+  stores its block of the uint8 codes and the leaf's (mean, std)
+  replicated.  The forward decodes the gathered codes whole; above fsdp 1
+  the optimizer gathers a leaf's codes whole (a quarter of its float32
+  bytes), decodes them, steps, re-encodes the whole leaf with its own
+  statistics and keeps this rank's block;
+- random draws: every rank draws from the step's one key, as one device
+  does.  A tap's call on this rank's rows counts its noise from their
+  first element in the whole tensor (``StatsGroup.compress``, an element
+  offset in the kernels' Philox counters), and the optimizer keys each
+  (stage, leaf) of its calls (``optim/compressed.py::LeafKeys``), so one
+  leaf's step draws what the whole tree's draws for it;
 - metrics: the global batch's loss and accuracy; the taps' sizes summed
   over the ranks (``_ratio/{tag}`` pairs), the optimizer's counted once.
 
-One device is a (1, 1) mesh, as in JAX.  Stochastic rounding draws a
-tap's noise by the element's place in its rank's rows (the taps' key
-folded with the rank from W = 2), and at fsdp > 1 the optimizer draws a
-key for each leaf where one device draws one for the step; so only a
-truncation step is the single device's (``Trainer.train_step``'s)
-element by element (ROADMAP, Queue 3).  Packed state and ``--use_sample_stats`` raise
-``WholeBatchError``; the JAX step has no ``--compress_loss``,
-``avg_grad_norm`` or ``--steps_per_call``, and neither has this one.
+One device is a (1, 1) mesh, as in JAX; a step on any mesh is the (1, 1)
+step with the same key, element by element but for the flips that the
+statistics' other summation orders give (and ranks bitwise equal).  The
+JAX step has no ``--compress_loss``, ``avg_grad_norm`` or
+``--steps_per_call``, and neither has this one.
 """
 
 from __future__ import annotations
@@ -49,19 +59,23 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from smart_quantization_tpu_torch.compress.base import SizeTotals
-from smart_quantization_tpu_torch.inject.tap import TapContext, own_key
+from smart_quantization_tpu_torch.inject.tap import TapContext
+from smart_quantization_tpu_torch.ops.codebook import SmaQCodes
 from smart_quantization_tpu_torch.ops.keys import DeviceKey, key_tensor
 from smart_quantization_tpu_torch.optim.compressed import (
     CompressedOptState,
+    LeafKeys,
     OptimizerCompression,
     OptimizerSpec,
     compressed_optimizer_step,
+    decode_params,
+    encode_params,
     init_opt_state,
     norm_param_mask,
 )
-from smart_quantization_tpu_torch.parallel.train_fsdp_q import FSDPLayout
-from smart_quantization_tpu_torch.parallel.whole_batch import StatsGroup, WholeBatchError
-from smart_quantization_tpu_torch.train.loop import float32_on_card
+from smart_quantization_tpu_torch.parallel.train_fsdp_q import FSDPLayout, _map_state
+from smart_quantization_tpu_torch.parallel.whole_batch import StatsGroup
+from smart_quantization_tpu_torch.train.loop import float32_on_card, init_generators
 from smart_quantization_tpu_torch.train.state import TrainState
 from smart_quantization_tpu_torch.train.task import ImageClassificationTask
 
@@ -96,10 +110,6 @@ class FloatFSDPStep:
 
     def __init__(self, model: torch.nn.Module, spec: OptimizerSpec,
                  optim_comp: OptimizerCompression, mesh):
-        if optim_comp.packed_momentum or optim_comp.packed_weights:
-            raise WholeBatchError("packed state is not taken by the whole-batch FSDP step "
-                                  "(its codes would need whole-leaf codebooks sharded): use "
-                                  "parallel/train_fsdp_q.py")
         if mesh is None:
             raise ValueError("the whole-batch step takes a (data, fsdp) mesh; one device is "
                              "make_mesh(1, 1)")
@@ -109,37 +119,61 @@ class FloatFSDPStep:
         self.layout = FSDPLayout(shapes, mesh.shape["fsdp"])
         self.world = mesh.group(("data", "fsdp"))
         self.fsdp_group = mesh.group("fsdp")
-        self.stats = StatsGroup(self.world, self.size)
+        self.stats = StatsGroup(self.world, self.size, self.rank)
         self.exempt = norm_param_mask(shapes)
         self.device = next(model.parameters()).device
         if self.device.type == "cuda":
             float32_on_card()  # the trainer's: no TF32, deterministic kernels
 
     # ------------------------------------------------------------ state
-    def init_state(self) -> TrainState:
+    def init_state(self, seed: int = 0) -> TrainState:
         """Step 0, JAX's ``place_state``: this rank's blocks of the model's
-        parameters and of the optimizer's initial state."""
+        parameters and of the optimizer's initial state; packed state
+        encoded whole as the trainer of a run seeded ``seed`` encodes it."""
         params = {n: p.detach() for n, p in self.model.named_parameters()}
-        opt_state = init_opt_state(self.spec, params, self.optim_comp)
+        gen_state, gen_weights = init_generators(seed)
+        opt_state = init_opt_state(self.spec, params, self.optim_comp, gen_state)
+        params = encode_params(params, self.optim_comp, gen_weights, exempt=self.exempt)
+        return TrainState(0, _map_state(opt_state, self._local), None, self._local(params))
+
+    def _block(self, name: str, leaf):
+        """This rank's block of a whole leaf (a packed one's codes, its
+        stats replicated)."""
         i = self.fsdp_index
-        return TrainState(0, self.layout.local_opt_state(opt_state, i), None,
-                          self.layout.local(params, i))
+        if isinstance(leaf, SmaQCodes):
+            return SmaQCodes(self.layout.block(name, leaf.codes, i), leaf.mean.clone(),
+                             leaf.std.clone())
+        return self.layout.block(name, leaf, i)
+
+    def _whole(self, name: str, leaf):
+        """A leaf whole from every fsdp rank's block (a packed one's codes
+        gathered as uint8)."""
+        if isinstance(leaf, SmaQCodes):
+            return SmaQCodes(self.layout.gather_leaf(name, leaf.codes, self.fsdp_group),
+                             leaf.mean, leaf.std)
+        return self.layout.gather_leaf(name, leaf, self.fsdp_group)
+
+    def _local(self, tree: dict) -> dict:
+        return {k: self._block(k, v) for k, v in tree.items()}
+
+    def _global(self, tree: dict) -> dict:
+        return {k: self._whole(k, v) for k, v in tree.items()}
 
     def global_params(self, state: TrainState) -> dict:
-        """Every parameter whole (an all-gather of the blocks)."""
-        return self.layout.gather(state.shards, self.fsdp_group)
+        """Every parameter whole (an all-gather of the blocks), packed
+        leaves decoded: what the forward takes."""
+        return decode_params(self._global(state.shards), self.optim_comp)
 
     def global_opt_state(self, state: TrainState):
-        return self.layout.gather_opt_state(state.opt_state, self.fsdp_group)
+        """The optimizer state whole, packed leaves as codes."""
+        return _map_state(state.opt_state, self._global)
 
     # ------------------------------------------------------------- keys
     def _keys(self, key: int):
-        """The taps' key (folded with the rank from W = 2) and the
-        optimizer's, from the step key ``key``: host generators on the CPU,
-        step keys on the card (``ops/keys.py``)."""
+        """The taps' key and the optimizer's, every rank's, from the step
+        key ``key``: host generators on the CPU, step keys on the card
+        (``ops/keys.py``)."""
         _, fwd, opt = step_words(key)
-        if self.size > 1:
-            fwd = int(np.random.SeedSequence([key, 1, self.rank]).generate_state(1, np.uint64)[0])
         if self.device.type == "cuda":
             return DeviceKey(key_tensor(fwd, self.device)), DeviceKey(key_tensor(opt, self.device))
         return tuple(torch.Generator().manual_seed(w) for w in (fwd, opt))
@@ -197,10 +231,11 @@ class FloatFSDPStep:
 
     def _optimizer_step(self, state: TrainState, named, flat_grads, gen) -> dict:
         """The compressed optimizer on the summed gradients and the
-        parameters the step gathered: at fsdp 1 one call on every leaf, as
-        the trainer's; above, one whole leaf at a time, its state gathered,
-        and this rank's blocks written back into ``state``.  Returns the
-        optimizer's size pairs."""
+        parameters the step gathered (decoded): at fsdp 1 one call on every
+        leaf, as the trainer's; above, one whole leaf at a time, its state
+        gathered (packed codes as uint8), its keys those of the whole
+        tree's call, and this rank's blocks written back into ``state``.
+        Returns the optimizer's size pairs."""
         wrapped = isinstance(state.opt_state, CompressedOptState)
         inner = state.opt_state.inner if wrapped else state.opt_state
         buffers = [b for b in inner if b != "count"]
@@ -215,16 +250,15 @@ class FloatFSDPStep:
             self._keep(state, new_p, new_state, buffers, [n for n, _ in named])
             inner["count"] = count + 1
             return out
-        layout, group, out = self.layout, self.fsdp_group, {}
+        keys, out = LeafKeys(gen, [n for n, _ in named]), {}
         for name, p in named:
             leaf = {"count": count,
-                    **{b: {name: layout.gather_leaf(name, inner[b][name], group)}
-                       for b in buffers}}
+                    **{b: {name: self._whole(name, inner[b][name])} for b in buffers}}
             if wrapped:
                 leaf = CompressedOptState(
-                    leaf, {name: layout.gather_leaf(name, state.opt_state.master[name], group)})
+                    leaf, {name: self._whole(name, state.opt_state.master[name])})
             new_p, new_state, metrics = compressed_optimizer_step(
-                self.spec, {name: p.detach()}, {name: grads[name]}, leaf, own_key(gen),
+                self.spec, {name: p.detach()}, {name: grads[name]}, leaf, keys,
                 self.optim_comp, weight_exempt={name: self.exempt[name]})
             self._keep(state, new_p, new_state, buffers, [name])
             for tag, v in metrics.items():
@@ -234,19 +268,23 @@ class FloatFSDPStep:
 
     def _keep(self, state: TrainState, new_p, new_state, buffers, names) -> None:
         """This rank's blocks of the leaves ``names`` of an optimizer
-        step's parameters and state, written into ``state``."""
+        step's parameters and state, written into ``state``: a float32
+        block into the tensor it replaces, a packed one's codes and stats
+        in its place."""
         wrapped = isinstance(state.opt_state, CompressedOptState)
         inner = state.opt_state.inner if wrapped else state.opt_state
         new_inner = new_state.inner if wrapped else new_state
-        layout, index = self.layout, self.fsdp_index
+        trees = [(state.shards, new_p), *((inner[b], new_inner[b]) for b in buffers)]
+        if wrapped:
+            trees.append((state.opt_state.master, new_state.master))
         with torch.no_grad():
             for name in names:
-                state.shards[name].copy_(layout.block(name, new_p[name], index))
-                for b in buffers:
-                    inner[b][name].copy_(layout.block(name, new_inner[b][name], index))
-                if wrapped:
-                    state.opt_state.master[name].copy_(
-                        layout.block(name, new_state.master[name], index))
+                for tree, new in trees:
+                    block = self._block(name, new[name])
+                    if isinstance(block, SmaQCodes) or isinstance(tree[name], SmaQCodes):
+                        tree[name] = block
+                    else:
+                        tree[name].copy_(block)
 
 
 def make_fsdp_train_step(model: torch.nn.Module, spec: OptimizerSpec,

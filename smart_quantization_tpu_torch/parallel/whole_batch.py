@@ -8,16 +8,25 @@ statistics of the whole feature or gradient map.  A :class:`StatsGroup`
 on the tap context (``inject/tap.py``) gives a rank that view of its rows:
 
 - :meth:`StatsGroup.compress`: one encoder call on this rank's rows with
-  the statistics of the whole tensor.  SmaQ: every rank's folded float64
-  sums about its pivot (``smaq_stats``' ``sums``), gathered and folded in
-  rank order about rank 0's pivot into the mean and the ddof=1 std (or the
-  range std from the min and max; ``smaq_kernel.fold_sums``);
-  S2FP8: the sum and max of ``log2|x|`` (``s2fp8_stats``' ``sums``); the
-  float formats need none.  ``min_size`` is decided on the whole tensor's
-  count.  The quantize kernels take the folded statistics as given
-  (``smaq_fused``'s ``mean``/``std``, ``s2fp8_fused``'s ``stats``).  On
-  the card the sums come from the stats kernels, on the CPU from their
-  plain versions (``pivot_sums_reference``, ``log2_sums``).
+  the statistics and the random draws of the whole tensor.  SmaQ: every
+  rank's folded float64 sums about its pivot (``smaq_stats``' ``sums``),
+  gathered and folded in rank order about rank 0's pivot into the mean and
+  the ddof=1 std (or the range std from the min and max;
+  ``smaq_kernel.fold_sums``); under ``use_sample_stats`` the one-device
+  sample of the whole tensor (``ops/smaq.py::compute_stats``: one element
+  of each of ``num_samples`` strata at an offset ``j`` drawn from the
+  shared key), each rank writing the elements in its rows into a vector
+  of zeros, summed over the ranks (adding zeros is exact); S2FP8: the sum
+  and max of ``log2|x|`` (``s2fp8_stats``' ``sums``); the float formats
+  need none.  ``min_size`` is decided on the whole tensor's count.  The
+  quantize kernels take the statistics as given (``smaq_fused``'s
+  ``mean``/``std``, ``s2fp8_fused``'s ``stats``).  On the card the sums
+  come from the stats kernels, on the CPU from their plain versions
+  (``pivot_sums_reference``, ``log2_sums``).  Every rank draws from the
+  same key, and the call's :class:`~smart_quantization_tpu_torch.ops.keys.
+  PartKey` places its rows in the whole tensor (rank ``r`` of ``W``, ``n``
+  elements each: offset ``r n`` of ``W n``), so an element draws the noise
+  one device draws for it.
 - :meth:`StatsGroup.batch_norm`: BatchNorm's training-mode normalization
   with the whole batch's per-channel mean and biased variance (float64
   sums of x and x * x all-reduced; flax's ``E[x^2] - E[x]^2``),
@@ -27,7 +36,7 @@ on the tap context (``inject/tap.py``) gives a rank that view of its rows:
 
 A group of one rank (or ``group=None``: one device holding the whole
 batch) runs the same arithmetic with no collective.  Every rank holds the
-same number of rows.
+same number of rows, rank ``r`` of the group the ``r``-th block of them.
 """
 
 from __future__ import annotations
@@ -48,11 +57,9 @@ from smart_quantization_tpu_torch.ops.cuda.smaq_kernel import (
     pivot_sums_reference,
     smaq_stats,
 )
+from smart_quantization_tpu_torch.ops.keys import PartKey
+from smart_quantization_tpu_torch.ops.smaq import sample_moments, stratum_offset
 from smart_quantization_tpu_torch.parallel.collectives import all_gather_single
-
-
-class WholeBatchError(ValueError):
-    """A setting the whole-batch statistics do not take."""
 
 
 def smaq_sums(x: torch.Tensor, params) -> torch.Tensor:
@@ -112,14 +119,17 @@ class _AllReduceSum(torch.autograd.Function):
 
 class StatsGroup:
     """The ranks over which a step's statistics run: ``group`` (a process
-    group of ``size`` ranks, each with the same number of rows), or None
-    for one device."""
+    group of ``size`` ranks, each with the same number of rows), of which
+    this process is rank ``rank``, or None for one device."""
 
-    def __init__(self, group=None, size: int = 1):
+    def __init__(self, group=None, size: int = 1, rank: int = 0):
         if group is None and size != 1:
             raise ValueError(f"a group of {size} ranks needs its process group")
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} of a group of {size}")
         self.group = group
         self.size = size
+        self.rank = rank
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order, ``(size, *t.shape)``."""
@@ -135,29 +145,46 @@ class StatsGroup:
             return t
         return _AllReduceSum.apply(t, self.group)
 
-    def compress(self, compressor, x: torch.Tensor, key, *, gamma=None, beta=None):
-        """``compressor(x, key)`` on this rank's rows with the statistics of
-        the whole tensor over the ranks; returns ``(y, SizeStats)`` of this
-        rank's part."""
+    def sample(self, x: torch.Tensor, params, key) -> tuple[torch.Tensor, torch.Tensor]:
+        """Sampled stats' (mean, std) of the whole tensor, this rank holding
+        ``x``: the one-device sample (``ops/smaq.py::compute_stats``) of
+        the ``W n`` elements, ``j`` drawn from ``key`` on every rank (a
+        device tensor from a step key), the elements of this rank's range
+        written into a vector of zeros and the vectors summed."""
         n = x.numel()
+        k = params.num_samples
+        m = n * self.size // k
+        j = stratum_offset(key, m, x.device)
+        idx = torch.arange(k, device=x.device) * m + (j - self.rank * n)
+        mine = (idx >= 0) & (idx < n)
+        flat = x.reshape(-1).float()
+        sample = torch.where(mine, flat[idx.clamp(0, n - 1)], torch.zeros((), device=x.device))
+        if self.size > 1:
+            dist.all_reduce(sample, op=dist.ReduceOp.SUM, group=self.group)
+        return sample_moments(sample, params)
+
+    def compress(self, compressor, x: torch.Tensor, key, *, gamma=None, beta=None):
+        """``compressor(x, key)`` on this rank's rows with the statistics and
+        the random draws of the whole tensor over the ranks; returns ``(y,
+        SizeStats)`` of this rank's part."""
+        n = x.numel()
+        part = PartKey(key, self.rank * n, self.size * n)
         if isinstance(compressor, SmaQ):
             params = compressor.params
-            if params.use_sample_stats:
-                raise WholeBatchError(
-                    "--use_sample_stats takes a stratified sample of the global flattened NHWC "
-                    "tensor (ops/smaq.py:97-101 of the JAX package); the whole-batch step does "
-                    "not draw it over the ranks' rows")
             if n * self.size < params.min_size:
                 return x, SizeStats.of(n, 32, 32, x.device)
-            mean, std = fold_sums(self.gather(smaq_sums(x, params)), n, params)
-            return _without_min_size(compressor)(x, key, gamma=gamma, beta=beta,
+            if params.use_sample_stats and n * self.size > params.num_samples:
+                mean, std = self.sample(x, params, key)
+            else:
+                mean, std = fold_sums(self.gather(smaq_sums(x, params)), n, params)
+            return _without_min_size(compressor)(x, part, gamma=gamma, beta=beta,
                                                  mean=mean, std=std)
         if isinstance(compressor, S2FP8):
             if n == 0:
-                return compressor(x, key)
-            return compressor(x, key, log2_stats=fold_log2(self.gather(log2_sums(x)),
-                                                           n * self.size))
-        return compressor(x, key, gamma=gamma, beta=beta)
+                return compressor(x, part)
+            return compressor(x, part, log2_stats=fold_log2(self.gather(log2_sums(x)),
+                                                            n * self.size))
+        return compressor(x, part, gamma=gamma, beta=beta)
 
     def batch_norm(self, bn, xf: torch.Tensor) -> torch.Tensor:
         """Training-mode BatchNorm of module ``bn`` (``models/resnet.py``:

@@ -195,6 +195,13 @@ def _generator(seed: int, device: torch.device | str = "cpu") -> torch.Generator
     return gen
 
 
+def init_generators(seed: int) -> tuple[torch.Generator, torch.Generator]:
+    """The host generators a run seeded ``seed`` encodes its initial packed
+    state from: the optimizer state's and the weights'."""
+    words = np.random.SeedSequence(seed, spawn_key=(1,)).generate_state(2, np.uint64)
+    return _generator(int(words[0])), _generator(int(words[1]))
+
+
 def make_reproducible() -> None:
     """Deterministic kernels on the card: the same seed gives the same run
     bit for bit.  cuBLAS reads ``CUBLAS_WORKSPACE_CONFIG`` at its first
@@ -324,8 +331,7 @@ class Trainer:
         the global layout is built (as the JAX package's ``fsdp_size``
         init) and this rank keeps its shards of it."""
         params = {n: p.detach() for n, p in self.model.named_parameters()}
-        words = np.random.SeedSequence(self.cfg.seed, spawn_key=(1,)).generate_state(2, np.uint64)
-        gen_state, gen_weights = (_generator(int(w)) for w in words)
+        gen_state, gen_weights = init_generators(self.cfg.seed)
         fsdp = self.mesh.shape["fsdp"] if self._fsdp is not None else None
         opt_state = init_opt_state(self.spec, params, self.optim_comp, gen_state, fsdp_size=fsdp)
         packed = None

@@ -124,6 +124,25 @@ def test_stochastic_kernels_read_their_key_from_device_memory(name):
 
 
 @pytest.mark.parametrize(
+    "name", ["smaq_quantize", "smaq_quantize_bn", "smaq_onepass", "float_quantize",
+             "s2fp8_quantize", "s2fp8_quantize_window", "philox_fill"])
+def test_stochastic_kernels_take_an_element_offset(name):
+    """Every stochastic kernel counts its Philox words from the element
+    offset of its tensor in a larger one (csrc/philox.cuh: Draws), a 64-bit
+    value after the call index, and picks its instance by that offset."""
+    params = SIGNATURES[name]
+    i = params.index("unsigned int call")
+    assert params[i + 1] == "long long offset"
+    src = _read(f"{build.CSRC}/{_SOURCES[name]}")
+    assert "smaq::draws(key, call, offset)" in src and "smaq::has_offset(offset)" in src
+
+
+_SOURCES = {"smaq_quantize": "smaq.cu", "smaq_quantize_bn": "smaq.cu", "smaq_onepass": "smaq.cu",
+            "float_quantize": "float_quantize.cu", "s2fp8_quantize": "s2fp8.cu",
+            "s2fp8_quantize_window": "s2fp8.cu", "philox_fill": "philox_fill.cu"}
+
+
+@pytest.mark.parametrize(
     "name", ["smaq_stats", "smaq_quantize", "smaq_quantize_bn", "smaq_onepass",
              "float_quantize", "s2fp8_stats", "s2fp8_quantize"])
 def test_elementwise_kernels_take_the_element_dtype(name):

@@ -78,7 +78,10 @@ def test_mix_constants_match_philox_cuh():
         keys.MIX_GAMMA, keys.MIX_M1, keys.MIX_M2)
     assert (const("kMixS1"), const("kMixS2"), const("kMixS3")) == keys.MIX_SHIFTS
     fill = _read("philox_fill.cu")
-    assert '#include "philox.cuh"' in fill and "smaq::philox_key(key, call)" in fill
+    # the fill keys its words as the quantize kernels do: Draws, whose key
+    # is philox_key's mix of (step key, call)
+    assert '#include "philox.cuh"' in fill and "smaq::draws(key, call, offset)" in fill
+    assert "return Draws{philox_key(key, call)," in src
 
 
 @pytest.mark.parametrize("key", [0, 5, 2**63 + 17, 2**64 - 1])

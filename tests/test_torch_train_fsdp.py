@@ -26,8 +26,23 @@ replaced by the identity for the comparison), 2 steps:
   and S2FP8) and a BatchNorm's output on the mesh equal the single
   device's on the whole tensor, where each rank's own statistics would not;
 - a tensor below ``min_size`` on each rank but not in all is quantized;
-- ``state_shardings`` shards on the JAX layout's axis;
-- packed state and sampled statistics raise ``WholeBatchError``.
+- ``state_shardings`` shards on the JAX layout's axis; no mesh raises;
+- random draws as one device's: a stochastic step (SmaQ 6/8 stochastic on
+  every structure) on a (2, 2), a (1, 2) and a (2, 1) mesh, and with
+  ``--use_sample_stats`` (64 samples) on a (2, 2) mesh, against the (1, 1)
+  step with the same key by the same rule, ranks bitwise equal
+  (JAX's step, whose draws do not depend on the mesh either, agrees with
+  itself across meshes to about 1e-5 with sampled statistics); the plain
+  versions of the quantize functions on a tensor cut into parts, each at
+  its element offset (``ops/keys.py::PartKey``), bitwise the whole
+  tensor's call under the same statistics, from a host generator and
+  from a step key; the sampled statistics of ``StatsGroup.compress`` on 4
+  ranks bitwise one device's on the whole tensor, a sample element on a
+  rank boundary;
+- packed state (``--packed_momentum --packed_weights``) in truncation on a
+  (2, 2) and a (1, 2) mesh against ``Trainer.train_step`` with packed
+  state, and packed momentum against JAX's step too, decoded values by
+  the same rule.
 """
 
 import contextlib
@@ -44,6 +59,7 @@ from test_torch_parallel import _numpy, jax_setup, jax_tree_to_port
 BATCH = 8
 CLASSES = 5
 KEY = 11
+SAMPLES = 64  # --num_samples of the sampled-statistics cases
 OPTIMIZERS = {"sgd": dict(learning_rate=0.1, momentum=0.9, weight_decay=5e-4),
               "adamw": dict(learning_rate=1e-3, weight_decay=0.01)}
 
@@ -102,7 +118,7 @@ def _unaugmented():
         yield
 
 
-def _port_build(state_dict, optimizer, master):
+def _port_build(state_dict, optimizer, master, stochastic=False, packed=False, sample=False):
     from smart_quantization_tpu_torch.compress import build_compressor
     from smart_quantization_tpu_torch.inject.tap import TapConfig
     from smart_quantization_tpu_torch.models.tiny import TinyCNN
@@ -111,46 +127,64 @@ def _port_build(state_dict, optimizer, master):
         build_optimizer,
     )
 
-    comp = build_compressor("smart", stochastic_rounding=False)
+    comp = build_compressor("smart", stochastic_rounding=stochastic, use_sample_stats=sample,
+                            num_samples=SAMPLES)
     model = TinyCNN(num_classes=CLASSES, tap=TapConfig(compressor=comp))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
     return (model, build_optimizer(optimizer, **OPTIMIZERS[optimizer]),
-            OptimizerCompression(compressor=comp, use_weight_accumulator=master))
+            OptimizerCompression(compressor=comp, use_weight_accumulator=master,
+                                 packed_momentum=packed in ("momentum", "both"),
+                                 packed_weights=packed == "both"))
 
 
-def _port_result(metrics, params, opt, model, master):
+def _port_result(metrics, params, opt, model, master, spec, optim_comp):
+    """The step's results as numpy, packed leaves decoded."""
+    from smart_quantization_tpu_torch.optim.compressed import (
+        _decode_tree,
+        decode_params,
+        packed_smaq_params,
+    )
+
     if master:
         opt = {**opt.inner, "master": opt.master}
-    return {"metrics": _numpy(metrics), "params": _numpy(params),
+    if optim_comp.packed_momentum:
+        p = packed_smaq_params(optim_comp)
+        opt = {**opt, **{b: _decode_tree(opt[b], p, ap) for b, ap in spec.momentum_buffers}}
+    return {"metrics": _numpy(metrics), "params": _numpy(decode_params(params, optim_comp)),
             "opt": {k: _numpy(v) for k, v in opt.items() if k != "count"},
             "buffers": _numpy(dict(model.named_buffers()))}
 
 
-def port_steps(mesh_shape, state_dict, steps, optimizer, master=False):
+def port_steps(mesh_shape, state_dict, steps, optimizer, master=False, stochastic=False,
+               packed=False, sample=False):
     """The port's whole-batch step, ``len(steps)`` times, on a mesh of
-    ``mesh_shape``, with float32 master weights if ``master``; the last
+    ``mesh_shape`` ((1, 1): one device, no process group), with float32
+    master weights if ``master``, stochastic rounding if ``stochastic``,
+    ``packed`` state ("momentum", or "both" with the weights) and sampled
+    statistics (``--use_sample_stats``) if ``sample``; the last
     metrics and the global parameters, optimizer state (its buffers, and
     the master weights as ``master``) and BatchNorm statistics."""
     from smart_quantization_tpu_torch.parallel.train_fsdp import make_fsdp_train_step
 
-    model, spec, optim_comp = _port_build(state_dict, optimizer, master)
+    model, spec, optim_comp = _port_build(state_dict, optimizer, master, stochastic, packed,
+                                          sample)
     step = make_fsdp_train_step(model, spec, optim_comp, _mesh(*mesh_shape))
     state = step.init_state()
     with _unaugmented():
         for x, y in steps:
             metrics = step(state, torch.from_numpy(x), torch.from_numpy(y), KEY)
     return _port_result(metrics, step.global_params(state), step.global_opt_state(state),
-                        model, master)
+                        model, master, spec, optim_comp)
 
 
-def trainer_steps(state_dict, steps, optimizer, master=False):
+def trainer_steps(state_dict, steps, optimizer, master=False, packed=False):
     """The port's single-device step (``Trainer.train_step``) on the same
     global batches, the input ``global_inputs`` gives; ``port_steps``'
     result."""
     from smart_quantization_tpu_torch.parallel.train_fsdp import global_inputs
     from smart_quantization_tpu_torch.train.loop import TrainConfig, Trainer
 
-    model, spec, optim_comp = _port_build(state_dict, optimizer, master)
+    model, spec, optim_comp = _port_build(state_dict, optimizer, master, packed=packed)
     trainer = Trainer(model, None, spec, optim_comp=optim_comp, device="cpu",
                       config=TrainConfig(measure_compression_ratio=True))
     state = trainer.init_state()
@@ -158,16 +192,17 @@ def trainer_steps(state_dict, steps, optimizer, master=False):
         for x, y in steps:
             metrics = trainer.train_step(state, global_inputs(torch.from_numpy(x), KEY),
                                          torch.from_numpy(y).long())
-    params = {n: p.detach() for n, p in model.named_parameters()}
-    return _port_result(metrics, params, state.opt_state, model, master)
+    params = state.packed_params or {n: p.detach() for n, p in model.named_parameters()}
+    return _port_result(metrics, params, state.opt_state, model, master, spec, optim_comp)
 
 
 # ---------------------------------------------------------- JAX's side
 @functools.lru_cache(maxsize=None)
-def jax_whole_batch(optimizer):
+def jax_whole_batch(optimizer, packed_momentum=False):
     """JAX's ``make_fsdp_train_step`` (dp=4, fsdp=2) on ``batches(2)``,
     its augmentation replaced by the identity: the parameters, the
-    optimizer's buffers and the batch statistics in the port's names."""
+    optimizer's buffers (packed momentum decoded) and the batch statistics
+    in the port's names."""
     import types
 
     import jax
@@ -191,24 +226,28 @@ def jax_whole_batch(optimizer):
     spec = jopt.build_optimizer(optimizer, kw.pop("learning_rate"), **kw)
     mesh = jax_make_mesh(dp=4, fsdp=2, devices=jax.devices()[:8])
     params = jax.tree.map(jnp.asarray, variables["params"])
+    optim_comp = jopt.OptimizerCompression(compressor=comp, packed_momentum=packed_momentum)
     state = TrainState(jnp.int32(0), params, jax.tree.map(jnp.asarray, variables["batch_stats"]),
-                       spec.tx.init(params))
+                       jopt.init_opt_state(spec, params, optim_comp))
     state = jfsdp.place_state(mesh, state)
     rows = NamedSharding(mesh, P("data"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jfsdp, "cifar_data",
                    types.SimpleNamespace(augment=lambda x, key: x, normalize=jcifar.normalize))
-        step = jfsdp.make_fsdp_train_step(model, spec, jopt.OptimizerCompression(compressor=comp),
-                                          mesh)(state)
+        step = jfsdp.make_fsdp_train_step(model, spec, optim_comp, mesh)(state)
         for x, y in batches(2):
             state, metrics = step(state, jax.device_put(jnp.asarray(x), rows),
                                   jax.device_put(jnp.asarray(y), rows), jax.random.key(KEY))
-    state = jax.tree.map(np.asarray, state)
     opt = {}
     for s in state.opt_state:
         for name in ("trace", "mu", "nu"):
             if hasattr(s, name):
-                opt[name] = jax_tree_to_port(getattr(s, name))
+                tree = getattr(s, name)
+                if packed_momentum:
+                    tree = jopt._decode_tree(tree, jopt.packed_smaq_params(optim_comp),
+                                             name == "nu")
+                opt[name] = jax_tree_to_port(jax.tree.map(np.asarray, tree))
+    state = jax.tree.map(np.asarray, state)
     return {"loss": float(metrics["train_loss"]), "params": jax_tree_to_port(state.params),
             "opt": opt, "buffers": jax_tree_to_port(state.batch_stats)}
 
@@ -434,7 +473,7 @@ def test_state_shardings_take_the_jax_layout():
     assert set(state_shardings(_Sizes(1, 1), TinyCNN()).values()) == {-1}
 
 
-def test_packed_state_and_sampled_stats_raise():
+def test_no_mesh_raises():
     from smart_quantization_tpu_torch.compress import build_compressor
     from smart_quantization_tpu_torch.models.tiny import TinyCNN
     from smart_quantization_tpu_torch.optim.compressed import (
@@ -442,16 +481,229 @@ def test_packed_state_and_sampled_stats_raise():
         build_optimizer,
     )
     from smart_quantization_tpu_torch.parallel.train_fsdp import make_fsdp_train_step
-    from smart_quantization_tpu_torch.parallel.whole_batch import StatsGroup, WholeBatchError
 
-    comp = build_compressor("smart")
-    with pytest.raises(WholeBatchError, match="packed state"):
-        make_fsdp_train_step(TinyCNN(), build_optimizer("sgd"),
-                             OptimizerCompression(compressor=comp, packed_momentum=True),
-                             _Sizes(1, 1))
     with pytest.raises(ValueError, match="make_mesh"):
         make_fsdp_train_step(TinyCNN(), build_optimizer("sgd"),
-                             OptimizerCompression(compressor=comp), None)
-    sampled = build_compressor("smart", use_sample_stats=True)
-    with pytest.raises(WholeBatchError, match="use_sample_stats"):
-        StatsGroup().compress(sampled, torch.randn(64), torch.Generator().manual_seed(0))
+                             OptimizerCompression(compressor=build_compressor("smart")), None)
+    with pytest.raises(ValueError, match="process group"):
+        make_mesh(2, 1)  # no process group in this process
+
+
+def _assert_ranks_equal(got):
+    """Every rank's gathered state bitwise equal to rank 0's."""
+    for r in got[1:]:
+        for what in ("params", "buffers"):
+            for k, v in r[what].items():
+                np.testing.assert_array_equal(v, got[0][what][k], err_msg=f"{what} {k}")
+        for b, tree in r["opt"].items():
+            for k, v in tree.items():
+                np.testing.assert_array_equal(v, got[0]["opt"][b][k], err_msg=f"{b} {k}")
+
+
+def _assert_steps_agree(mesh, other, name, rtol=1e-5):
+    """The flip rule on the parameters, the optimizer's buffers and the
+    BatchNorm statistics; the loss within ``rtol``."""
+    assert set(mesh["opt"]) == set(other["opt"]), name
+    assert_close_or_flipped(mesh["params"], other["params"], f"params vs {name}")
+    for b in other["opt"]:
+        assert_close_or_flipped(mesh["opt"][b], other["opt"][b], f"{b} vs {name}")
+    buffers = {k: v for k, v in other["buffers"].items() if not k.endswith("batches_tracked")}
+    assert_close_or_flipped({k: mesh["buffers"][k] for k in buffers}, buffers,
+                            f"BatchNorm statistics vs {name}")
+    loss = float(mesh["metrics"]["train_loss"])
+    assert loss == pytest.approx(float(other["metrics"]["train_loss"]), rel=rtol), name
+
+
+# ------------------------------------------------- one device's draws
+@functools.lru_cache(maxsize=None)
+def one_device_stochastic(optimizer, sample=False):
+    """The (1, 1) whole-batch step, stochastic, in this process."""
+    _, state_dict = tiny_setup()
+    return port_steps((1, 1), state_dict, batches(2), optimizer, stochastic=True, sample=sample)
+
+
+@pytest.mark.parametrize("mesh_shape,sample", [((2, 2), False), ((1, 2), False), ((2, 1), False),
+                                               ((2, 2), True)],
+                         ids=["2x2", "1x2", "2x1", "2x2-sampled"])
+def test_stochastic_mesh_step_draws_as_one_device(pools, mesh_shape, sample):
+    """SmaQ 6/8 with stochastic rounding on every structure, with full or
+    sampled statistics (``--use_sample_stats``, 64 samples): the mesh's
+    step is the (1, 1) step with the same key, by the flip rule, and every
+    rank holds the same state.  The taps' calls on a rank's rows take their
+    noise at the rows' offset in the whole tensor, and under sampled
+    statistics the whole tensor's sample; the optimizer's calls on one
+    leaf take the whole tree's keys for it."""
+    _, state_dict = tiny_setup()
+    got = pools[mesh_shape[0] * mesh_shape[1]].run(port_steps, mesh_shape, state_dict,
+                                                   batches(2), "sgd", False, True, False, sample)
+    _assert_ranks_equal(got)
+    one = one_device_stochastic("sgd", sample)
+    _assert_steps_agree(got[0], one, "the (1, 1) step")
+    for tag in ("forward_autograd", "backward_autograd"):
+        np.testing.assert_array_equal(got[0]["metrics"][f"_ratio/{tag}"][0],
+                                      one["metrics"][f"_ratio/{tag}"][0])
+
+
+PART_SIZES = (37, 64, 9, 90)  # 200 elements; offsets 0, 37, 101, 110
+BN_ROWS = (1, 3, 2, 2)  # of an (8, 3, 5, 5) map: offsets 0, 75, 300, 450
+KEYS = ("host generator", "step key")
+
+
+def _fresh_key(kind, seed=5):
+    from smart_quantization_tpu_torch.ops.keys import DeviceKey, key_tensor, step_key
+
+    if kind == "host generator":
+        return torch.Generator().manual_seed(seed)
+    return DeviceKey(key_tensor(step_key(0, seed), "cpu"))
+
+
+def _quantize_fns():
+    """name -> (x, fn(x, key) -> (y, size or None)), the statistics given."""
+    from smart_quantization_tpu_torch.compress import build_compressor
+    from smart_quantization_tpu_torch.ops.cuda import smaq_kernel as K
+    from smart_quantization_tpu_torch.ops.s2fp8 import log2_stats
+
+    r = np.random.RandomState(2)
+    flat = torch.from_numpy((r.randn(200) * 1.3 + 0.2).astype(np.float32))
+    nchw = torch.from_numpy((r.randn(8, 3, 5, 5) * 0.7 - 0.1).astype(np.float32))
+    gamma = torch.from_numpy((1 + 0.2 * r.randn(3)).astype(np.float32))
+    beta = torch.from_numpy((0.1 * r.randn(3)).astype(np.float32))
+    smaq = build_compressor("smart")
+    bn = build_compressor("smart", use_batch_norm=True)
+    m_flat, s_flat = flat.mean(), flat.std()
+    m_bn, s_bn = nchw.mean(), nchw.std()
+    a = flat.abs()
+    lg = log2_stats(torch.where(a == 0, a, torch.log2(a)))
+    def bits(out):
+        return out[0], out[1].new_bits
+
+    return {
+        "smaq": (flat, lambda x, k: bits(smaq(x, k, mean=m_flat, std=s_flat))),
+        "smaq kernels' plain version": (flat, lambda x, k: K.smaq_fused_reference(
+            x, k, smaq.params, mean=m_flat, std=s_flat)),
+        "bn": (nchw, lambda x, k: bits(bn(x, k, gamma=gamma, beta=beta, mean=m_bn, std=s_bn))),
+        "bn kernel's plain version": (nchw, lambda x, k: K.smaq_fused_bn_reference(
+            x, k, gamma, beta, bn.params, mean=m_bn, std=s_bn)),
+        "fp8": (flat, lambda x, k: (build_compressor("fp8")(x, k)[0], None)),
+        "bf16": (flat, lambda x, k: (build_compressor("bf16")(x, k)[0], None)),
+        "s2fp8": (flat, lambda x, k: (build_compressor("s2fp8")(x, k, log2_stats=lg)[0], None)),
+    }
+
+
+@pytest.mark.parametrize("key_kind", KEYS)
+@pytest.mark.parametrize("name", ["smaq", "smaq kernels' plain version", "bn",
+                                  "bn kernel's plain version", "fp8", "bf16", "s2fp8"])
+def test_parts_at_their_offsets_are_the_whole_call(name, key_kind):
+    """A tensor cut into 4 parts (offsets not all multiples of 4), each
+    quantized stochastically at its element offset under the whole
+    tensor's statistics, is bitwise the whole tensor's call with the same
+    key, and its sizes add up to the whole's."""
+    from smart_quantization_tpu_torch.ops.keys import PartKey
+
+    x, fn = _quantize_fns()[name]
+    whole, size = fn(x, _fresh_key(key_kind))
+    if x.dim() == 4:
+        parts = torch.split(x, BN_ROWS)
+    else:
+        parts = torch.split(x, PART_SIZES)
+    outs, sizes, at = [], [], 0
+    for part in parts:
+        y, s = fn(part.contiguous(), PartKey(_fresh_key(key_kind), at, x.numel()))
+        outs.append(y)
+        sizes.append(s)
+        at += part.numel()
+    assert any(p.numel() % 4 for p in parts[:-1])
+    np.testing.assert_array_equal(torch.cat(outs).numpy(), whole.numpy())
+    assert not torch.equal(whole, x)
+    if size is not None:
+        assert float(sum(float(s) for s in sizes)) == float(size)
+    assert not torch.equal(fn(x, _fresh_key(key_kind, 6))[0], whole)  # another key
+
+
+def rank_sampled_stats(x, key_kind, seed, num_samples):
+    """On each rank of a 4-rank world: the sampled statistics of its rows of
+    ``x`` over the world (``StatsGroup.sample``) and ``StatsGroup.compress``
+    of them (SmaQ 6/8 stochastic, sampled statistics), with the key
+    ``seed`` gives."""
+    import torch.distributed as dist
+
+    from smart_quantization_tpu_torch.compress import build_compressor
+    from smart_quantization_tpu_torch.parallel.whole_batch import StatsGroup
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = StatsGroup(dist.group.WORLD, world, rank)
+    comp = build_compressor("smart", use_sample_stats=True, num_samples=num_samples)
+    rows = torch.from_numpy(x).chunk(world)[rank].contiguous()
+    mean, std = group.sample(rows, comp.params, _seeded_key(key_kind, seed))
+    y, sizes = group.compress(comp, rows, _seeded_key(key_kind, seed))
+    return {"stats": torch.stack([mean, std]).numpy(), "y": y.numpy(),
+            "size": sizes.new_bits.numpy()}
+
+
+def _seeded_key(kind, seed):
+    from smart_quantization_tpu_torch.ops.keys import DeviceKey, key_tensor
+
+    if kind == "host generator":
+        return torch.Generator().manual_seed(seed)
+    return DeviceKey(key_tensor(seed, "cpu"))
+
+
+@pytest.mark.parametrize("key_kind", KEYS)
+def test_sampled_stats_over_ranks_are_one_devices(pools, key_kind):
+    """``--use_sample_stats`` on 4 ranks: the stratified sample of the
+    whole tensor (``ops/smaq.py::compute_stats``), one of its elements the
+    first or the last of a rank's rows; the mean and std bitwise one
+    device's, and the stochastic call's output bitwise one device's on the
+    whole tensor with the same key."""
+    from smart_quantization_tpu_torch.compress import build_compressor
+    from smart_quantization_tpu_torch.ops.smaq import compute_stats, stratum_offset
+
+    x = (_scaled_rows()[:, :, :3, :] * 0.1).astype(np.float32)  # (8, 4, 3, 3): 72 a rank
+    n, k = x.size // 4, 16
+    m = x.size // k  # 18: sample i*18 + j
+    edges = {r * n + d for r in range(1, 4) for d in (-1, 0)}
+    for seed in range(200):
+        j = int(stratum_offset(_seeded_key(key_kind, seed), m, "cpu"))
+        if any(i * m + j in edges for i in range(k)):
+            break
+    else:
+        raise AssertionError("no seed puts a sample on a rank boundary")
+    got = pools[4].run(rank_sampled_stats, x, key_kind, seed, k)
+    comp = build_compressor("smart", use_sample_stats=True, num_samples=k)
+    mean, std = compute_stats(torch.from_numpy(x), comp.params, _seeded_key(key_kind, seed))
+    for r in got:
+        np.testing.assert_array_equal(r["stats"], torch.stack([mean, std]).numpy())
+    want, size = comp(torch.from_numpy(x), _seeded_key(key_kind, seed))
+    np.testing.assert_array_equal(np.concatenate([r["y"] for r in got]), want.numpy())
+    assert sum(float(r["size"]) for r in got) == float(size.new_bits)
+    full = build_compressor("smart")(torch.from_numpy(x), _seeded_key(key_kind, seed))[0]
+    assert not np.array_equal(full.numpy(), want.numpy())  # the sample's own statistics
+
+
+# ------------------------------------------------------- packed state
+@pytest.mark.parametrize("mesh_shape,packed", [((2, 2), "both"), ((1, 2), "both"),
+                                               ((2, 2), "momentum")],
+                         ids=["2x2-weights", "1x2-weights", "2x2-momentum"])
+def test_packed_state_on_the_mesh(pools, mesh_shape, packed):
+    """``--packed_momentum`` (and ``--packed_weights``) in truncation: each
+    rank stores its block of a packed leaf's codes, the leaf's statistics
+    replicated; the decoded parameters and momentum after 2 steps against
+    ``Trainer.train_step`` with the same packed state and, for packed
+    momentum, against JAX's ``make_fsdp_train_step``, by the flip rule;
+    every rank bitwise equal."""
+    _, state_dict = tiny_setup()
+    steps = batches(2)
+    got = pools[mesh_shape[0] * mesh_shape[1]].run(port_steps, mesh_shape, state_dict, steps,
+                                                   "sgd", False, False, packed)
+    _assert_ranks_equal(got)
+    _assert_steps_agree(got[0], trainer_steps(state_dict, steps, "sgd", packed=packed),
+                        "the trainer's step")
+    if packed == "momentum":
+        ref = jax_whole_batch("sgd", True)
+        assert_close_or_flipped(got[0]["params"], ref["params"], "params vs JAX")
+        assert_close_or_flipped(got[0]["opt"]["trace"], ref["opt"]["trace"], "trace vs JAX")
+        assert float(got[0]["metrics"]["train_loss"]) == pytest.approx(ref["loss"], rel=1e-5)
+    # the optimizer's packed sizes: 8 bits an element and 64 a leaf
+    for tag in ("optimizer_momentum",) + (("optimizer_weight",) if packed == "both" else ()):
+        orig, new = got[0]["metrics"][f"_ratio/{tag}"]
+        assert 0.25 < new / orig < 0.26, tag
